@@ -17,7 +17,26 @@ Phases, each of which raises on a failed check (exit code != 0):
    before; each step must launch the compaction kernel 3 times and the
    medoid kernel once. One more step is checked for sane outputs and
    against the port's plain CPU path on 2 of its keyframes.
-4. One JSON line per kernel summary, then the card's name and power limit,
+4. Window attention: one full-width bf16 Detic Swin-B forward on a
+   6-camera 1024x576 ring records the kernel's inputs at each of the 8
+   distinct (stage, shift) shapes. At each, the bf16 kernels are held to
+   the plain version run in f32 on the same bf16-rounded inputs and weights
+   (max abs error <= 2^-5 of max|plain|, four bf16 ulps at the top of the
+   range), the f32 kernels to the f32 plain version (<= 1e-4 of max|plain|),
+   and kernels and bf16 plain version are timed with CUDA events beside the
+   bound.
+5. Mask stage: bench_mask_stage at production geometry (Detic Swin-B +
+   SAM ViT-H, bf16, 6 x 1024x576, 8 frames) with the window-attention
+   counts reset just before; every Detic forward must launch each of the two
+   kernels 24 times (one per Swin block). Run with the JAX protocol's 0.15 s
+   IO stand-in, and again without it, so the device-side rate shows. One
+   keyframe is profiled.
+6. Mask-path CPU check: DETIC_TEST / SAM_TEST from one torch.Generator
+   seed, one 6-camera keyframe through generate_frame_masks on the card
+   (f32, TF32 off) and on the CPU (plain versions): equal valid flags and
+   class ids, boxes within 1e-3 px, planes bit-equal except bits whose
+   upsampled logit lies within 1e-3 of 0.
+7. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -27,6 +46,8 @@ prints no result.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,6 +57,12 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+WA_BF16_TOL = 2.0 ** -5  # window attention, bf16 kernel vs f32 plain, x max|plain|
+WA_F32_TOL = 1e-4  # window attention, f32 kernel vs f32 plain, x max|plain|
+SWIN_BLOCKS_PER_FORWARD = 24  # Swin-B depths (2, 2, 18, 2)
+BOX_ATOL = 1e-3  # mask-path CPU check: box corners, image px
+LOGIT_EPS = 1e-3  # mask-path CPU check: bits this close to 0 may flip
 # f32 operations per (i, j) pair of the medoid sums: 3 sub, 3 mul, 2 add,
 # sqrt, the valid multiply, the accumulate
 MEDOID_OPS_PER_PAIR = 11
@@ -159,6 +186,11 @@ def medoid_phase(torch, rows, valid):
           "medoid argmin equal wherever the two smallest sums differ by > 1e-5 rel")
     pairs = int((counts.to(torch.int64) ** 2).sum())
     points = rows.detach().transpose(1, 2).contiguous()
+    # the [R, K, 3] entry (TPU kernel medoid_pallas.py:89): a transpose, then
+    # the same kernel; off the main path
+    kn3_ms = time_ms(torch, lambda: medoid_distance_sums(points, valid))
+    kn3_plain_ms = time_ms(torch, lambda: medoid_distance_sums_rows_plain(
+        points.transpose(1, 2), valid), reps=1)
     ms = time_ms(torch, lambda: medoid_distance_sums_rows(rows, valid))
     plain_ms = time_ms(torch, lambda: medoid_distance_sums_rows_plain(rows, valid), reps=3)
     # torch.cdist's exact mode refuses the whole [1024, 2048, 2048] launch
@@ -175,29 +207,31 @@ def medoid_phase(torch, rows, valid):
         "rows": r, "k": k, "pairs": pairs, "near_tie_rows": int(near_tie.sum()),
         "rows_with_points": int(has.sum()), "max_abs_err": max_err, "max_rel_err": rel,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "kn3_ms": kn3_ms, "kn3_plain_ms": kn3_plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "near_tie": near_tie,
     }
     print(f"medoid: R={r} K={k} pairs={pairs} max rel err {rel:.3g} "
           f"near-tie rows {out['near_tie_rows']} kernel {ms:.4f} ms plain "
-          f"{plain_ms:.4f} ms cdist {library_ms:.4f} ms bound {out['bound_ms']:.4f} ms",
+          f"{plain_ms:.4f} ms cdist {library_ms:.4f} ms bound {out['bound_ms']:.4f} ms; "
+          f"[R, K, 3] entry {kn3_ms:.4f} ms, its plain version {kn3_plain_ms:.4f} ms",
           flush=True)
     return out
 
 
-def profile_phase(torch, step, frames, n_steps: int = 3) -> None:
-    """Device time of the step by kernel (torch.profiler) and the device's
-    busy share of the wall time, over `n_steps` steps after a warm-up."""
+def profile_phase(torch, step, n_steps: int = 3) -> None:
+    """Device time of `step()` by kernel (torch.profiler) and the device's
+    busy share of the wall time, over `n_steps` calls after a warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step(frames)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            step(frames)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     # device-side entries only (kernels, memcpy, memset): the host-side aten
@@ -219,6 +253,249 @@ def profile_phase(torch, step, frames, n_steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{calls:<4d} {name[:90]}", flush=True)
 
 
+def capture_window_attn_inputs(torch, models, images, n_blocks=SWIN_BLOCKS_PER_FORWARD,
+                               n_shapes=8):
+    """Run one Detic forward on the ring, recording the window-attention
+    wrapper's inputs at the first block of each distinct (C, shift) and how
+    many blocks of the forward run at each."""
+    import cm3d_tpu_torch.models.swin as swin
+
+    shapes, mult = {}, {}
+    real = swin.window_attn
+
+    def spy(x, *params, heads, window, shift, dtype):
+        key = (x.shape[-1], shift)
+        mult[key] = mult.get(key, 0) + 1
+        if key not in shapes:
+            shapes[key] = (x.clone(), tuple(p.detach().clone() for p in params),
+                           dict(heads=heads, window=window, shift=shift, dtype=dtype))
+        return real(x, *params, heads=heads, window=window, shift=shift, dtype=dtype)
+
+    swin.window_attn = spy
+    try:
+        models.detic(models.prepare(images))
+    finally:
+        swin.window_attn = real
+    torch.cuda.synchronize()
+    check(sum(mult.values()) == n_blocks,
+          f"one Swin forward runs {n_blocks} blocks, saw {sum(mult.values())}")
+    check(len(shapes) == n_shapes, f"{n_shapes} distinct (stage, shift) shapes, saw "
+          f"{sorted(shapes)}")
+    return [(key, shapes[key], mult[key]) for key in sorted(shapes)]
+
+
+def window_attn_phase(torch, captured):
+    from cm3d_tpu_torch.kernels.window_attn import (
+        window_attn_heads,
+        window_attn_heads_plain,
+        window_attn_plain,
+        window_attn_proj,
+        window_attn_proj_plain,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = []
+    for (c, shift), (x, (g, b, wqkv, bqkv, wproj, bproj, table), kw), mult in captured:
+        heads, win = kw["heads"], kw["window"]
+        check(kw["dtype"] == bf16, "the Detic forward computes in bf16")
+        bsz, h, w, _ = x.shape
+        geo = dict(heads=heads, window=win, shift=shift)
+        # weights as the kernels read them (bf16 qkv / proj, f32 rest)
+        wqkv_b, wproj_b = wqkv.to(bf16), wproj.to(bf16)
+        heads_args = (x, g, b, wqkv_b, bqkv, table)
+        # bf16 kernels against the f32 plain version on the same bf16-rounded
+        # inputs and weights
+        r_qkv, r_proj = wqkv.to(bf16).float(), wproj.to(bf16).float()
+        ref_args = (x.float(), g, b, r_qkv, bqkv, table)
+        o = window_attn_heads(*heads_args, dtype=bf16, **geo)
+        got = window_attn_proj(o, wproj_b, bproj, out_shape=tuple(x.shape), dtype=bf16, **geo)
+        o_ref = window_attn_heads_plain(*ref_args, dtype=f32, **geo)
+        ref = window_attn_proj_plain(o.float(), r_proj, bproj, out_shape=tuple(x.shape),
+                                     window=win, shift=shift, dtype=f32)
+        full_ref = window_attn_plain(x.float(), g, b, r_qkv, bqkv, r_proj, bproj, table,
+                                     dtype=f32, **geo)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, gv, rv in (("heads", o, o_ref), ("proj", got, ref), ("branch", got, full_ref)):
+            err = float((gv.float() - rv).abs().max())
+            scale = float(rv.abs().max())
+            errs[name] = (err, err / scale)
+            check(err <= WA_BF16_TOL * scale, f"window attention C={c} shift={shift} "
+                  f"{name}: bf16 kernel vs f32 plain {err:.3g} > 2^-5 x {scale:.3g}")
+        # f32 kernels against the f32 plain version
+        xf = x.float()
+        got32 = window_attn_proj(window_attn_heads(xf, g, b, wqkv, bqkv, table, dtype=f32, **geo),
+                                 wproj, bproj, out_shape=tuple(x.shape), dtype=f32, **geo)
+        ref32 = window_attn_plain(xf, g, b, wqkv, bqkv, wproj, bproj, table, dtype=f32, **geo)
+        torch.cuda.synchronize()
+        err32 = float((got32 - ref32).abs().max())
+        check(err32 <= WA_F32_TOL * float(ref32.abs().max()),
+              f"window attention C={c} shift={shift}: f32 kernel vs plain {err32:.3g}")
+        # times (CUDA events) and bounds of the bf16 launches
+        ms_h = time_ms(torch, lambda: window_attn_heads(*heads_args, dtype=bf16, **geo))
+        ms_p = time_ms(torch, lambda: window_attn_proj(o, wproj_b, bproj,
+                                                       out_shape=tuple(x.shape), dtype=bf16, **geo))
+        plain_h = time_ms(torch, lambda: window_attn_heads_plain(*heads_args, dtype=bf16, **geo),
+                          reps=5)
+        plain_p = time_ms(torch, lambda: window_attn_proj_plain(
+            o, wproj_b, bproj, out_shape=tuple(x.shape), window=win, shift=shift, dtype=bf16),
+            reps=5)
+        # the work the branch needs, counted on the real tokens: a padding
+        # token's output is cropped, and its k / v are the bare biases (its
+        # LN output is 0), so neither needs a product. o ([tokens, C] bf16)
+        # is written by the first launch and read by the second.
+        tokens = bsz * h * w
+        n = win * win
+        ops_h = tokens * (2 * 3 * c * c + 4 * n * c)
+        bytes_h = x.numel() * x.element_size() + 3 * c * c * 2 + tokens * c * 2
+        ops_p = tokens * 2 * c * c
+        bytes_p = tokens * c * 2 + c * c * 2 + tokens * c * 2
+        rec = {
+            "channels": c, "shift": shift, "shape": list(x.shape),
+            "x_dtype": str(x.dtype).replace("torch.", ""), "num_heads": heads, "window": win,
+            "blocks_per_forward": mult, "max_abs_err": errs["branch"][0],
+            "max_rel_err": errs["branch"][1], "f32_max_abs_err": err32,
+            "gflop": (ops_h + ops_p) / 1e9,
+        }
+        for name, ms, plain, ops, nbytes in (("heads", ms_h, plain_h, ops_h, bytes_h),
+                                              ("proj", ms_p, plain_p, ops_p, bytes_p)):
+            ops_ms = ops / PEAK_BF16_OPS_PER_S * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            rec[name] = {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+                         "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                         "max_abs_err": errs[name][0], "max_rel_err": errs[name][1]}
+        out.append(rec)
+        print(f"window attention C={c} shift {shift} {list(x.shape)} h{heads}: "
+              f"bf16 rel err {errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
+              f"{errs['proj'][1]:.3g}), f32 abs err {err32:.3g}; heads {ms_h:.4f} ms + proj "
+              f"{ms_p:.4f} ms, plain {plain_h:.4f} + {plain_p:.4f} ms, bound "
+              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def mask_stage_phase(torch, models, n_frames: int = 8):
+    """bench_mask_stage at production geometry with the window-attention
+    counts reset just before each run; each Detic forward must launch each
+    kernel once per Swin block."""
+    from cm3d_tpu_torch.benchmarks import bench_mask_stage
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+
+    forwards = [0]
+    raw = models.detic
+
+    def counted(frame):
+        forwards[0] += 1
+        return raw(frame)
+
+    models = dataclasses.replace(models, detic=counted)
+    results = []
+    for io_sleep in (0.15, 0.0):
+        forwards[0] = 0
+        window_attn_heads.launches = 0
+        window_attn_proj.launches = 0
+        bench = bench_mask_stage("bfloat16", n_frames=n_frames, models=models,
+                                 io_sleep=io_sleep, device="cuda")
+        launches = {"window_attn_heads": window_attn_heads.launches,
+                    "window_attn_proj": window_attn_proj.launches}
+        bench["detic_forwards"] = forwards[0]
+        bench["launches"] = launches
+        print(json.dumps(bench), flush=True)
+        for name, count in launches.items():
+            check(count == SWIN_BLOCKS_PER_FORWARD * forwards[0],
+                  f"{name}: {SWIN_BLOCKS_PER_FORWARD} launches per Detic forward x "
+                  f"{forwards[0]} forwards, got {count}")
+        results.append(bench)
+    return results
+
+
+def mask_cpu_check(torch, device="cuda"):
+    """One small 6-camera keyframe through generate_frame_masks on the card
+    (f32, TF32 off) and on the CPU, from the same seeded weights."""
+    import torch.nn.functional as F
+
+    import cm3d_tpu_torch.ops.maskpack as maskpack
+    from cm3d_tpu_torch.config import MaskStageConfig
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
+    from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
+    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns, generate_frame_masks
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    detic = init_weights(Detic(DETIC_TEST), gen)
+    sam = init_weights(Sam(SAM_TEST), gen)
+    rng = np.random.default_rng(0)
+    clf = rng.standard_normal((DETIC_TEST.embed_dim, len(VOCAB))).astype(np.float32)
+    clf /= np.linalg.norm(clf, axis=0, keepdims=True)
+    images = [(rng.random((48, 64, 3)) * 255).astype(np.uint8) for _ in range(6)]
+
+    def run(device):
+        dets, logits = [], []
+        real_make = maskpack.make_plane_postprocess
+
+        def make(*args, **kw):
+            post = real_make(*args, **kw)
+
+            def wrapped(lg, n_boxes):
+                logits.append(lg.float().cpu())
+                return post(lg, n_boxes)
+            return wrapped
+
+        maskpack.make_plane_postprocess = make
+        try:
+            models = _batched_model_fns(copy.deepcopy(detic), clf, copy.deepcopy(sam), VOCAB,
+                                        device=device)
+        finally:
+            maskpack.make_plane_postprocess = real_make
+        raw = models.detic
+
+        def spy(frame):
+            out = raw(frame)
+            dets.append([t.cpu() for t in out])
+            return out
+
+        models = dataclasses.replace(models, detic=spy)
+        fm = generate_frame_masks(models, images, MaskStageConfig(dtype="float32"))
+        return fm, dets[0], logits[0]
+
+    fm_g, det_g, lg_g = run(device)
+    fm_c, det_c, lg_c = run("cpu")
+    (bg, _, cg, vg), (bc, _, cc, vc) = det_g, det_c
+    check(torch.equal(vg, vc), "valid flags equal, card vs CPU")
+    check(torch.equal(cg[vc], cc[vc]), "class ids equal, card vs CPU")
+    box_err = float((bg[vc] - bc[vc]).abs().max()) if bool(vc.any()) else 0.0
+    check(box_err <= BOX_ATOL, f"boxes within {BOX_ATOL} px, card vs CPU (worst {box_err:.3g})")
+    check(fm_g.labels == fm_c.labels and fm_g.cam_nums == fm_c.cam_nums,
+          "mask labels and cameras equal, card vs CPU")
+    m = len(fm_c.labels)
+    check(m > 0, "the random-weight keyframe yields masks to compare")
+    # bits whose upsampled CPU logit lies within LOGIT_EPS of 0 may flip
+    near = np.zeros(fm_c.masks.shape, bool)
+    cams = np.asarray(fm_c.cam_nums)
+    offset = 0
+    for cam, im in enumerate(images):
+        k = int((cams == cam).sum())
+        if k:
+            h, w = im.shape[:2]
+            side = max(h, w)
+            up = F.interpolate(lg_c[cam, :k, None], size=(side, side), mode="bilinear",
+                               align_corners=False)[:, 0, :h, :w]
+            near[offset:offset + k, :w, :h] = (up.abs() < LOGIT_EPS).numpy().transpose(0, 2, 1)
+        offset += k
+    diff = fm_g.masks != fm_c.masks
+    check(not (diff & ~near).any(), f"planes bit-equal away from logits within {LOGIT_EPS} "
+          f"of 0 ({int((diff & ~near).sum())} bits differ there)")
+    n_dec = min(lg_g.shape[1], lg_c.shape[1])
+    logit_err = float((lg_g[:, :n_dec] - lg_c[:, :n_dec]).abs().max())
+    print(f"mask-path CPU check: {int(vc.sum())} detections, {m} masks, box err "
+          f"{box_err:.3g} px, logit err {logit_err:.3g}, {int(diff.sum())} of "
+          f"{diff.size} bits differ ({int(near.sum())} bits near 0), "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"detections": int(vc.sum()), "masks": m, "box_err": box_err,
+            "logit_err": logit_err, "bits_differ": int(diff.sum())}
+
+
 def main() -> int:
     import torch
 
@@ -230,14 +507,22 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the cm3d_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
-    from cm3d_tpu_torch.benchmarks import bench_lift
-    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.benchmarks import C as N_CAMS
+    from cm3d_tpu_torch.benchmarks import (
+        IMG_H,
+        IMG_W,
+        _realistic_load,
+        bench_lift,
+        build_production_fake_models,
+    )
+    from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
     from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
     from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
     from cm3d_tpu_torch.kernels import build
     from cm3d_tpu_torch.kernels.compact import compact_rows
     from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
     from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.pipelines.masks import generate_frame_masks
 
     t_start = time.perf_counter()
     card = card_line()
@@ -296,7 +581,7 @@ def main() -> int:
     print(f"step: {n_has} masks with points, {n_keep} boxes kept of "
           f"{int(host.frames.mask_valid.sum())} valid masks", flush=True)
     check(n_has > 0 and n_keep > 0, "masks lift to points and boxes survive")
-    profile_phase(torch, step, frames)
+    profile_phase(torch, lambda: step(frames))
 
     # the same 2 keyframes through the plain PyTorch path on the CPU
     t0 = time.perf_counter()
@@ -319,7 +604,48 @@ def main() -> int:
     print(f"CPU check on 2 keyframes: {time.perf_counter() - t0:.2f} s, "
           f"{int((~close).sum())} centroids differ (all at near-tie medoids)", flush=True)
 
-    # --- 4. summary ---
+    # --- 4. window attention at the 8 shapes of a full-width Detic forward ---
+    t0 = time.perf_counter()
+    prod = build_production_fake_models("bfloat16", device=dev)
+    torch.cuda.synchronize()
+    print(f"full-width Detic Swin-B + SAM ViT-H, bf16, random weights: "
+          f"{time.perf_counter() - t0:.2f} s to build", flush=True)
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMS)]
+    wa = window_attn_phase(torch, capture_window_attn_inputs(torch, prod, ring))
+
+    # --- 5. the mask stage, counted, then one keyframe profiled ---
+    realistic = _realistic_load(prod)
+    benches = mask_stage_phase(torch, realistic)
+    profile_phase(torch, lambda: generate_frame_masks(realistic, ring, MaskStageConfig()),
+                  n_steps=2)
+    del prod, realistic
+    torch.cuda.empty_cache()
+
+    # --- 6. the mask path on the card against the CPU ---
+    cpu_check = mask_cpu_check(torch)
+
+    # --- 7. summary ---
+    def per_forward(name, key):
+        """Sum over the 24 blocks of one Detic forward (6 cameras)."""
+        return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
+
+    def window_attn_entry(name):
+        ops = per_forward(name, "ops_ms")
+        return {
+            "name": f"window_attn_{name}",
+            "route": "cuda",
+            "source": "cm3d_tpu_torch/csrc/window_attn.cu",
+            "replaces": "cm3d_tpu/kernels/window_attn_pallas.py:303",
+            "launches": benches[0]["launches"][f"window_attn_{name}"],
+            "max_abs_err": max(r[name]["max_abs_err"] for r in wa),
+            "ms": per_forward(name, "ms"),
+            "plain_ms": per_forward(name, "plain_ms"),
+            "bound_ms": per_forward(name, "bound_ms"),
+            "bound_by": "operations" if ops >= per_forward(name, "bytes_ms") else "bytes",
+            "library_ms": None,
+            "per": "one Detic forward: 24 launches, 6 cameras at 1024x576, bf16",
+        }
+
     kernels = [
         {
             "name": "compact_rows",
@@ -346,9 +672,14 @@ def main() -> int:
             "pairs": med["pairs"],
             "near_tie_rows": med["near_tie_rows"],
         },
+        window_attn_entry("heads"),
+        window_attn_entry("proj"),
     ]
     print("kernels launched on the main path: " + ", ".join(
         f"{k['name']} x{k['launches']}" for k in kernels), flush=True)
+    print(json.dumps({"medoid_kn3_entry": {"ms": med["kn3_ms"], "plain_ms": med["kn3_plain_ms"]},
+                      "window_attn_shapes": wa, "mask_stage": benches,
+                      "mask_cpu_check": cpu_check}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,12 +1,28 @@
-"""Lift-stage benchmark of the port: the batched keyframe step at
-production geometry on synthetic keyframes."""
+"""Benchmarks of the port, at production geometry.
+
+  bench_lift       — the batched lift step on synthetic keyframes.
+  bench_mask_stage — the pipelined 2D stage loop (run_mask_stage) with
+                     full-width random-weight Detic Swin-B + SAM ViT-H.
+
+Model content caveat (mask stage): random full-width weights give the
+production FLOPs and geometry but meaningless detections, so the detector's
+output is replaced with a realistic ~25 boxes per camera and the decoded
+planes with realistic blob masks. The device work (Detic, SAM encode, SAM
+decode + bit-pack) is all real and stays in the timeline: each swapped
+tensor is queued on the stream after the real work it stands for, so a copy
+that waits for it waits for that work (see `_realistic_load`).
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
+
+C = 6  # nuScenes camera ring
+IMG_H, IMG_W = 576, 1024  # 1024-thumbnail geometry (reference :293)
 
 
 def bench_lift(batch_size: int = 8, n_iters: int = 10, device=None) -> dict:
@@ -54,4 +70,154 @@ def bench_lift(batch_size: int = 8, n_iters: int = 10, device=None) -> dict:
         "value": round(kf_per_sec, 2),
         "unit": "keyframes/sec",
         "vs_baseline": round(kf_per_sec / target, 3),
+    }
+
+
+def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0):
+    """Full-width Detic Swin-B + SAM ViT-H (square encode) with random
+    weights drawn from a torch.Generator seeded with `seed` (the FLOPs of
+    converted checkpoints), built on `device` behind the standard batched
+    wrappers."""
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
+    from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
+    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns
+    from cm3d_tpu_torch.utils.device import resolve_device
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    device = resolve_device(device)
+    detic_cfg = dataclasses.replace(
+        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
+    sam_cfg = dataclasses.replace(SAM_VIT_H, dtype=dtype)
+    clf = np.random.default_rng(seed).standard_normal(
+        (detic_cfg.embed_dim, len(VOCAB))).astype(np.float32)
+    with torch.device(device):
+        gen = torch.Generator(device=device)
+        detic = init_weights(Detic(detic_cfg), gen.manual_seed(seed))
+        sam = init_weights(Sam(sam_cfg), gen.manual_seed(seed + 1))
+    return _batched_model_fns(detic, clf, sam, VOCAB, device=device)
+
+
+def _realistic_load(models, boxes_per_cam: int = 25, seed: int = 0):
+    """Wrap MaskModels so the DETECTOR CONTENT is a realistic ~25
+    boxes/camera and the PLANE CONTENT realistic blob masks, while the real
+    device work stays in the timeline: the swapped tensors are uploaded
+    (pinned, non-blocking) on the stream after the real Detic / decode, so
+    the pipeline's copies back wait for that work as they would for the
+    real outputs."""
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.ops.bitmask import pack_masks_np
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    rng = np.random.default_rng(seed)
+    raw_detic, raw_dec = models.detic, models.sam_decode_planes
+
+    def detic_realistic(frame):
+        boxes, _, _, _ = raw_detic(frame)
+        n, d = boxes.shape[:2]
+        vb = np.zeros((n, d), bool)
+        vb[:, :boxes_per_cam] = True
+        fake_boxes = rng.uniform(0, 500, (n, d, 4)).astype(np.float32)
+        fake_boxes[..., 2:] += fake_boxes[..., :2] + 30
+        fake = (fake_boxes, rng.random((n, d)).astype(np.float32) * 0.9 + 0.1,
+                rng.integers(0, len(VOCAB), (n, d)), vb)
+        return tuple(to_device(a, boxes.device) for a in fake)
+
+    blob_planes: dict = {}  # (nw, layout) -> int32 planes on the device
+
+    def _blobs(nw: int, layout: str, device) -> torch.Tensor:
+        if (nw, layout) not in blob_planes:
+            m = nw * 32
+            blob = np.zeros((m, IMG_W, IMG_H), np.uint8)
+            # ~120x90 px instance blobs at the production canvas
+            bw, bh = min(120, IMG_W), min(90, IMG_H)
+            for i in range(m):
+                x = rng.integers(0, max(IMG_W - bw - 30, 1))
+                y = rng.integers(0, max(IMG_H - bh - 10, 1))
+                blob[i, x:x + bw, y:y + bh] = 1
+            packed = pack_masks_np(blob)
+            if layout == "yx":
+                packed = np.swapaxes(packed, 0, 1)
+            blob_planes[(nw, layout)] = to_device(packed, device)
+        return blob_planes[(nw, layout)]
+
+    def dec_blob(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout="xy"):
+        real = raw_dec(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout)
+        if tuple(mask_wh) != (IMG_W, IMG_H):
+            return real
+        # uploaded once; its download is queued on the stream after the
+        # real decode, so it waits for the decode as the real planes' would
+        return _blobs(nw, layout, real.device)
+
+    return dataclasses.replace(models, detic=detic_realistic, sam_decode_planes=dec_blob)
+
+
+def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
+                     io_sleep: float = 0.15, device=None) -> dict:
+    """Pipelined 2D-stage throughput: run_mask_stage (IO prefetch + device
+    pipeline + host RLE writes) at production geometry, 6 cameras at
+    1024x576.
+
+    Protocol (the JAX package's): one warm-up frame, unpipelined
+    generate_frame_masks calls (`per_frame_ms`), a warmed run_mask_stage,
+    then `n_frames` pipelined frames (`pipelined_ms`, the reported rate).
+    The provider sleeps `io_sleep` s per frame as a stand-in for 6 JPEG
+    reads + thumbnails, which caps the rate at 1 / io_sleep. The device is
+    synchronised before every clock read."""
+    import shutil
+    import tempfile
+
+    from cm3d_tpu_torch.config import MaskStageConfig
+    from cm3d_tpu_torch.pipelines.masks import generate_frame_masks, run_mask_stage
+    from cm3d_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    if models is None:
+        models = _realistic_load(build_production_fake_models(dtype, device=device))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rng = np.random.default_rng(0)
+    frames = [[rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(C)]
+              for _ in range(2)]
+    cfg = MaskStageConfig(dtype=dtype)
+    n_warm = len(generate_frame_masks(models, frames[0], cfg).labels)
+
+    n_unpiped = max(n_frames // 2, 2)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(n_unpiped):
+        generate_frame_masks(models, frames[i % 2], cfg)
+    sync()
+    per_frame_ms = (time.perf_counter() - t0) / n_unpiped * 1000
+
+    def provider(scene, frame):
+        time.sleep(io_sleep)  # stand-in for 6 JPEG reads + thumbnail
+        return frames[frame % 2]
+
+    warm_dir = tempfile.mkdtemp(prefix="maskbench_warm_")
+    out = tempfile.mkdtemp(prefix="maskbench_")
+    try:
+        run_mask_stage(models, provider, ["warm"], lambda s: 1, warm_dir, cfg, verbose=False)
+        sync()
+        t0 = time.perf_counter()
+        run_mask_stage(models, provider, ["bench"], lambda s: n_frames, out, cfg,
+                       verbose=False)
+        sync()
+        pipelined_ms = (time.perf_counter() - t0) / n_frames * 1000
+    finally:
+        shutil.rmtree(warm_dir, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
+    return {
+        "metric": "mask_stage_keyframes_per_sec_per_chip",
+        "value": 1000.0 / pipelined_ms,
+        "unit": "keyframes/sec",
+        "per_frame_ms": per_frame_ms,
+        "pipelined_ms": pipelined_ms,
+        "n_frames": n_frames,
+        "io_sleep": io_sleep,
+        "warmup_masks": n_warm,
+        "dtype": dtype,
     }

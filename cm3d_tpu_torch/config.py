@@ -1,7 +1,8 @@
 """Typed configuration of the lift stage and its class tables.
 
-A copy of the JAX package's `cm3d_tpu/config.py` class tables and
-`LiftStageConfig` (the port may not import that package, which pulls in JAX).
+A copy of the JAX package's `cm3d_tpu/config.py` class tables,
+`MaskStageConfig` and `LiftStageConfig` (the port may not import that
+package, which pulls in JAX).
 
 The reference scatters configuration over three mechanisms — hand-edited
 module constants, `cfg/prompt_cfg.py`, and JSON files — plus commented-out
@@ -183,6 +184,24 @@ def class_arrays(
 def drivable_class_array(classes: Sequence[str] = NUSCENES_CLASSES) -> np.ndarray:
     """[C] bool: classes subject to the drivable-area filter."""
     return np.array([c in DRIVABLE_FILTER_CLASSES for c in classes], bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskStageConfig:
+    """2D mask generation stage (reference gen_2d_masks_detic.py)."""
+
+    score_thresh: float = 0.1  # Detic ROI_HEADS.SCORE_THRESH_TEST (:35)
+    nms_iou: float = 0.75  # class-wise 2D NMS (:361)
+    run_nms: bool = True  # ":349 run_nms = True"
+    thumbnail: int = 1024  # PIL thumbnail max side (:293)
+    multimask_output: bool = False  # SAM (:397)
+    max_detections: int = 128  # padded detections per image
+    max_masks_total: int = 128  # bit-plane capacity per keyframe (= lift max_masks)
+    # SAM prompt padding buckets: each frame's decode pads its prompts to the
+    # smallest bucket >= its busiest camera (most frames have ~25 boxes per
+    # camera; always padding to 128 wastes ~4x decode time)
+    prompt_buckets: tuple = (32,)
+    dtype: str = "bfloat16"  # model compute dtype ("float32" for strict parity)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -63,6 +63,9 @@ class NuScenesTables:
 
     # -- devkit-like primitives --------------------------------------------
 
+    def table(self, name: str) -> List[dict]:
+        return self._tables[name]
+
     def get(self, table: str, token: str) -> dict:
         return self._index[table][token]
 

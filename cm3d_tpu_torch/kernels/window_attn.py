@@ -1,0 +1,277 @@
+"""Fused Swin window attention: CUDA kernel wrappers + plain version.
+
+The attention branch of a Swin block, [B, H, W, C] -> [B, H, W, C] before
+the residual:
+
+    pad H, W to multiples of `window`, roll by -shift; per window of
+    n = window^2 tokens: LN (f32, two-pass variance, eps 1e-5; padding
+    tokens exactly 0 after the LN) -> qkv = LN @ Wqkv^T + bqkv -> per head
+    s = (q k^T) * hd^-1/2 + B_rel[h] (+ the 0 / -100 shifted-window mask)
+    -> softmax (f32) -> o = p v -> out = o @ Wproj^T + bproj; roll back by
+    +shift; crop to [H, W].
+
+Replaces the TPU kernel `cm3d_tpu/kernels/window_attn_pallas.py:303
+fused_window_attn` together with the pad / roll / group / crop that
+`cm3d_tpu/models/swin.py:198 _fused_branch_impl` wraps around it. Rounding
+follows the TPU kernel: LN out, qkv, p, o and out are rounded to the
+compute dtype, every sum is taken in f32. The TPU's interleaved
+block-diagonal attention over groups of windows is a TPU workaround and
+does not carry over: each window is computed by itself.
+
+The CUDA source (csrc/window_attn.cu) runs it as two launches per Swin
+block, each with its own wrapper, plain version and launch counter:
+`window_attn_heads` (LN + qkv + per-head attention -> o [B*nW*n, C] in
+window order) and `window_attn_proj` (o @ Wproj^T + bproj, scattered back
+to [B, H, W, C]). `window_attn` composes the two.
+
+Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
+kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
+wproj [C, C].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from cm3d_tpu_torch.kernels import build
+
+EPS = 1e-5  # torch Swin LayerNorm default
+MAX_TOKENS = 64  # window^2 the kernel holds per block
+MAX_HEAD_DIM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def rel_pos_index(window: int) -> np.ndarray:
+    """[win^2, win^2] index into the (2w-1)^2 relative-position-bias table."""
+    coords = np.stack(
+        np.meshgrid(np.arange(window), np.arange(window), indexing="ij")
+    ).reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0) + (window - 1)
+    return (rel[:, :, 0] * (2 * window - 1) + rel[:, :, 1]).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
+    """[nW, win^2, win^2] additive mask for shifted windows (0 / -100)."""
+    img = np.zeros((hp, wp), np.int32)
+    cnt = 0
+    for hs in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+        for ws in (slice(0, -window), slice(-window, -shift), slice(-shift, None)):
+            img[hs, ws] = cnt
+            cnt += 1
+    win = img.reshape(hp // window, window, wp // window, window)
+    win = win.transpose(0, 2, 1, 3).reshape(-1, window * window)
+    return (win[:, :, None] != win[:, None, :]).astype(np.float32) * -100.0
+
+
+def padded_hw(h: int, w: int, window: int) -> tuple[int, int]:
+    return -(-h // window) * window, -(-w // window) * window
+
+
+def _check(x: torch.Tensor, wqkv: torch.Tensor, table: torch.Tensor, heads: int,
+           window: int, shift: int) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"window_attn: x must be [B, H, W, C], got {tuple(x.shape)}")
+    c = x.shape[-1]
+    if c % heads:
+        raise ValueError(f"window_attn: channels {c} not divisible by heads {heads}")
+    if tuple(wqkv.shape) != (3 * c, c):
+        raise ValueError(f"window_attn: wqkv must be [3C, C] = {(3 * c, c)}, "
+                         f"got {tuple(wqkv.shape)}")
+    if not 0 <= shift < window:
+        raise ValueError(f"window_attn: shift {shift} must lie in [0, window {window})")
+    if tuple(table.shape) != ((2 * window - 1) ** 2, heads):
+        raise ValueError(f"window_attn: the bias table of window {window} must be "
+                         f"[(2w-1)^2, heads] = {((2 * window - 1) ** 2, heads)}, "
+                         f"got {tuple(table.shape)}")
+
+
+def _layer_norm(x, weight, bias, eps):
+    """f32 LayerNorm with the two-pass variance of the TPU kernel."""
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    var = (xc * xc).mean(-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * weight.float() + bias.float()
+
+
+def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t rounded to `dtype`, carried as f32 (products of `dtype` values
+    accumulated in f32, as the kernel computes them)."""
+    return t.to(dtype).float()
+
+
+def window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int,
+                            window: int, shift: int, dtype, eps: float = EPS):
+    """Plain PyTorch version of the first launch: x [B, H, W, C] ->
+    o [B * nW * n, C] of `dtype`, rows in window order (windows row-major
+    over the rolled, padded grid, tokens row-major inside a window)."""
+    _check(x, wqkv, table, heads, window, shift)
+    b, h, w, c = x.shape
+    hd, n = c // heads, window * window
+    hp, wp = padded_hw(h, w, window)
+    ln = _layer_norm(x, ln_weight, ln_bias, eps)
+    # the reference pads AFTER the norm: padding tokens are exact zeros
+    ln = torch.nn.functional.pad(ln, (0, 0, 0, wp - w, 0, hp - h))
+    if shift:
+        ln = torch.roll(ln, (-shift, -shift), (1, 2))
+    ln = ln.reshape(b, hp // window, window, wp // window, window, c)
+    ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    qkv = _rounded(ln, dtype) @ _rounded(wqkv, dtype).T + bqkv.float()
+    qkv = _rounded(qkv, dtype).reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # [B*nW, heads, n, hd]
+    idx = torch.as_tensor(rel_pos_index(window), device=x.device).reshape(-1)
+    bias = table.float()[idx].reshape(n, n, heads).permute(2, 0, 1)
+    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias
+    if shift:
+        mask = torch.as_tensor(shift_attn_mask(hp, wp, window, shift), device=x.device)
+        s = (s.reshape(b, -1, heads, n, n) + mask[None, :, None]).reshape(-1, heads, n, n)
+    p = _rounded(torch.softmax(s, dim=-1), dtype)
+    o = _rounded(p @ v, dtype)
+    return o.permute(0, 2, 1, 3).reshape(-1, c).to(dtype)
+
+
+def window_attn_proj_plain(o, wproj, bproj, *, out_shape, window: int, shift: int, dtype):
+    """Plain PyTorch version of the second launch: o [B * nW * n, C] ->
+    out [B, H, W, C] = (o @ Wproj^T + bproj) back in image order."""
+    b, h, w, c = out_shape
+    hp, wp = padded_hw(h, w, window)
+    out = _rounded(o, dtype) @ _rounded(wproj, dtype).T + bproj.float()
+    out = out.to(dtype).reshape(b, hp // window, wp // window, window, window, c)
+    out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+    if shift:
+        out = torch.roll(out, (shift, shift), (1, 2))
+    return out[:, :h, :w].contiguous()
+
+
+def window_attn_plain(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *,
+                      heads: int, window: int, shift: int, dtype, eps: float = EPS):
+    """Plain PyTorch version of the whole branch (both launches)."""
+    o = window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, heads=heads,
+                                window=window, shift=shift, dtype=dtype, eps=eps)
+    return window_attn_proj_plain(o, wproj, bproj, out_shape=tuple(x.shape),
+                                  window=window, shift=shift, dtype=dtype)
+
+
+def _cuda_dtype_flag(dtype) -> int:
+    if dtype == torch.bfloat16:
+        return 1
+    if dtype == torch.float32:
+        return 0
+    raise TypeError(f"window_attn: compute dtype must be float32 or bfloat16, got {dtype}")
+
+
+def _check_cuda_x(x: torch.Tensor, dtype, heads: int, window: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"window_attn: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("window_attn: the CUDA path needs a contiguous x")
+    if x.dtype not in (torch.float32, torch.bfloat16) or (
+            x.dtype == torch.bfloat16 and dtype != torch.bfloat16):
+        raise TypeError(f"window_attn: x of {x.dtype} with compute dtype {dtype}: the "
+                        f"CUDA path takes f32 x, or bf16 x under bf16 compute")
+    if window * window > MAX_TOKENS or x.shape[-1] // heads > MAX_HEAD_DIM:
+        raise ValueError(f"window_attn: the CUDA kernel holds window^2 <= {MAX_TOKENS} "
+                         f"tokens and head_dim <= {MAX_HEAD_DIM}, got window {window}, "
+                         f"head_dim {x.shape[-1] // heads}")
+    b, h, w, _ = x.shape
+    hp, wp = padded_hw(h, w, window)
+    if b * hp * wp >= 2**31:  # the kernels count padded tokens in int32
+        raise ValueError(f"window_attn: {b * hp * wp} padded tokens do not fit in int32")
+
+
+def _f32(t: torch.Tensor, device) -> torch.Tensor:
+    return t.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, window: int,
+                      shift: int, dtype, eps: float = EPS) -> torch.Tensor:
+    """LN + qkv + per-head window attention -> o [B * nW * n, C] of
+    `dtype` (see `window_attn_heads_plain`)."""
+    _check(x, wqkv, table, heads, window, shift)
+    if x.device.type == "cpu":
+        return window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, heads=heads,
+                                       window=window, shift=shift, dtype=dtype, eps=eps)
+    flag = _cuda_dtype_flag(dtype)
+    _check_cuda_x(x, dtype, heads, window)
+    b, h, w, c = x.shape
+    hp, wp = padded_hw(h, w, window)
+    dev = x.device
+    o = torch.empty((b * hp * wp, c), dtype=dtype, device=dev)
+    if o.numel() == 0:
+        return o
+    args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
+            wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev),
+            _f32(table, dev))
+    err = _lib().window_attn_heads_launch(
+        flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
+        o.data_ptr(), b, h, w, c, heads, window, shift, eps, (c // heads) ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "window_attn_heads")
+    window_attn_heads.launches += 1
+    return o
+
+
+window_attn_heads.launches = 0
+
+
+def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shift: int,
+                     dtype) -> torch.Tensor:
+    """o [B * nW * n, C] -> out [B, H, W, C] of `dtype` (see
+    `window_attn_proj_plain`)."""
+    b, h, w, c = out_shape
+    hp, wp = padded_hw(h, w, window)
+    if tuple(o.shape) != (b * hp * wp, c) or tuple(wproj.shape) != (c, c):
+        raise ValueError(f"window_attn_proj: o {tuple(o.shape)} / wproj "
+                         f"{tuple(wproj.shape)} do not fit out_shape {tuple(out_shape)}")
+    if o.device.type == "cpu":
+        return window_attn_proj_plain(o, wproj, bproj, out_shape=out_shape, window=window,
+                                      shift=shift, dtype=dtype)
+    flag = _cuda_dtype_flag(dtype)
+    if o.device.type != "cuda":
+        raise ValueError(f"window_attn_proj: unsupported device {o.device}")
+    if o.dtype != dtype or not o.is_contiguous():
+        raise TypeError(f"window_attn_proj: o must be contiguous {dtype}, got {o.dtype}")
+    dev = o.device
+    out = torch.empty(tuple(out_shape), dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    wp_t = wproj.detach().to(device=dev, dtype=dtype).contiguous()
+    bp_t = _f32(bproj, dev)
+    err = _lib().window_attn_proj_launch(
+        flag, o.data_ptr(), wp_t.data_ptr(), bp_t.data_ptr(), out.data_ptr(),
+        b, h, w, c, heads, window, shift, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "window_attn_proj")
+    window_attn_proj.launches += 1
+    return out
+
+
+window_attn_proj.launches = 0
+
+
+def window_attn(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads: int,
+                window: int, shift: int, dtype, eps: float = EPS) -> torch.Tensor:
+    """The attention branch of a Swin block, [B, H, W, C] -> [B, H, W, C]
+    of `dtype` (pre-residual): `window_attn_heads` then `window_attn_proj`."""
+    o = window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, heads=heads,
+                          window=window, shift=shift, dtype=dtype, eps=eps)
+    return window_attn_proj(o, wproj, bproj, out_shape=tuple(x.shape), heads=heads,
+                            window=window, shift=shift, dtype=dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("window_attn")
+    lib.window_attn_heads_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.window_attn_heads_launch.restype = ctypes.c_int
+    lib.window_attn_proj_launch.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.window_attn_proj_launch.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,170 @@
+"""JAX-package Flax parameter trees -> the port's state dicts.
+
+The port's modules carry the released torch checkpoints' parameter names,
+exactly the keys `cm3d_tpu/models/convert_detic.py` and
+`cm3d_tpu/models/convert_sam.py` read. Each function here is the inverse
+of that converter, so a Flax tree (nested dicts of numpy arrays) loads into
+the port with `load_state_dict`, and a released checkpoint loads with no
+mapping at all.
+
+Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv kernel
+HWIO -> OIHW; Up2x2 kernel [2, 2, O, I] -> ConvTranspose2d weight
+[I, O, 2, 2]; scalar leaves (`scale{li}`, `cls_bias`) -> shape [1], as in
+the released checkpoints.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from cm3d_tpu_torch.models.detic import DETIC_SWINB, DeticConfig
+from cm3d_tpu_torch.models.sam import SAM_VIT_H, SamConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _dense(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ln(out: dict, prefix: str, p: dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def swin_state_dict_from_flax(params: dict, cfg, prefix: str = "backbone.bottom_up.") -> dict:
+    """`cm3d_tpu.models.swin.SwinTransformer` params -> state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    p = prefix
+    _conv(out, f"{p}patch_embed.proj", params["patch_embed"])
+    _ln(out, f"{p}patch_embed.norm", params["patch_norm"])
+    for i, depth in enumerate(cfg.depths):
+        for j in range(depth):
+            b, blk = f"{p}layers.{i}.blocks.{j}", params[f"stage{i}_block{j}"]
+            _ln(out, f"{b}.norm1", blk["norm1"])
+            _ln(out, f"{b}.norm2", blk["norm2"])
+            _dense(out, f"{b}.attn.qkv", blk["attn"]["qkv"])
+            _dense(out, f"{b}.attn.proj", blk["attn"]["proj"])
+            out[f"{b}.attn.relative_position_bias_table"] = _t(
+                blk["attn"]["rel_pos_bias_table"])
+            _dense(out, f"{b}.mlp.fc1", blk["fc1"])
+            _dense(out, f"{b}.mlp.fc2", blk["fc2"])
+        if i < len(cfg.depths) - 1:
+            _ln(out, f"{p}layers.{i}.downsample.norm", params[f"merge{i}"]["norm"])
+            _dense(out, f"{p}layers.{i}.downsample.reduction", params[f"merge{i}"]["reduction"])
+        if i in cfg.out_indices:
+            _ln(out, f"{p}norm{i}", params[f"out_norm{i}"])
+    return out
+
+
+def detic_state_dict_from_flax(params: dict, cfg: DeticConfig = DETIC_SWINB) -> dict:
+    """`cm3d_tpu.models.detic.Detic` params -> the port's Detic state dict
+    (the inverse of `convert_detic_params`)."""
+    out = swin_state_dict_from_flax(params["backbone"], cfg.swin)
+    n_in = len(cfg.swin.out_indices)
+    fpn = params["fpn"]
+    for i in range(n_in):
+        _conv(out, f"backbone.fpn_lateral{3 + i}", fpn[f"lateral{i}"])
+        _conv(out, f"backbone.fpn_output{3 + i}", fpn[f"output{i}"])
+    for j in range(len(cfg.strides) - n_in):
+        _conv(out, f"backbone.top_block.p{6 + j}", fpn[f"top_block{j}"])
+    hp, head = "proposal_generator.centernet_head", params["proposal_head"]
+    _conv(out, f"{hp}.agn_hm", head["agn_hm"])
+    _conv(out, f"{hp}.bbox_pred", head["bbox_reg"])
+    for i in range(cfg.num_head_convs):
+        for tower in ("share", "bbox"):
+            _conv(out, f"{hp}.{tower}_tower.{3 * i}", head[f"{tower}_conv{i}"])
+            _ln(out, f"{hp}.{tower}_tower.{3 * i + 1}", head[f"{tower}_gn{i}"])
+    for li in range(len(cfg.strides)):
+        out[f"{hp}.scales.{li}.scale"] = _t(head[f"scale{li}"]).reshape(1)
+    for k in range(cfg.num_cascade_stages):
+        c = params[f"cascade{k}"]
+        _dense(out, f"roi_heads.box_head.{k}.fc1", c["fc1"])
+        _dense(out, f"roi_heads.box_head.{k}.fc2", c["fc2"])
+        bp = f"roi_heads.box_predictor.{k}"
+        _dense(out, f"{bp}.cls_score.linear", c["cls_proj"])
+        out[f"{bp}.cls_score.cls_bias"] = _t(c["cls_bias"]).reshape(1)
+        _dense(out, f"{bp}.bbox_pred.0", c["bbox_fc"])
+        _dense(out, f"{bp}.bbox_pred.2", c["bbox_pred"])
+    return out
+
+
+def _decoder_attn(out: dict, prefix: str, p: dict) -> None:
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _dense(out, f"{prefix}.{name}", p[name])
+
+
+def _mlp_layers(out: dict, prefix: str, p: dict, depth: int = 3) -> None:
+    for i in range(depth):
+        _dense(out, f"{prefix}.layers.{i}", p[f"layer{i}"])
+
+
+def sam_state_dict_from_flax(params: dict, cfg: SamConfig = SAM_VIT_H) -> dict:
+    """`cm3d_tpu.models.sam.Sam` params -> the port's Sam state dict (the
+    inverse of `convert_sam_params`)."""
+    out: Dict[str, torch.Tensor] = {}
+    enc = params["image_encoder"]
+    _conv(out, "image_encoder.patch_embed.proj", enc["patch_embed"])
+    out["image_encoder.pos_embed"] = _t(enc["pos_embed"])
+    _conv(out, "image_encoder.neck.0", enc["neck_conv1"])
+    out["image_encoder.neck.1.weight"] = _t(enc["neck_ln1"]["weight"])
+    out["image_encoder.neck.1.bias"] = _t(enc["neck_ln1"]["bias"])
+    _conv(out, "image_encoder.neck.2", enc["neck_conv2"])
+    out["image_encoder.neck.3.weight"] = _t(enc["neck_ln2"]["weight"])
+    out["image_encoder.neck.3.bias"] = _t(enc["neck_ln2"]["bias"])
+    for i in range(cfg.encoder_depth):
+        p, blk = f"image_encoder.blocks.{i}", enc[f"block{i}"]
+        _ln(out, f"{p}.norm1", blk["norm1"])
+        _ln(out, f"{p}.norm2", blk["norm2"])
+        _dense(out, f"{p}.attn.qkv", blk["attn"]["qkv"])
+        _dense(out, f"{p}.attn.proj", blk["attn"]["proj"])
+        out[f"{p}.attn.rel_pos_h"] = _t(blk["attn"]["rel_pos_h"])
+        out[f"{p}.attn.rel_pos_w"] = _t(blk["attn"]["rel_pos_w"])
+        _dense(out, f"{p}.mlp.lin1", blk["mlp"]["lin1"])
+        _dense(out, f"{p}.mlp.lin2", blk["mlp"]["lin2"])
+
+    prompt = params["prompt_encoder"]
+    out["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = _t(
+        prompt["pe_gaussian"])
+    point = np.asarray(prompt["point_embed"])
+    for i in range(4):
+        out[f"prompt_encoder.point_embeddings.{i}.weight"] = _t(point[i:i + 1])
+    out["prompt_encoder.no_mask_embed.weight"] = _t(prompt["no_mask_embed"])
+
+    dec = params["mask_decoder"]
+    out["mask_decoder.iou_token.weight"] = _t(dec["iou_token"])
+    out["mask_decoder.mask_tokens.weight"] = _t(dec["mask_tokens"])
+    tr = dec["transformer"]
+    for i in range(cfg.decoder_depth):
+        p, layer = f"mask_decoder.transformer.layers.{i}", tr[f"layer{i}"]
+        for name in ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token"):
+            _decoder_attn(out, f"{p}.{name}", layer[name])
+        _dense(out, f"{p}.mlp.lin1", layer["mlp"]["lin1"])
+        _dense(out, f"{p}.mlp.lin2", layer["mlp"]["lin2"])
+        for n in range(1, 5):
+            _ln(out, f"{p}.norm{n}", layer[f"norm{n}"])
+    _decoder_attn(out, "mask_decoder.transformer.final_attn_token_to_image", tr["final_attn"])
+    _ln(out, "mask_decoder.transformer.norm_final_attn", tr["norm_final"])
+    for name, idx in (("upscale1", 0), ("upscale2", 3)):
+        out[f"mask_decoder.output_upscaling.{idx}.weight"] = _t(
+            np.transpose(np.asarray(dec[name]["kernel"]), (3, 2, 0, 1)))
+        out[f"mask_decoder.output_upscaling.{idx}.bias"] = _t(dec[name]["bias"])
+    out["mask_decoder.output_upscaling.1.weight"] = _t(dec["upscale_ln"]["weight"])
+    out["mask_decoder.output_upscaling.1.bias"] = _t(dec["upscale_ln"]["bias"])
+    _mlp_layers(out, "mask_decoder.iou_prediction_head", dec["iou_head"])
+    for i in range(cfg.num_multimask_outputs + 1):
+        _mlp_layers(out, f"mask_decoder.output_hypernetworks_mlps.{i}", dec[f"hyper{i}"])
+    return out

@@ -1,8 +1,14 @@
-"""Greedy BEV circle NMS (exact greedy semantics, batched).
+"""Greedy NMS variants (exact greedy semantics, batched).
 
-Matches the CenterPoint-style greedy `circle_nms` the reference uses
-(src/nuscenes/2d_to_3d.py:309-332, thresholds :850-861). Boxes are sorted
-by score descending with a STABLE sort, so tie-breaking is deterministic.
+- `circle_nms_keep`: BEV center-distance circle NMS with per-class radii,
+  the CenterPoint-style greedy `circle_nms` the reference uses
+  (src/nuscenes/2d_to_3d.py:309-332, thresholds :850-861).
+- `nms_2d_classwise`: class-wise axis-aligned 2D box NMS, replacing the
+  reference's per-class `torchvision.ops.nms` loop
+  (src/nuscenes/gen_2d_masks_detic.py:348-372).
+
+Boxes are sorted by score descending with a STABLE sort, so tie-breaking
+is deterministic.
 """
 
 from __future__ import annotations
@@ -68,5 +74,39 @@ def circle_nms_keep(
     # row i suppresses col j: same class, within the SUPPRESSED box j's class
     # radius (the reference indexes threshs_by_label[det_labels[j]])
     overlap = (lab[..., :, None] == lab[..., None, :]) & (dist_sq <= thresh[..., None, :])
+    keep_sorted = _greedy_keep_fixpoint(overlap, val)
+    return torch.zeros_like(valid).scatter(-1, order, keep_sorted)
+
+
+def nms_2d_classwise(
+    boxes_xyxy: torch.Tensor,
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    valid: torch.Tensor,
+    iou_threshold: float = 0.75,
+) -> torch.Tensor:
+    """Greedy class-wise axis-aligned NMS over the last box axis. Returns
+    keep [..., N] bool.
+
+    torchvision.ops.nms semantics per class: boxes sorted by score
+    descending; a box is suppressed if its IoU with a higher-scored kept box
+    of the same class is strictly greater than `iou_threshold`; IoU is 0
+    where the union is 0.
+    """
+    neg = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(-neg, dim=-1, stable=True).indices
+    b = torch.gather(boxes_xyxy, -2, order[..., None].expand(*order.shape, 4))
+    lab = torch.gather(labels, -1, order)
+    val = torch.gather(valid, -1, order)
+    x1, y1, x2, y2 = b.unbind(-1)
+    area = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    ix1 = torch.maximum(x1[..., :, None], x1[..., None, :])
+    iy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
+    ix2 = torch.minimum(x2[..., :, None], x2[..., None, :])
+    iy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
+    inter = torch.clamp(ix2 - ix1, min=0) * torch.clamp(iy2 - iy1, min=0)
+    union = area[..., :, None] + area[..., None, :] - inter
+    iou = torch.where(union > 0, inter / torch.clamp(union, min=1e-12), 0.0)
+    overlap = (lab[..., :, None] == lab[..., None, :]) & (iou > iou_threshold)
     keep_sorted = _greedy_keep_fixpoint(overlap, val)
     return torch.zeros_like(valid).scatter(-1, order, keep_sorted)

@@ -1,0 +1,528 @@
+"""2D mask-generation stage: Detic -> class-wise NMS -> SAM -> artifacts.
+Mirrors `cm3d_tpu/pipelines/masks.py`.
+
+The counterpart of the reference's src/nuscenes/gen_2d_masks_detic.py
+__main__ (:242-513): per camera image, run the open-vocabulary detector
+with the custom vocabulary, map detector labels to canonical classes
+(map_class), class-wise 2D NMS at IoU 0.75, box-prompt SAM for instance
+masks, store masks transposed [W, H] as COCO RLE with labels / scores /
+cam_nums JSON.
+
+Model forwards are injected callables (`MaskModels`), so the pipeline runs
+identically with full-size or tiny random-weight models. The camera ring is
+batched: one Detic forward for the ring, the SAM encoder over the cameras
+in chunks, one decode + bit-pack for the ring. Device->host copies start on
+the main thread as soon as their producer is queued (pinned memory, a CUDA
+event), so a waiting thread blocks only on that producer, not on the work
+queued after it.
+
+    python -m cm3d_tpu_torch.pipelines.masks --dataroot ROOT --out_dir OUT \\
+        --fake_weights [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import time
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cm3d_tpu_torch.config import MaskStageConfig
+from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
+from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
+from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
+
+
+@dataclasses.dataclass
+class MaskModels:
+    """Injected model callables, batched over the camera ring.
+
+    prepare(images: list of per-camera RGB uint8) -> frame inputs: ONE
+        uint8 canvas upload shared by detector and segmenter
+        (normalization happens on the device).
+    detic(frame) -> (boxes [C,D,4] xyxy image px, scores [C,D], class_ids
+        [C,D], valid [C,D]) device tensors.
+    sam_encode(frame) -> per-camera embeddings [C, h, w, d] (device).
+    sam_decode_planes(emb, boxes_img [C,P,4], n_boxes [C], cam_hw, mask_wh,
+        num_words, layout="xy"|"yx") -> [W, H, num_words] (xy) or
+        [H, W, num_words] (yx) int32 bit-planes (device).
+    vocabulary: detector vocabulary strings (class_ids index this)
+    """
+
+    prepare: Callable
+    detic: Callable
+    sam_encode: Callable
+    sam_decode_planes: Callable
+    vocabulary: Tuple[str, ...] = CUSTOM_VOCABULARY_NUSCENES
+
+
+class HostCopy:
+    """Device->host copy of a few tensors, started now on the current
+    stream (pinned memory, non-blocking) and waited for on `get()`."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self.host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [t.detach() for t in tensors]
+
+    def get(self) -> List[np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+def planes_numpy(handle: dict) -> np.ndarray:
+    """The handle's planes as host uint32 words (waits for the copy)."""
+    return handle["planes"].get()[0].view(np.uint32)
+
+
+def classwise_nms_np(boxes, scores, labels, iou_thresh=0.75):
+    """Host-side greedy class-wise NMS (reference :348-372 semantics).
+    Returns indices kept, in descending score order per class iteration."""
+    keep = []
+    boxes = np.asarray(boxes, np.float64)
+    for cls in sorted(set(labels)):
+        idx = [i for i, lab in enumerate(labels) if lab == cls]
+        idx = sorted(idx, key=lambda i: -scores[i])
+        alive = set(idx)
+        for a, i in enumerate(idx):
+            if i not in alive:
+                continue
+            keep.append(i)
+            x1, y1, x2, y2 = boxes[i]
+            ai = max(x2 - x1, 0) * max(y2 - y1, 0)
+            for j in idx[a + 1:]:
+                if j not in alive:
+                    continue
+                xx1, yy1 = max(x1, boxes[j][0]), max(y1, boxes[j][1])
+                xx2, yy2 = min(x2, boxes[j][2]), min(y2, boxes[j][3])
+                inter = max(xx2 - xx1, 0) * max(yy2 - yy1, 0)
+                aj = max(boxes[j][2] - boxes[j][0], 0) * max(boxes[j][3] - boxes[j][1], 0)
+                if union := ai + aj - inter:
+                    if inter / union > iou_thresh:
+                        alive.discard(j)
+    return keep
+
+
+def start_frame_masks(
+    models: MaskModels,
+    images: Optional[List[np.ndarray]],  # per-camera RGB uint8 (thumbnailed)
+    cfg: MaskStageConfig = MaskStageConfig(),
+    mask_wh: Optional[Tuple[int, int]] = None,
+    plane_layout: str = "yx",
+    prepared: Optional[dict] = None,
+) -> dict:
+    """Queue a keyframe up to its last device work (Detic, SAM encode, host
+    NMS, the decode + bit-pack) and start the planes' copy to the host;
+    `finish_frame_masks` / `write_frame_artifacts` wait for it. Frame N's
+    decode is queued before frame N+1's encoder, while frame N's RLE writes
+    and frame N+1's image IO run on the host under the device work."""
+    frame_inputs = prepared if prepared is not None else models.prepare(images)
+    if images is None:
+        images = frame_inputs["images"]
+    cam_hw = tuple((im.shape[0], im.shape[1]) for im in images)
+    plane_wh = mask_wh or (max(w for _, w in cam_hw), max(h for h, _ in cam_hw))
+    # Detic first, its results' copy started before the encode is queued:
+    # the host waits for the boxes only, and runs NMS under the encode
+    det = HostCopy(list(models.detic(frame_inputs)))
+    emb = models.sam_encode(frame_inputs)
+    boxes_b, scores_b, cids_b, valid_b = det.get()
+    n_cams = len(cam_hw)
+
+    p = cfg.max_detections
+    cap = cfg.max_masks_total
+    nw = num_words(cap)
+    prompts = np.zeros((n_cams, p, 4), np.float32)
+    n_boxes = np.zeros(n_cams, np.int32)
+    all_labels: List[str] = []
+    all_scores: List[float] = []
+    all_cams: List[int] = []
+    total = 0
+    counts = {
+        "detections": 0, "nms_suppressed": 0,
+        "dropped_max_detections": 0, "dropped_masks_total": 0,
+        "masks_written": 0,
+    }
+    for cam_idx in range(n_cams):
+        v = valid_b[cam_idx]
+        boxes = boxes_b[cam_idx][v]
+        scores = scores_b[cam_idx][v]
+        class_ids = cids_b[cam_idx][v]
+        counts["detections"] += len(boxes)
+        if len(boxes) == 0:
+            continue
+        labels = [map_class(models.vocabulary[c].lower()) for c in class_ids]
+        if cfg.run_nms:
+            kept = classwise_nms_np(boxes, scores, labels, cfg.nms_iou)
+            counts["nms_suppressed"] += len(boxes) - len(kept)
+            boxes = boxes[kept]
+            scores = scores[kept]
+            labels = [labels[i] for i in kept]
+        # detections past either static cap are dropped, and counted
+        k_cam = min(len(boxes), p)
+        counts["dropped_max_detections"] += len(boxes) - k_cam
+        k = min(k_cam, max(cap - total, 0))
+        counts["dropped_masks_total"] += k_cam - k
+        if k <= 0:
+            continue
+        if k < len(boxes):
+            # a cap binds: drop the LOWEST scores, survivors keep their order
+            top = np.sort(np.argsort(-scores, kind="stable")[:k])
+            boxes = boxes[top]
+            scores = scores[top]
+            labels = [labels[i] for i in top]
+        prompts[cam_idx, :k] = boxes[:k]
+        n_boxes[cam_idx] = k
+        all_labels.extend(labels[:k])
+        all_scores.extend(float(s) for s in scores[:k])
+        all_cams.extend([cam_idx] * k)
+        total += k
+    counts["masks_written"] = total
+
+    planes = None
+    if total:
+        # smallest prompt bucket that fits the busiest camera
+        pmax = int(n_boxes.max())
+        bucket = next((b for b in sorted(cfg.prompt_buckets) if b >= pmax), p)
+        planes = HostCopy([models.sam_decode_planes(
+            emb, prompts[:, :bucket], n_boxes, cam_hw, plane_wh, nw, plane_layout)])
+    return {
+        "planes": planes, "total": total, "plane_wh": plane_wh,
+        "layout": plane_layout,
+        "labels": all_labels, "scores": all_scores, "cams": all_cams,
+        "counts": counts,
+    }
+
+
+def finish_frame_masks(models: MaskModels, handle: dict,
+                       cfg: MaskStageConfig = MaskStageConfig()) -> FrameMasks:
+    """Download + unpack the planes of a frame started by start_frame_masks."""
+    plane_wh = handle["plane_wh"]
+    if handle["planes"] is None:
+        return FrameMasks([], [], [], np.zeros((0, plane_wh[0], plane_wh[1]), np.uint8))
+    planes = planes_numpy(handle)
+    if handle["layout"] == "yx":
+        planes = np.ascontiguousarray(np.swapaxes(planes, 0, 1))
+    dense = unpack_masks_np(planes, handle["total"]).astype(np.uint8)
+    return FrameMasks(handle["labels"], handle["scores"], handle["cams"], dense)
+
+
+def write_frame_artifacts(store, scene: str, frame_num: int, handle: dict) -> None:
+    """Write one frame's mask artifacts straight from a start_frame_masks
+    handle via the packed-plane RLE encoder (no dense [M, W, H]
+    intermediate)."""
+    if handle["planes"] is None:
+        store.write_frame_rles(scene, frame_num, handle["labels"], handle["scores"],
+                               handle["cams"], [])
+        return
+    from cm3d_tpu_torch.ops import rle as rle_codec
+
+    rles = rle_codec.encode_packed_many(planes_numpy(handle), handle["total"],
+                                        layout=handle["layout"])
+    store.write_frame_rles(scene, frame_num, handle["labels"], handle["scores"],
+                           handle["cams"], rles)
+
+
+def generate_frame_masks(models: MaskModels, images: List[np.ndarray],
+                         cfg: MaskStageConfig = MaskStageConfig(),
+                         mask_wh: Optional[Tuple[int, int]] = None) -> FrameMasks:
+    """One keyframe end to end, with "xy" planes (dense [M, W, H] masks in
+    the lift-side layout)."""
+    return finish_frame_masks(
+        models, start_frame_masks(models, images, cfg, mask_wh, plane_layout="xy"), cfg)
+
+
+def run_mask_stage(
+    models: MaskModels,
+    image_provider: Callable[[str, int], List[np.ndarray]],
+    scenes: List[str],
+    frames_per_scene: Callable[[str], int],
+    out_dir: str,
+    cfg: MaskStageConfig = MaskStageConfig(),
+    resume: bool = True,
+    verbose: bool = True,
+    counters=None,
+) -> None:
+    """Drive the mask stage over scenes; writes reference-layout artifacts.
+
+    image_provider(scene, frame) -> list of per-camera RGB uint8 arrays.
+    counters: optional utils.observability.MaskCounters to accumulate into
+    (one is created, and reported when verbose, otherwise)."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cm3d_tpu_torch.utils.observability import MaskCounters
+
+    if counters is None:
+        counters = MaskCounters()
+    store = MaskArtifactStore(out_dir)
+    todo = store.remaining_scenes(scenes) if resume else list(scenes)
+    t0 = time.time()
+    n_frames = 0
+
+    frames_per = {scene: frames_per_scene(scene) for scene in todo}
+    work = [(scene, f) for scene in todo for f in range(frames_per[scene])
+            if not (resume and store.has_frame(scene, f))]
+    remaining = {scene: 0 for scene in todo}
+    for scene, _ in work:
+        remaining[scene] += 1
+
+    def _maybe_complete(scene):
+        if remaining[scene] == 0:
+            store.mark_scene_complete(scene, frames_per[scene])
+            if verbose:
+                print(f"{scene}: {frames_per[scene]} frames done")
+
+    for scene in todo:  # scenes fully present but never marked (mid-run kill)
+        _maybe_complete(scene)
+
+    # three-way overlap: a 2-deep image-IO prefetch thread, the device on
+    # frame N, and a finisher thread writing frame N-1's artifacts
+    pending = None  # (scene, f, handle)
+
+    def _finish(entry):
+        nonlocal n_frames
+        scene, f, handle = entry
+        write_frame_artifacts(store, scene, f, handle)
+        counters.update(handle["counts"])
+        remaining[scene] -= 1
+        _maybe_complete(scene)
+        n_frames += 1
+
+    with ThreadPoolExecutor(max_workers=1) as io_pool, \
+            ThreadPoolExecutor(max_workers=1) as finish_pool:
+        futs = deque()
+        idx = 0
+        finish_fut = None
+
+        def _fetch_and_prepare(sf):
+            # canvas assembly + the u8 upload on the IO thread: the upload is
+            # queued a frame early and rides under the device work
+            return models.prepare(image_provider(*sf))
+
+        def _prefetch():
+            nonlocal idx
+            while idx < len(work) and len(futs) < 2:
+                sf = work[idx]
+                futs.append((sf, io_pool.submit(_fetch_and_prepare, sf)))
+                idx += 1
+
+        _prefetch()
+        while futs:
+            (scene, f), fut = futs.popleft()
+            prepared = fut.result()
+            _prefetch()
+            handle = start_frame_masks(models, None, cfg, prepared=prepared)
+            if pending is not None:
+                if finish_fut is not None:
+                    finish_fut.result()
+                finish_fut = finish_pool.submit(_finish, pending)
+            pending = (scene, f, handle)
+        if finish_fut is not None:
+            finish_fut.result()
+        if pending is not None:
+            _finish(pending)
+
+    if verbose and n_frames:
+        dt = time.time() - t0
+        print(f"Took {dt:.1f} seconds for {n_frames} frames "
+              f"({n_frames / dt:.2f} frames/sec).")
+        print(counters.report())
+
+
+# ---------------------------------------------------------------------------
+# Model construction
+# ---------------------------------------------------------------------------
+
+def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=None,
+                       encode_chunk: int = 1) -> MaskModels:
+    """Batched callables around the port's Detic + SAM modules, shared by
+    every model-building function so the pipeline runs the same code at
+    every size.
+
+    encode_chunk: cameras per SAM-encode step (the JAX package's single-chip
+    encode batching; 1 caps the encoder's working set at one camera —
+    ViT-H's global blocks hold [16, 4096, 4096] f32 scores, 1 GB, per
+    camera)."""
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.models.common import cast_compute_weights_
+    from cm3d_tpu_torch.models.detic import DETIC_PIXEL_MEAN, DETIC_PIXEL_STD
+    from cm3d_tpu_torch.models.sam import SAM_PIXEL_MEAN, SAM_PIXEL_STD, preprocess_image
+    from cm3d_tpu_torch.ops.maskpack import make_plane_postprocess
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
+
+    device = resolve_device(device)
+    detic_model = cast_compute_weights_(detic_model.to(device).eval().requires_grad_(False))
+    sam_model = cast_compute_weights_(sam_model.to(device).eval().requires_grad_(False))
+    if device.type == "cuda" and "float32" in (detic_model.cfg.dtype, sam_model.cfg.dtype):
+        strict_f32()
+    classifier = torch.as_tensor(np.asarray(classifier, np.float32), device=device)
+    img_size = sam_model.cfg.img_size
+    chunk = max(1, int(encode_chunk))
+
+    def prepare(images):
+        """One uint8 canvas upload for the whole camera ring."""
+        hs = [im.shape[0] for im in images]
+        ws = [im.shape[1] for im in images]
+        hmax, wmax = max(hs), max(ws)
+        if len(images) % chunk:
+            raise ValueError(f"ring size {len(images)} must divide over the encode "
+                             f"chunk ({chunk})")
+        canvas = np.zeros((len(images), hmax, wmax, 3), np.uint8)
+        for i, im in enumerate(images):
+            canvas[i, :hs[i], :ws[i]] = im
+        hw = np.stack([hs, ws], axis=1).astype(np.int64)
+        # fast SAM path: the provider already thumbnailed the longest side
+        # to the SAM input size, so its resize is the identity
+        scale1 = (all(max(h, w) == img_size for h, w in zip(hs, ws))
+                  and hmax <= img_size and wmax <= img_size)
+        return {"dev": to_device(canvas, device), "hw": to_device(hw, device),
+                "images": images, "scale1": scale1}
+
+    detic_stats = tuple(torch.as_tensor(a, device=device)
+                        for a in (DETIC_PIXEL_MEAN, DETIC_PIXEL_STD))
+    sam_stats = tuple(torch.as_tensor(a, device=device) for a in (SAM_PIXEL_MEAN, SAM_PIXEL_STD))
+
+    def _norm_and_mask(x_u8, hw, stats):
+        """u8 [B, H, W, 3] -> f32 normalized with the padding restored to
+        exact 0 (both reference preprocessors pad AFTER normalization)."""
+        h, w = x_u8.shape[1], x_u8.shape[2]
+        x = (x_u8.float() - stats[0]) / stats[1]
+        row = torch.arange(h, device=device)[None, :] < hw[:, 0:1]
+        col = torch.arange(w, device=device)[None, :] < hw[:, 1:2]
+        return x * (row[:, :, None] & col[:, None, :])[..., None].float()
+
+    @torch.inference_mode()
+    def detic(frame):
+        x_u8, hw = frame["dev"], frame["hw"]
+        h, w = x_u8.shape[1], x_u8.shape[2]
+        x = _norm_and_mask(x_u8, hw, detic_stats)
+        x = torch.nn.functional.pad(x, (0, 0, 0, -(-w // 32) * 32 - w, 0, -(-h // 32) * 32 - h))
+        det = detic_model(x, classifier, hw)
+        return det.boxes, det.scores, det.classes, det.valid
+
+    @torch.inference_mode()
+    def sam_encode(frame):
+        if frame["scale1"]:
+            xs = _norm_and_mask(frame["dev"], frame["hw"], sam_stats)
+            h, w = xs.shape[1], xs.shape[2]
+            if not sam_model.cfg.rect_encode:
+                # SamPredictor semantics: encode the zero-padded square
+                xs = torch.nn.functional.pad(xs, (0, 0, 0, img_size - w, 0, img_size - h))
+        else:  # host resize to the SAM input square (PIL bilinear)
+            xs = to_device(np.stack([preprocess_image(im, img_size) for im in frame["images"]]),
+                           device)
+        return torch.cat([sam_model.encode_image(xs[i:i + chunk])
+                          for i in range(0, xs.shape[0], chunk)])
+
+    @functools.lru_cache(maxsize=8)
+    def _postprocess(cam_hw, mask_wh, nw, rect, layout):
+        return make_plane_postprocess(mask_wh, cam_hw, nw, rect=rect, layout=layout)
+
+    @torch.inference_mode()
+    def sam_decode_planes(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout="xy"):
+        # image px -> SAM-input px resize factor per camera
+        scales = np.array([img_size / max(h, w) for h, w in cam_hw], np.float32)
+        sb = to_device(np.asarray(boxes, np.float32) * scales[:, None, None], device)
+        # one camera at a time: caps the decoder + upscale intermediates
+        logits = torch.stack([sam_model.decode_boxes(emb[c], sb[c])[0]
+                              for c in range(emb.shape[0])])
+        hw_grid = sam_model.cfg.embed_hw
+        rect = tuple(emb.shape[1:3]) != (hw_grid, hw_grid)
+        post = _postprocess(tuple(map(tuple, cam_hw)), tuple(mask_wh), int(nw), rect, layout)
+        return post(logits, [int(n) for n in n_boxes])
+
+    return MaskModels(prepare, detic, sam_encode, sam_decode_planes, tuple(vocabulary))
+
+
+def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
+                      rect_encode: bool = False, encode_chunk: int = 1,
+                      device=None) -> MaskModels:
+    """Tiny random-weight models (DETIC_TEST, SAM_TEST; weights drawn on the
+    CPU from a torch.Generator seeded with `seed`, so every device gets the
+    same models) behind the same batched wrappers as the full-size ones."""
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
+    from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
+
+    rng = np.random.default_rng(seed)
+    clf = rng.standard_normal((DETIC_TEST.embed_dim, len(vocabulary))).astype(np.float32)
+    clf /= np.linalg.norm(clf, axis=0, keepdims=True)
+    gen = torch.Generator()
+    detic = init_weights(Detic(DETIC_TEST), gen.manual_seed(seed))
+    sam = init_weights(Sam(dataclasses.replace(SAM_TEST, rect_encode=rect_encode)),
+                       gen.manual_seed(seed + 1))
+    return _batched_model_fns(detic, clf, sam, vocabulary, device=device,
+                              encode_chunk=encode_chunk)
+
+
+def _nuscenes_provider(args):
+    from PIL import Image
+
+    from cm3d_tpu_torch.datasets.nuscenes.tables import CAM_LIST, NuScenesTables
+
+    nusc = NuScenesTables(args.dataroot, args.version)
+    scene_names = (args.scenes.split(",") if args.scenes
+                   else [s["name"] for s in nusc.table("scene")])
+    samples = {n: list(nusc.iter_samples(nusc.scene_by_name(n))) for n in scene_names}
+
+    def provider(scene, frame):
+        images = []
+        for cam in CAM_LIST:
+            sd = nusc.get("sample_data", samples[scene][frame]["data"][cam])
+            im = Image.open(f"{args.dataroot}/{sd['filename']}").convert("RGB")
+            im.thumbnail((args.thumbnail, args.thumbnail))
+            images.append(np.asarray(im))
+        return images
+
+    return provider, scene_names, lambda s: len(samples[s])
+
+
+def main(argv=None):
+    """CLI: the nuScenes 2D mask stage on the port (CUDA unless --device
+    says otherwise)."""
+    p = argparse.ArgumentParser(description="CM3D 2D mask generation stage (PyTorch port)")
+    p.add_argument("--dataset", default="nuscenes", choices=["nuscenes"])
+    p.add_argument("--dataroot", required=True, help="nuScenes root")
+    p.add_argument("--version", default="v1.0-mini")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--scenes", default="", help="comma-separated scenes")
+    p.add_argument("--thumbnail", type=int, default=1024)  # reference :293
+    p.add_argument("--run_nms", type=int, default=-1, help="-1 = dataset default (on)")
+    p.add_argument("--fake_weights", action="store_true",
+                   help="tiny random-weight models (hermetic smoke run); required "
+                   "until checkpoint loading is ported")
+    p.add_argument("--no_resume", action="store_true")
+    p.add_argument("--rect_encode", action="store_true",
+                   help="SAM encodes without square padding (small documented "
+                   "deviation from SamPredictor)")
+    p.add_argument("--encode_chunk", type=int, default=1,
+                   help="cameras per SAM-encode step (must divide the ring size)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
+    args = p.parse_args(argv)
+    if not args.fake_weights:
+        p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
+
+    provider, scene_names, frames_fn = _nuscenes_provider(args)
+    models = build_fake_models(rect_encode=args.rect_encode, encode_chunk=args.encode_chunk,
+                               device=args.device)
+    run_nms = True if args.run_nms < 0 else bool(args.run_nms)
+    cfg = MaskStageConfig(run_nms=run_nms, thumbnail=args.thumbnail)
+    run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,
+                   resume=not args.no_resume)
+
+
+if __name__ == "__main__":
+    main()

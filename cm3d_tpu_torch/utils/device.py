@@ -20,3 +20,11 @@ def resolve_device(device=None) -> torch.device:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
 
+
+def strict_f32() -> None:
+    """Full-f32 matmuls AND convolutions on the card. PyTorch's f32 matmuls
+    default to full f32 already, but cuDNN runs f32 convolutions in TF32
+    (about three decimal digits) unless told not to; f32 runs of the 2D
+    models (strict parity) need both off. Process-wide, like the flags."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -75,6 +75,32 @@ class LiftCounters:
         return json.dumps({"counters": dataclasses.asdict(self)})
 
 
+@dataclasses.dataclass
+class MaskCounters:
+    """2D-stage data-flow accounting, mirroring LiftCounters: every
+    detection dropped at the max_detections / max_masks_total caps is
+    counted (the caps are where data can vanish)."""
+
+    frames: int = 0
+    detections: int = 0  # valid detector outputs before NMS
+    nms_suppressed: int = 0
+    dropped_max_detections: int = 0  # per-camera prompt cap
+    dropped_masks_total: int = 0  # per-frame mask budget
+    masks_written: int = 0
+
+    def update(self, frame_counts: Dict[str, int]) -> None:
+        for k, v in frame_counts.items():
+            setattr(self, k, getattr(self, k) + int(v))
+        self.frames += 1
+
+    @property
+    def dropped_total(self) -> int:
+        return self.dropped_max_detections + self.dropped_masks_total
+
+    def report(self) -> str:
+        return json.dumps({"mask_counters": dataclasses.asdict(self)})
+
+
 @contextlib.contextmanager
 def trace(label: str, profile_dir: Optional[str] = None) -> Iterator[None]:
     """torch.profiler trace of the block (CPU and, where present, CUDA

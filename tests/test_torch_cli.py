@@ -114,6 +114,10 @@ def test_port_imports_neither_jax_nor_cm3d_tpu():
         "import cm3d_tpu_torch.kernels.compact, cm3d_tpu_torch.kernels.medoid\n"
         "import cm3d_tpu_torch.datasets.nuscenes, cm3d_tpu_torch.datasets.synthetic\n"
         "import cm3d_tpu_torch.utils.observability, cm3d_tpu_torch.utils.fetch\n"
+        "import cm3d_tpu_torch.pipelines.masks, cm3d_tpu_torch.kernels.window_attn\n"
+        "import cm3d_tpu_torch.models.swin, cm3d_tpu_torch.models.detic\n"
+        "import cm3d_tpu_torch.models.sam, cm3d_tpu_torch.models.convert\n"
+        "import cm3d_tpu_torch.ops.maskpack, cm3d_tpu_torch.ops.roi_align, cm3d_tpu_torch.vocab\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'flax' or m == 'cm3d_tpu' or m.startswith('cm3d_tpu.'))\n"
         "print(','.join(bad))\n"

@@ -8,8 +8,15 @@ port's dependencies:
 
 Compaction must be bit-exact on raw 32-bit words; medoid sums agree to
 rtol=1e-5 on valid rows (each pairwise distance rounds alike, only the
-summation order differs).
+summation order differs). Window attention (both launches) agrees with its
+plain version to 1e-4 of the output's largest magnitude in f32 (only the
+summation order and exp/rsqrt rounding differ) and to 2^-5 of it in bf16,
+four bf16 ulps at the top of the range: the two sides round qkv, p, o and
+out at the same places, but a last-bit difference in an f32 sum can move a
+bf16 rounding by one ulp.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -20,6 +27,13 @@ from cm3d_tpu_torch.kernels.medoid import (
     medoid_distance_sums,
     medoid_distance_sums_rows,
     medoid_distance_sums_rows_plain,
+)
+from cm3d_tpu_torch.kernels.window_attn import (
+    window_attn,
+    window_attn_heads,
+    window_attn_heads_plain,
+    window_attn_plain,
+    window_attn_proj,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +100,145 @@ def test_cuda_wrappers_reject_bad_input(cuda):
     with pytest.raises(TypeError, match="f32"):
         medoid_distance_sums_rows(torch.zeros(2, 3, 4, dtype=torch.float64, device=cuda),
                                   torch.ones(2, 4, dtype=torch.bool, device=cuda))
+
+
+def _window_attn_inputs(rng, b, h, w, c, heads, win, x_dtype, device):
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=dtype)
+
+    return (
+        t(rng.standard_normal((b, h, w, c)), x_dtype),
+        t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)),
+        t(rng.standard_normal((3 * c, c)) / np.sqrt(c)), t(0.1 * rng.standard_normal(3 * c)),
+        t(rng.standard_normal((c, c)) / np.sqrt(c)), t(0.1 * rng.standard_normal(c)),
+        t(0.5 * rng.standard_normal(((2 * win - 1) ** 2, heads))),
+    )
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,win,shift,x_dtype,dtype", [
+    (2, 8, 8, 16, 2, 4, 0, torch.float32, torch.float32),  # no padding
+    (2, 8, 12, 16, 2, 4, 2, torch.float32, torch.float32),  # shift, 3 windows a row
+    (1, 10, 13, 32, 4, 4, 2, torch.float32, torch.float32),  # padding + shift
+    (2, 14, 21, 32, 2, 7, 3, torch.float32, torch.float32),
+    (2, 9, 15, 16, 2, 3, 1, torch.float32, torch.bfloat16),  # f32 x, bf16 compute
+    (1, 20, 30, 128, 4, 7, 3, torch.float32, torch.bfloat16),  # Swin-B stage 0 widths
+    (1, 21, 35, 256, 8, 7, 0, torch.bfloat16, torch.bfloat16),  # stage 1 widths
+    (2, 18, 32, 1024, 32, 7, 3, torch.bfloat16, torch.bfloat16),  # stage 3 at 576x1024
+])
+def test_window_attn_kernel_matches_plain(cuda, b, h, w, c, heads, win, shift, x_dtype, dtype):
+    rng = np.random.default_rng(b * h * w * c + shift)
+    args = _window_attn_inputs(rng, b, h, w, c, heads, win, x_dtype, cuda)
+    kw = dict(heads=heads, window=win, shift=shift, dtype=dtype)
+    before = (window_attn_heads.launches, window_attn_proj.launches)
+    got = window_attn(*args, **kw)
+    got_o = window_attn_heads(*args[:5], args[7], **kw)
+    torch.cuda.synchronize()
+    assert (window_attn_heads.launches, window_attn_proj.launches) == (before[0] + 2,
+                                                                      before[1] + 1)
+    want = window_attn_plain(*args, **kw)
+    want_o = window_attn_heads_plain(*args[:5], args[7], **kw)
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    for g, ref in ((got_o, want_o), (got, want)):
+        err = float((g.float() - ref.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max()), (err, tol)
+
+
+def test_window_attn_wrapper_rejects_bad_input(cuda):
+    rng = np.random.default_rng(0)
+    args = _window_attn_inputs(rng, 1, 8, 8, 16, 2, 4, torch.float32, cuda)
+    kw = dict(heads=2, window=4, shift=0)
+    with pytest.raises(TypeError, match="f32 x"):
+        window_attn(args[0].double(), *args[1:], dtype=torch.float32, **kw)
+    with pytest.raises(TypeError, match="f32 x"):  # bf16 x under f32 compute
+        window_attn(args[0].bfloat16(), *args[1:], dtype=torch.float32, **kw)
+    with pytest.raises(TypeError, match="compute dtype"):
+        window_attn(*args, dtype=torch.float16, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_attn(args[0].transpose(1, 2), *args[1:], dtype=torch.float32, **kw)
+    with pytest.raises(ValueError, match="not divisible"):
+        window_attn(*args, dtype=torch.float32, heads=3, window=4, shift=0)
+
+
+def test_swin_shrunk_window_card_matches_cpu(cuda, monkeypatch):
+    """SWIN_TEST on a 24x40 input: stage 1 is 3x5, so its window shrinks
+    from 4 to 3 and the kernels read the centre of the bias table. f32 with
+    TF32 off; the card within 1e-4 of the CPU's largest magnitude."""
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.swin import SWIN_TEST, SwinTransformer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = init_weights(SwinTransformer(SWIN_TEST), torch.Generator().manual_seed(0))
+    x = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((2, 24, 40, 3)).astype(np.float32))
+    before = window_attn_heads.launches
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda))
+    assert window_attn_heads.launches == before + sum(SWIN_TEST.depths)
+    assert tuple(want["swin1"].shape[1:3]) == (3, 5)
+    for k in want:
+        err = float((got[k].cpu() - want[k]).abs().max())
+        assert err <= 1e-4 * float(want[k].abs().max()), (k, err)
+
+
+def _mini_nuscenes(root, n_frames=2, seed=0):
+    """The six tables the port reads, plus one JPEG per camera and frame."""
+    from PIL import Image
+
+    from cm3d_tpu_torch.datasets.nuscenes.tables import CAM_LIST
+
+    rng = np.random.default_rng(seed)
+    version = root / "v1.0-mini"
+    version.mkdir(parents=True)
+    samples, sample_data = [], []
+    for f in range(n_frames):
+        data = {}
+        for cam in CAM_LIST:
+            name = f"samples/{cam}/{f}.jpg"
+            (root / name).parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray((rng.random((90, 160, 3)) * 255).astype(np.uint8)).save(root / name)
+            data[cam] = f"sd-{cam}-{f}"
+            sample_data.append({"token": data[cam], "filename": name})
+        samples.append({"token": f"s{f}", "next": f"s{f + 1}" if f + 1 < n_frames else "",
+                        "data": data})
+    tables = {"scene": [{"token": "sc", "name": "scene-0001", "first_sample_token": "s0",
+                         "log_token": "l"}],
+              "sample": samples, "sample_data": sample_data, "log": [],
+              "calibrated_sensor": [], "ego_pose": []}
+    for name, rows in tables.items():
+        (version / f"{name}.json").write_text(json.dumps(rows))
+
+
+def test_masks_cli_cuda_matches_cpu(cuda, tmp_path, capsys):
+    """The masks CLI on the card (Detic through the window-attention
+    kernels, f32 with TF32 off) writes the CPU run's labels and cameras, and
+    masks that differ in at most 1e-3 of their pixels (bits whose logit
+    lies near 0 may flip)."""
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.pipelines import masks
+
+    _mini_nuscenes(tmp_path / "nusc")
+    outs = {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / device
+        argv = ["--dataroot", str(tmp_path / "nusc"), "--out_dir", str(out),
+                "--fake_weights", "--thumbnail", "96", "--device", device]
+        before = window_attn_heads.launches
+        masks.main(argv)
+        assert (window_attn_heads.launches > before) == (device == "cuda")
+        assert "2 frames done" in capsys.readouterr().out
+        masks.main(argv)  # resumed: nothing re-processed
+        assert "frames/sec" not in capsys.readouterr().out
+        outs[device] = MaskArtifactStore(out)
+        assert outs[device].remaining_scenes(["scene-0001"]) == []
+    n_masks = 0
+    for f in range(2):
+        want, got = outs["cpu"].read_frame("scene-0001", f), outs["cuda"].read_frame(
+            "scene-0001", f)
+        assert got.labels == want.labels and got.cam_nums == want.cam_nums
+        if want.labels:
+            assert (got.masks != want.masks).mean() <= 1e-3
+        n_masks += len(want.labels)
+    assert n_masks > 0
