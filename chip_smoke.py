@@ -6,7 +6,7 @@
 Phases, each of which raises on a failed check (exit code != 0):
 
 1. Card and build: print the card's name and power limit, build every CUDA
-   kernel of the lift path from csrc/ (one nvcc per source, all at once).
+   kernel from csrc/ (one nvcc per source, all at once).
 2. Kernels: capture each kernel's inputs from a real batch-8 lift step at
    production geometry, then hold the kernel against its plain PyTorch
    version on those inputs — compaction bit-exact at all three stages,
@@ -36,7 +36,26 @@ Phases, each of which raises on a failed check (exit code != 0):
    (f32, TF32 off) and on the CPU (plain versions): equal valid flags and
    class ids, boxes within 1e-3 px, planes bit-equal except bits whose
    upsampled logit lies within 1e-3 of 0.
-7. One JSON line per kernel summary, then the card's name and power limit,
+7. Rel-pos window attention (SAM): the inputs of the first windowed block
+   of a full-width bf16 ViT-H encode at the square grid [1, 64, 64, 1280],
+   and their top 36 rows as the rect grid [1, 36, 64, 1280]. The bf16
+   kernels (heads, then the shared projection) against the f32 plain
+   version on the same bf16-rounded inputs (<= 2^-5 of max|plain|), the f32
+   kernels against the f32 plain version (<= 1e-4 of max|plain|); CUDA-event
+   times beside the bound. Then one 6-camera ViT-H encode with the fused
+   blocks and without, same weights: ms per camera and the difference of
+   the embeddings.
+8. Fused path: bench_e2e (images -> Detic -> SAM -> planes on the card ->
+   lift step -> boxes; 4 warm-up + 12 timed keyframes in batches of 4) with
+   SAM's windowed blocks fused, every count reset just before: each
+   keyframe must launch each rel-pos kernel 28 x 6 = 168 times, each Detic
+   forward 24 + 24 Swin launches, each lift step 3 compactions and 1 medoid.
+   Then the same unfused (0 rel-pos launches) for the A/B.
+9. Fused-path CPU check: DETIC_TEST / SAM_TEST (fused blocks, f32, TF32
+   off), run_fused over 4 synthetic keyframes on the card and on the CPU:
+   equal point counts, keep flags and labels, centroids within 1e-4 m but
+   for medoid ties.
+10. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -61,12 +80,18 @@ PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 WA_BF16_TOL = 2.0 ** -5  # window attention, bf16 kernel vs f32 plain, x max|plain|
 WA_F32_TOL = 1e-4  # window attention, f32 kernel vs f32 plain, x max|plain|
 SWIN_BLOCKS_PER_FORWARD = 24  # Swin-B depths (2, 2, 18, 2)
+SAM_WINDOWED_BLOCKS = 28  # ViT-H: 32 blocks, 4 of them global
+# fused vs unfused ViT-H embeddings in bf16, x max|unfused|: each of the 28
+# fused branches rounds at other places than the unfused block (about 2^-8
+# relative a value), and the differences add up through the 32 blocks
+ENCODE_AB_TOL = 2.0 ** -4
 BOX_ATOL = 1e-3  # mask-path CPU check: box corners, image px
 LOGIT_EPS = 1e-3  # mask-path CPU check: bits this close to 0 may flip
 # f32 operations per (i, j) pair of the medoid sums: 3 sub, 3 mul, 2 add,
 # sqrt, the valid multiply, the accumulate
 MEDOID_OPS_PER_PAIR = 11
 STAGES = ("camera", "union", "mask")
+N_CAMERAS = 6  # nuScenes ring
 REPS = 20
 
 
@@ -496,6 +521,287 @@ def mask_cpu_check(torch, device="cuda"):
             "logit_err": logit_err, "bits_differ": int(diff.sum())}
 
 
+def capture_relpos_inputs(torch, models, frame):
+    """Run one SAM encode of the ring, recording the rel-pos wrapper's
+    inputs at the first windowed block and how many blocks call it."""
+    import cm3d_tpu_torch.models.sam as sam
+
+    seen, calls = [], [0]
+    real = sam.window_attn_relpos
+
+    def spy(x, *params, **kw):
+        calls[0] += 1
+        if not seen:
+            seen.append((x.clone(), tuple(p.detach().clone() for p in params), dict(kw)))
+        return real(x, *params, **kw)
+
+    sam.window_attn_relpos = spy
+    try:
+        models.sam_encode(frame)
+    finally:
+        sam.window_attn_relpos = real
+    torch.cuda.synchronize()
+    check(calls[0] == SAM_WINDOWED_BLOCKS * N_CAMERAS,
+          f"one ring encode runs {SAM_WINDOWED_BLOCKS} windowed blocks x {N_CAMERAS} cameras "
+          f"through the fused kernels, saw {calls[0]}")
+    return seen[0]
+
+
+def relpos_phase(torch, captured):
+    """The rel-pos kernels against their plain version at the square grid
+    the encode gave them and at its top 36 rows (the rect-encode grid)."""
+    from cm3d_tpu_torch.kernels.window_attn_relpos import (
+        window_attn_relpos_heads,
+        window_attn_relpos_heads_plain,
+        window_attn_relpos_plain,
+        window_attn_relpos_proj,
+    )
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_proj_plain
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    x_sq, (g, b, wqkv, bqkv, wproj, bproj, rel_h, rel_w), kw = captured
+    heads, win, eps = kw["heads"], kw["window"], kw["eps"]
+    check(kw["dtype"] == bf16, "the ViT-H encode computes in bf16")
+    check(tuple(x_sq.shape) == (1, 64, 64, 1280), f"square ViT-H grid, got {tuple(x_sq.shape)}")
+    geo = dict(heads=heads, window=win, eps=eps)
+    out = []
+    for name, x in (("square", x_sq), ("rect", x_sq[:, :36].contiguous())):
+        bsz, h, w, c = x.shape
+        shape = tuple(x.shape)
+        wqkv_b, wproj_b = wqkv.to(bf16), wproj.to(bf16)
+        # bf16 kernels against the f32 plain version on the same bf16-rounded
+        # inputs, weights and tables
+        r_qkv, r_proj = wqkv_b.float(), wproj_b.float()
+        r_h, r_w = rel_h.to(bf16).float(), rel_w.to(bf16).float()
+        o = window_attn_relpos_heads(x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo)
+        got = window_attn_relpos_proj(o, wproj_b, bproj, out_shape=shape, heads=heads,
+                                      window=win, dtype=bf16)
+        o_ref = window_attn_relpos_heads_plain(x.float(), g, b, r_qkv, bqkv, r_h, r_w,
+                                               dtype=f32, **geo)
+        ref = window_attn_proj_plain(o.float(), r_proj, bproj, out_shape=shape, window=win,
+                                     shift=0, dtype=f32)
+        full_ref = window_attn_relpos_plain(x.float(), g, b, r_qkv, bqkv, r_proj, bproj, r_h,
+                                            r_w, dtype=f32, **geo)
+        torch.cuda.synchronize()
+        errs = {}
+        for part, gv, rv in (("heads", o, o_ref), ("proj", got, ref), ("branch", got, full_ref)):
+            err = float((gv.float() - rv).abs().max())
+            scale = float(rv.abs().max())
+            errs[part] = (err, err / scale)
+            check(err <= WA_BF16_TOL * scale, f"rel-pos window attention {name} {part}: bf16 "
+                  f"kernel vs f32 plain {err:.3g} > 2^-5 x {scale:.3g}")
+        # f32 kernels against the f32 plain version
+        xf = x.float()
+        o32 = window_attn_relpos_heads(xf, g, b, wqkv.float(), bqkv, rel_h, rel_w, dtype=f32,
+                                       **geo)
+        got32 = window_attn_relpos_proj(o32, wproj.float(), bproj, out_shape=shape, heads=heads,
+                                        window=win, dtype=f32)
+        ref32 = window_attn_relpos_plain(xf, g, b, wqkv.float(), bqkv, wproj.float(), bproj,
+                                         rel_h, rel_w, dtype=f32, **geo)
+        torch.cuda.synchronize()
+        err32 = float((got32 - ref32).abs().max())
+        check(err32 <= WA_F32_TOL * float(ref32.abs().max()),
+              f"rel-pos window attention {name}: f32 kernel vs plain {err32:.3g}")
+        del o32, got32, ref32, xf, o_ref, ref, full_ref
+        # times (CUDA events) and bounds of the bf16 launches
+        ms_h = time_ms(torch, lambda: window_attn_relpos_heads(
+            x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo))
+        ms_p = time_ms(torch, lambda: window_attn_relpos_proj(
+            o, wproj_b, bproj, out_shape=shape, heads=heads, window=win, dtype=bf16))
+        plain_h = time_ms(torch, lambda: window_attn_relpos_heads_plain(
+            x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo), reps=5)
+        plain_p = time_ms(torch, lambda: window_attn_proj_plain(
+            o, wproj_b, bproj, out_shape=shape, window=win, shift=0, dtype=bf16), reps=5)
+        # the work the branch needs, counted on the real tokens (a padding
+        # token's output is cropped and its k / v are the bare biases): qkv,
+        # scores and p v over n keys, the two table products; then proj
+        tokens, n, two = bsz * h * w, win * win, 2 * win - 1
+        ops_h = tokens * (6 * c * c + 4 * n * c + 4 * two * c)
+        bytes_h = (x.numel() * x.element_size() + 3 * c * c * 2 + 2 * two * (c // heads) * 2
+                   + tokens * c * 2)
+        ops_p = tokens * 2 * c * c
+        bytes_p = tokens * c * 2 + c * c * 2 + tokens * c * 2
+        rec = {"grid": name, "shape": list(shape), "x_dtype": str(x.dtype).replace("torch.", ""),
+               "num_heads": heads, "window": win, "eps": eps,
+               "max_abs_err": errs["branch"][0], "max_rel_err": errs["branch"][1],
+               "f32_max_abs_err": err32, "gflop": (ops_h + ops_p) / 1e9}
+        for part, ms, plain, ops, nbytes in (("heads", ms_h, plain_h, ops_h, bytes_h),
+                                              ("proj", ms_p, plain_p, ops_p, bytes_p)):
+            ops_ms = ops / PEAK_BF16_OPS_PER_S * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            rec[part] = {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+                         "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                         "max_abs_err": errs[part][0], "max_rel_err": errs[part][1]}
+        out.append(rec)
+        print(f"rel-pos window attention {name} {list(shape)} h{heads} win {win}: bf16 rel err "
+              f"{errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
+              f"{errs['proj'][1]:.3g}), f32 abs err {err32:.3g}; heads {ms_h:.4f} ms + proj "
+              f"{ms_p:.4f} ms, plain {plain_h:.4f} + {plain_p:.4f} ms, bound "
+              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def encode_ab_phase(torch, unfused, fused, frame):
+    """One 6-camera ViT-H encode, unfused and fused (the same weights), in
+    turns: ms per camera and the difference of the embeddings."""
+    emb_u = unfused.sam_encode(frame).float()
+    emb_f = fused.sam_encode(frame).float()
+    torch.cuda.synchronize()
+    diff = (emb_f - emb_u).abs()
+    scale = float(emb_u.abs().max())
+    rec = {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+           "max_abs_unfused": scale, "tolerance": ENCODE_AB_TOL * scale}
+    check(bool(torch.isfinite(emb_f).all()), "fused embeddings finite")
+    check(rec["max_abs_diff"] <= rec["tolerance"], f"fused vs unfused ViT-H embeddings differ by "
+          f"{rec['max_abs_diff']:.3g} > 2^-4 x {scale:.3g}")
+    del emb_u, emb_f, diff
+    times = {"unfused": [], "fused": []}
+    for name, models in (("unfused", unfused), ("fused", fused), ("fused", fused),
+                         ("unfused", unfused)):
+        times[name].append(time_ms(torch, lambda: models.sam_encode(frame), reps=2) / N_CAMERAS)
+    rec["unfused_ms_per_camera"] = times["unfused"]
+    rec["fused_ms_per_camera"] = times["fused"]
+    print(f"ViT-H encode (bf16, square 1024, per camera of a 6-camera ring): unfused "
+          f"{times['unfused']} ms, fused {times['fused']} ms; embeddings differ by at most "
+          f"{rec['max_abs_diff']:.4g} (mean {rec['mean_abs_diff']:.4g}) of max "
+          f"{scale:.4g}, tolerance {rec['tolerance']:.4g}", flush=True)
+    return rec
+
+
+def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 4):
+    """bench_e2e with every launch count set to 0 just before it and read
+    just after; the counts must fit the keyframes, Detic forwards and lift
+    steps the run made."""
+    from cm3d_tpu_torch.benchmarks import bench_e2e
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.kernels.window_attn_relpos import (
+        window_attn_relpos_heads,
+        window_attn_relpos_proj,
+    )
+
+    wrappers = (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj,
+                window_attn_relpos_heads, window_attn_relpos_proj)
+    forwards = [0]
+    raw = models.detic
+
+    def counted(frame):
+        forwards[0] += 1
+        return raw(frame)
+
+    models = dataclasses.replace(models, detic=counted)
+    for wr in wrappers:
+        wr.launches = 0
+    bench = bench_e2e("bfloat16", n_frames=n_frames, batch_size=batch_size, models=models,
+                      device="cuda")
+    launches = {wr.__name__: wr.launches for wr in wrappers}
+    frames = batch_size + n_frames  # the warm-up run, then the timed one
+    steps = 1 + -(-n_frames // batch_size)
+    bench.update(fused_window_attn=fused, keyframes=frames, detic_forwards=forwards[0],
+                 lift_steps=steps, launches=launches)
+    print(json.dumps(bench), flush=True)
+    check(forwards[0] == frames and bench["n_frames"] == n_frames,
+          f"{frames} keyframes, one Detic forward each, saw {forwards[0]}")
+    check(bench["boxes_kept"] > 0, "the fused path delivers boxes")
+    relpos = SAM_WINDOWED_BLOCKS * N_CAMERAS * frames if fused else 0
+    want = {"compact_rows": 3 * steps, "medoid_distance_sums_rows": steps,
+            "window_attn_heads": SWIN_BLOCKS_PER_FORWARD * frames,
+            "window_attn_proj": SWIN_BLOCKS_PER_FORWARD * frames,
+            "window_attn_relpos_heads": relpos, "window_attn_relpos_proj": relpos}
+    for name, count in launches.items():
+        check(count == want[name], f"bench_e2e ({'fused' if fused else 'unfused'}) {name}: "
+              f"expected {want[name]} launches over {frames} keyframes and {steps} lift steps, "
+              f"got {count}")
+    return bench
+
+
+def e2e_cpu_check(torch, n_frames: int = 4, batch_size: int = 2):
+    """run_fused at DETIC_TEST / SAM_TEST with the fused blocks (f32, TF32
+    off) over a few synthetic keyframes, on the card and on the CPU."""
+    from cm3d_tpu_torch.config import CLASS_TO_ID, LiftStageConfig, MaskStageConfig
+    from cm3d_tpu_torch.datasets.nuscenes.frontend import get_detection_name
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.kernels.window_attn_relpos import window_attn_relpos_heads
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.pipelines.e2e import run_fused
+    from cm3d_tpu_torch.pipelines.masks import build_fake_models
+
+    t0 = time.perf_counter()
+    img_h, img_w = 48, 64
+    lift_cfg = LiftStageConfig(max_points=16384, max_masks=32, max_points_per_mask=512,
+                               max_points_per_camera=8192, max_points_in_masks=2048,
+                               max_lane_points=1024)
+    mask_cfg = MaskStageConfig(max_detections=16, max_masks_total=32, dtype="float32")
+    rng = np.random.default_rng(0)
+    syn = SyntheticConfig(image_w=img_w, image_h=img_h, points_per_frame=12000,
+                          objects_per_frame=12, focal=50.0)
+    bases = [make_keyframe(syn, lift_cfg, rng) for _ in range(n_frames)]
+    rings = [[(rng.random((img_h, img_w, 3)) * 255).astype(np.uint8) for _ in range(N_CAMERAS)]
+             for _ in range(n_frames)]
+
+    def source():
+        for i in range(n_frames):
+            def assemble(handle, i=i):
+                if handle["planes"] is None:
+                    return None
+                m = lift_cfg.max_masks
+                cam, label = np.zeros(m, np.int32), np.zeros(m, np.int32)
+                score, valid = np.zeros(m, np.float32), np.zeros(m, bool)
+                for j, name in enumerate(handle["labels"][:m]):
+                    name = get_detection_name(name)
+                    if name in CLASS_TO_ID:
+                        cam[j], label[j] = handle["cams"][j], CLASS_TO_ID[name]
+                        score[j], valid[j] = handle["scores"][j], True
+                return bases[i]._replace(mask_bits=handle["planes"], mask_cam=cam,
+                                         mask_label=label, mask_score=score,
+                                         mask_valid=valid), i
+            yield rings[i], assemble
+
+    def run(device):
+        models = build_fake_models(device=device, fused_window_attn=True)
+        real_step = make_keyframe_step_fn(lift_cfg, device=device)
+        lifts, boxes = [], {}
+
+        def step(batch):
+            lift, bx = real_step(batch)
+            lifts.append((lift.point_counts.cpu(), lift.has_points.cpu(), lift.centroids.cpu()))
+            return lift, bx
+
+        n = run_fused(models, step, source(), mask_cfg, lambda tok, b: boxes.update({tok: b}),
+                      batch_size, device=device)
+        counts, has, cent = (torch.cat(parts) for parts in zip(*lifts))
+        return n, counts, has, cent, boxes
+
+    before = window_attn_relpos_heads.launches
+    n_g, counts_g, has_g, cent_g, boxes_g = run("cuda")
+    check(window_attn_relpos_heads.launches > before,
+          "the card run goes through the rel-pos kernel")
+    n_c, counts_c, has_c, cent_c, boxes_c = run("cpu")
+    check(n_g == n_c == n_frames, f"{n_frames} keyframes lifted on both, got {n_g} and {n_c}")
+    check(torch.equal(counts_g, counts_c) and torch.equal(has_g, has_c),
+          "per-mask point counts equal, card vs CPU")
+    check(int(has_c.sum()) > 0, "masks lift to points")
+    # a medoid may flip where its two smallest distance sums tie in f32
+    close = torch.isclose(cent_g, cent_c, rtol=0.0, atol=1e-4).all(-1)
+    n_diff = int((~close & has_c).sum())
+    check(n_diff <= max(1, int(has_c.sum()) // 100),
+          f"centroids within 1e-4 m of the CPU path but for medoid ties ({n_diff} differ)")
+    n_keep = 0
+    for tok in range(n_frames):
+        bg, bc = boxes_g[tok], boxes_c[tok]
+        check(np.array_equal(bg.keep, bc.keep), f"keep flags equal, keyframe {tok}")
+        check(np.array_equal(bg.labels[bc.keep], bc.labels[bc.keep]),
+              f"labels equal, keyframe {tok}")
+        n_keep += int(bc.keep.sum())
+    check(n_keep > 0, "boxes survive")
+    print(f"fused-path CPU check: {n_frames} keyframes, {int(has_c.sum())} masks with points, "
+          f"{n_keep} boxes kept, {n_diff} centroids differ, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return {"keyframes": n_frames, "masks_with_points": int(has_c.sum()), "boxes_kept": n_keep,
+            "centroids_differ": n_diff}
+
+
 def main() -> int:
     import torch
 
@@ -507,7 +813,6 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the cm3d_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
-    from cm3d_tpu_torch.benchmarks import C as N_CAMS
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
         IMG_W,
@@ -610,7 +915,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"full-width Detic Swin-B + SAM ViT-H, bf16, random weights: "
           f"{time.perf_counter() - t0:.2f} s to build", flush=True)
-    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMS)]
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
     wa = window_attn_phase(torch, capture_window_attn_inputs(torch, prod, ring))
 
     # --- 5. the mask stage, counted, then one keyframe profiled ---
@@ -618,13 +923,28 @@ def main() -> int:
     benches = mask_stage_phase(torch, realistic)
     profile_phase(torch, lambda: generate_frame_masks(realistic, ring, MaskStageConfig()),
                   n_steps=2)
-    del prod, realistic
+
+    # --- 7. SAM's rel-pos window attention, and the encode with and without it ---
+    t0 = time.perf_counter()
+    prod_fused = build_production_fake_models("bfloat16", device=dev, fused_window_attn=True)
+    torch.cuda.synchronize()
+    print(f"the same models with SAM's windowed blocks fused: "
+          f"{time.perf_counter() - t0:.2f} s to build", flush=True)
+    frame = prod.prepare(ring)
+    rp = relpos_phase(torch, capture_relpos_inputs(torch, prod_fused, frame))
+    encode_ab = encode_ab_phase(torch, prod, prod_fused, frame)
+
+    # --- 8. the fused images -> boxes path, counted: fused blocks, then unfused ---
+    e2e_fused = e2e_phase(torch, _realistic_load(prod_fused), fused=True)
+    e2e_unfused = e2e_phase(torch, realistic, fused=False)
+    del prod, realistic, prod_fused, frame
     torch.cuda.empty_cache()
 
-    # --- 6. the mask path on the card against the CPU ---
+    # --- 6. the mask path, 9. the fused path, on the card against the CPU ---
     cpu_check = mask_cpu_check(torch)
+    e2e_check = e2e_cpu_check(torch)
 
-    # --- 7. summary ---
+    # --- 10. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -644,6 +964,24 @@ def main() -> int:
             "bound_by": "operations" if ops >= per_forward(name, "bytes_ms") else "bytes",
             "library_ms": None,
             "per": "one Detic forward: 24 launches, 6 cameras at 1024x576, bf16",
+        }
+
+    def relpos_entry(name, source):
+        """One square ViT-H encode: 28 launches at [1, 64, 64, 1280]."""
+        sq = rp[0][name]
+        return {
+            "name": f"window_attn_relpos_{name}",
+            "route": "cuda",
+            "source": source,
+            "replaces": "cm3d_tpu/kernels/window_attn_pallas.py:520",
+            "launches": e2e_fused["launches"][f"window_attn_relpos_{name}"],
+            "max_abs_err": max(r[name]["max_abs_err"] for r in rp),
+            "ms": sq["ms"] * SAM_WINDOWED_BLOCKS,
+            "plain_ms": sq["plain_ms"] * SAM_WINDOWED_BLOCKS,
+            "bound_ms": sq["bound_ms"] * SAM_WINDOWED_BLOCKS,
+            "bound_by": "operations" if sq["ops_ms"] >= sq["bytes_ms"] else "bytes",
+            "library_ms": None,
+            "per": "one ViT-H encode of one camera: 28 launches at [1, 64, 64, 1280], bf16",
         }
 
     kernels = [
@@ -674,12 +1012,16 @@ def main() -> int:
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
+        relpos_entry("heads", "cm3d_tpu_torch/csrc/window_attn_relpos.cu"),
+        relpos_entry("proj", "cm3d_tpu_torch/csrc/window_attn.cu"),
     ]
     print("kernels launched on the main path: " + ", ".join(
         f"{k['name']} x{k['launches']}" for k in kernels), flush=True)
     print(json.dumps({"medoid_kn3_entry": {"ms": med["kn3_ms"], "plain_ms": med["kn3_plain_ms"]},
                       "window_attn_shapes": wa, "mask_stage": benches,
-                      "mask_cpu_check": cpu_check}), flush=True)
+                      "mask_cpu_check": cpu_check, "relpos_shapes": rp,
+                      "vit_h_encode_ab": encode_ab, "e2e_fused": e2e_fused,
+                      "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -3,6 +3,8 @@
   bench_lift       — the batched lift step on synthetic keyframes.
   bench_mask_stage — the pipelined 2D stage loop (run_mask_stage) with
                      full-width random-weight Detic Swin-B + SAM ViT-H.
+  bench_e2e        — the fused images -> boxes loop (pipelines.e2e.run_fused)
+                     with the same models and the production lift step.
 
 Model content caveat (mask stage): random full-width weights give the
 production FLOPs and geometry but meaningless detections, so the detector's
@@ -73,11 +75,13 @@ def bench_lift(batch_size: int = 8, n_iters: int = 10, device=None) -> dict:
     }
 
 
-def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0):
+def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0,
+                                 fused_window_attn: bool = False):
     """Full-width Detic Swin-B + SAM ViT-H (square encode) with random
     weights drawn from a torch.Generator seeded with `seed` (the FLOPs of
     converted checkpoints), built on `device` behind the standard batched
-    wrappers."""
+    wrappers. `fused_window_attn` runs SAM's 28 windowed blocks through the
+    fused kernels (same weights from the same seed)."""
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
     from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
@@ -88,7 +92,7 @@ def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int
     device = resolve_device(device)
     detic_cfg = dataclasses.replace(
         DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
-    sam_cfg = dataclasses.replace(SAM_VIT_H, dtype=dtype)
+    sam_cfg = dataclasses.replace(SAM_VIT_H, dtype=dtype, fused_window_attn=fused_window_attn)
     clf = np.random.default_rng(seed).standard_normal(
         (detic_cfg.embed_dim, len(VOCAB))).astype(np.float32)
     with torch.device(device):
@@ -221,3 +225,107 @@ def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
         "warmup_masks": n_warm,
         "dtype": dtype,
     }
+
+
+def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, models=None,
+              fused_window_attn: bool = False, device=None) -> dict:
+    """Fused end-to-end throughput: images -> Detic -> SAM -> bit-planes ->
+    lift step -> boxes, through pipelines.e2e.run_fused (the production
+    fused loop; planes stay on the device). The synthetic keyframes carry
+    production-scale LiDAR / lane payloads; the mask planes come from the
+    real SAM decode dispatch (content swapped to realistic blobs).
+
+    Protocol (the JAX package's): one warm-up run of `batch_size` frames,
+    then `n_frames` timed frames in batches of `batch_size`, the device
+    synchronised before each clock read. `fused_window_attn` sets SAM's
+    config when the models are built here; passed `models` run as built."""
+    from cm3d_tpu_torch.config import CLASS_TO_ID, LiftStageConfig, MaskStageConfig
+    from cm3d_tpu_torch.datasets.nuscenes.frontend import get_detection_name
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.pipelines.e2e import run_fused
+    from cm3d_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    lift_cfg = LiftStageConfig()
+    mask_cfg = MaskStageConfig(dtype=dtype)
+    if mask_cfg.max_masks_total != lift_cfg.max_masks:
+        raise ValueError("the fused path needs MaskStageConfig.max_masks_total == "
+                         "LiftStageConfig.max_masks")
+    rng = np.random.default_rng(0)
+    if models is None:
+        models = _realistic_load(build_production_fake_models(
+            dtype, device=device, fused_window_attn=fused_window_attn))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    syn = SyntheticConfig(image_w=IMG_W, image_h=IMG_H)
+    base_kfs = [make_keyframe(syn, lift_cfg, rng) for _ in range(2)]
+    images = [[rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(C)]
+              for _ in range(2)]
+    step = make_keyframe_step_fn(lift_cfg, device=device)
+    m_pad = lift_cfg.max_masks
+
+    def frame_source(n):
+        for i in range(n):
+            base = base_kfs[i % 2]
+
+            def assemble(handle, base=base, token=i):
+                # mirror NuScenesFrontend.assemble_keyframe's mask fields,
+                # with the rest of the keyframe from the synthetic frontend
+                if handle["planes"] is None:  # run_fused calls us always
+                    return None
+                labels = handle["labels"]
+                m_real = min(len(labels), m_pad)
+                mask_cam = np.zeros(m_pad, np.int32)
+                mask_label = np.zeros(m_pad, np.int32)
+                mask_score = np.zeros(m_pad, np.float32)
+                mask_valid = np.zeros(m_pad, bool)
+                for j in range(m_real):
+                    name = get_detection_name(labels[j])
+                    if name not in CLASS_TO_ID:
+                        continue
+                    mask_cam[j] = handle["cams"][j]
+                    mask_label[j] = CLASS_TO_ID[name]
+                    mask_score[j] = handle["scores"][j]
+                    mask_valid[j] = True
+                kf = base._replace(
+                    # stays a device tensor: run_fused stacks device leaves
+                    # on the device (the real path's planes never visit the host)
+                    mask_bits=handle["planes"],
+                    mask_cam=mask_cam, mask_label=mask_label, mask_score=mask_score,
+                    mask_valid=mask_valid,
+                )
+                return kf, token
+
+            yield images[i % 2], assemble
+
+    boxes_seen = [0]
+
+    def on_boxes(token, b):
+        boxes_seen[0] += int(np.asarray(b.keep).sum())
+
+    # warm-up: kernel builds and loads, the allocator, cuDNN's choices
+    run_fused(models, step, frame_source(batch_size), mask_cfg, on_boxes, batch_size,
+              device=device)
+    sync()
+
+    boxes_seen[0] = 0
+    t0 = time.perf_counter()
+    done = run_fused(models, step, frame_source(n_frames), mask_cfg, on_boxes, batch_size,
+                     device=device)
+    sync()
+    dt = time.perf_counter() - t0
+    return {
+        "metric": "e2e_keyframes_per_sec_per_chip",
+        "value": done / dt,
+        "unit": "keyframes/sec",
+        "ms_per_keyframe": dt / done * 1000,
+        "n_frames": done,
+        "batch_size": batch_size,
+        "boxes_kept": boxes_seen[0],
+        "dtype": dtype,
+    }
+

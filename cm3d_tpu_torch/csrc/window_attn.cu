@@ -48,43 +48,23 @@
 // chunks, wgmma, several heads per block to reuse the x tiles.
 
 #include <cmath>
-#include <cstdint>
-#include <type_traits>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "window_attn_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace nvcuda;
+using namespace wattn;
 
 constexpr int kRows = 64;      // tokens per window, padded (win * win <= 64)
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 32;        // K chunk of both GEMMs
 constexpr int kMaxNT = 12;     // 16-column tiles of 3 * hd (hd <= 64)
 constexpr int kMaxFrag = 4 * kMaxNT / kWarps;  // wmma accumulators per warp
 
 template <typename T>
 __host__ __device__ constexpr int lda() {  // row stride (elements) of the GEMM operand tiles
-  return std::is_same<T, bf16>::value ? kKC + 8 : kKC + 1;
+  return tile_ld<T>(kKC);
 }
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 struct Geo {
   int B, H, W, C, heads, hd, win, n, shift, Hp, Wp, nwy, nwx;
@@ -106,8 +86,6 @@ __device__ __forceinline__ long long token_offset(const Geo& g, int b, int wl, i
 __device__ __forceinline__ int region(int r, int len, int win, int shift) {
   return r < len - win ? 0 : (r < len - shift ? 1 : 2);
 }
-
-__host__ __device__ inline size_t round128(size_t v) { return (v + 127) & ~size_t(127); }
 
 struct HeadsSmem {
   size_t off_qkv, off_r0, total;

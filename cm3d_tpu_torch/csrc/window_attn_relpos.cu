@@ -1,0 +1,601 @@
+// Fused SAM windowed-block attention (sm_90a): LN + qkv + attention with
+// the decomposed relative-position bias, per head, for one ViT block's
+// windowed attention branch. The output projection is window_attn.cu's
+// window_attn_proj (window order in, image order out), launched after it.
+//
+// Replaces the TPU kernel cm3d_tpu/kernels/window_attn_pallas.py:520
+// fused_window_attn_relpos (_wattn_relpos_kernel), together with the pad and
+// crop that models/sam.py _fused_windowed wraps around it:
+//
+//   pad H, W to multiples of win; per window of n = win^2 tokens: LN (f32,
+//   two-pass variance; padding tokens exactly 0 after the LN, so their k and
+//   v are the bare bias) -> qkv = LN @ Wqkv^T + bqkv -> per head
+//   s[i, j] = (q_i . k_j) * hd^-1/2 + q_i . rel_h[r_i - r_j + win - 1]
+//                                   + q_i . rel_w[c_i - c_j + win - 1]
+//   (the scale follows the dot; the bias uses the raw q) -> softmax -> o = p v.
+//
+// Rounding follows the TPU kernel: LN out, qkv, the two bias terms, p and o
+// are rounded to the compute type T (bf16 or f32); every sum is f32.
+//
+// Bound on the H100: 6 C^2 (qkv) + 4 n C (q k^T + p v) + 4 (2 win - 1) C
+// (the two table products) operations a real token against a few MB of x,
+// weights and o per launch: operations bind. The TPU kernel's G-window
+// block-diagonal [T, T] problem, its reversed tables with Toeplitz
+// select-sums and its one-hot expansion products only served its matrix
+// unit; here each window is its own n x n problem and the bias is an indexed
+// read of the [rows, 2 win - 1] products q @ rel^T.
+//
+// Design. The TPU kernel keeps qkv in VMEM because its HBM is slow beside
+// its matrix unit; on this card qkv of a whole ViT-H grid is 37 MB, 22 us of
+// HBM time beside 45 us of tensor-core time, so the branch is cut where the
+// data is reused differently, three kernels behind one launcher:
+//  1. relpos_ln_stats: mean and rstd of every real token, one warp each.
+//  2. relpos_qkv: one GEMM over all windows' tokens in window order,
+//     [M, C] x [C, 3C]; the A tile is gathered from x and normalised as it
+//     loads (a padding token's row is 0, so its qkv is the bias). bf16:
+//     128 x 128 tiles, K chunks of 32, 8 warps of 2 x 4 wmma 16x16x16
+//     accumulators, 16-byte loads; f32: 64 x 64 SIMT tiles.
+//  3. relpos_attn: one block per (window, head); q, k, v [n, hd] of the head
+//     in shared memory (110 KB in bf16 at hd 80, 190 KB in f32), so the
+//     [196, 196] scores cannot sit beside them: a tile of query rows at a
+//     time (32 in bf16, 16 in f32), scores q k^T and the two [rows, 32]
+//     table products (bf16: wmma, the 27-row tables zero-padded to 32; f32:
+//     SIMT), bias gathered per (i, j), softmax in f32, p v, o written in
+//     window order.
+// Running 1-3 in one block per (window, head) instead makes every head
+// re-read and re-normalise its window's x and re-stream its slice of Wqkv
+// once per 64 rows: measured at 7.8 ms a call at ViT-H's square grid,
+// against 0.93 ms for this cut.
+// Not yet done: cp.async / TMA double buffering, wgmma, key tiling in 3 so
+// that two blocks share an SM.
+
+#include <cmath>
+
+#include "window_attn_common.cuh"
+
+namespace {
+
+using namespace nvcuda;
+using namespace wattn;
+
+constexpr int kMaxTokens = 208;  // win^2 <= 196, padded to 16
+constexpr int kMaxHd = 80;
+constexpr int kRel = 32;       // rows of a rel-pos table, padded (2 win - 1 <= 32)
+constexpr int kLDR = kRel + 4;  // row stride of the q @ rel^T products
+
+template <typename T>
+struct Cfg {  // bf16: tensor-core tiles; f32: SIMT, shared memory is the limit
+  static constexpr bool kMma = std::is_same<T, bf16>::value;
+  static constexpr int kQT = kMma ? 32 : 16;  // query rows per attention tile
+  // the qkv GEMM's tile
+  static constexpr int kBM = kMma ? 128 : 64;
+  static constexpr int kBN = kMma ? 128 : 64;
+  static constexpr int kKC = kMma ? 32 : 16;
+};
+
+struct Geo {
+  int B, H, W, C, heads, hd, win, n, Hp, Wp, nwy, nwx;
+};
+
+// Source element offset of token t of window wl (in one image), or -1 for a
+// padding token (bottom / right pad of the grid).
+__device__ __forceinline__ long long token_offset(const Geo& g, int b, int wl, int t) {
+  const int r = (wl / g.nwx) * g.win + t / g.win;
+  const int c = (wl % g.nwx) * g.win + t % g.win;
+  if (r >= g.H || c >= g.W) return -1;
+  return ((static_cast<long long>(b) * g.H + r) * g.W + c) * g.C;
+}
+
+// ---- 1. LayerNorm statistics of every real token: stats[tok], stats[T + tok]
+template <typename TX>
+__global__ void __launch_bounds__(kThreads)
+relpos_ln_stats_kernel(const TX* __restrict__ x, float* __restrict__ stats, int tokens, int C,
+                       float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tok = blockIdx.x * kWarps + warp;
+  if (tok >= tokens) return;
+  const TX* xr = x + static_cast<long long>(tok) * C;
+  float sum = 0.0f;
+  for (int k = lane; k < C; k += 32) sum += to_f(xr[k]);
+  for (int d = 16; d; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+  const float mu = sum / C;
+  float sq = 0.0f;
+  for (int k = lane; k < C; k += 32) {
+    const float dx = to_f(xr[k]) - mu;
+    sq += dx * dx;
+  }
+  for (int d = 16; d; d >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, d);
+  if (lane == 0) {
+    stats[tok] = mu;
+    stats[tokens + tok] = rsqrtf(sq / C + eps);
+  }
+}
+
+// 8 consecutive values as f32, by 16-byte loads (p 16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  __align__(16) bf16 t[8];
+  *reinterpret_cast<uint4*>(t) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(t[i]);
+}
+
+// ---- 2. qkv [M, 3C] = LN(x)[window order] @ Wqkv^T + bqkv
+template <typename TX, typename T>
+__global__ void __launch_bounds__(kThreads)
+relpos_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ stats,
+                  const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+                  const T* __restrict__ wqkv, const float* __restrict__ bqkv,
+                  T* __restrict__ qkv, Geo g, int M, int tokens, int vec) {
+  using CF = Cfg<T>;
+  constexpr int BM = CF::kBM, BN = CF::kBN, KC = CF::kKC;
+  constexpr int LDA = tile_ld<T>(KC);
+  __shared__ __align__(128) unsigned char smem[(BM + BN) * LDA * sizeof(T)];
+  __shared__ long long s_off[BM];
+  __shared__ float s_mu[BM], s_rs[BM];
+  T* s_a = reinterpret_cast<T*>(smem);
+  T* s_b = s_a + BM * LDA;
+  const int C = g.C, N = 3 * g.C;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nwin = g.nwy * g.nwx;
+
+  for (int r = tid; r < BM; r += kThreads) {
+    const int m = m0 + r;
+    long long off = -1;
+    float mu = 0.0f, rs = 0.0f;
+    if (m < M) {
+      const int wglob = m / g.n;
+      off = token_offset(g, wglob / nwin, wglob % nwin, m % g.n);
+      if (off >= 0) {
+        const long long tok = off / C;
+        mu = stats[tok];
+        rs = stats[tokens + tok];
+      }
+    }
+    s_off[r] = off;
+    s_mu[r] = mu;
+    s_rs[r] = rs;
+  }
+  __syncthreads();
+
+  const int ty = tid >> 4, tx = tid & 15;  // SIMT (f32) output layout
+  const int wm = warp & 3, wn = warp >> 2;  // wmma: 4 x 2 warps of 32 x 64
+  float acc_s[4][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_w[2][4];
+  if constexpr (CF::kMma) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc_w[i][j], 0.0f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_s[i][j] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < C; k0 += KC) {
+    if (CF::kMma && vec) {
+      if constexpr (CF::kMma) {
+        for (int gi = tid; gi < BM * (KC / 8); gi += kThreads) {
+          const int r = gi / (KC / 8), k = k0 + (gi % (KC / 8)) * 8;
+          __align__(16) bf16 out[8];
+          const long long off = s_off[r];
+          if (off >= 0 && k < C) {
+            float xv[8], gv[8], bv[8];
+            load8(x + off + k, xv);
+            load8(ln_g + k, gv);
+            load8(ln_b + k, bv);
+            const float mu = s_mu[r], rs = s_rs[r];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              out[i] = __float2bfloat16(((xv[i] - mu) * rs) * gv[i] + bv[i]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) out[i] = __float2bfloat16(0.0f);
+          }
+          *reinterpret_cast<uint4*>(s_a + r * LDA + (k - k0)) = *reinterpret_cast<uint4*>(out);
+        }
+        for (int gi = tid; gi < BN * (KC / 8); gi += kThreads) {
+          const int j = gi / (KC / 8), k = k0 + (gi % (KC / 8)) * 8, col = n0 + j;
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (col < N && k < C)
+            v = *reinterpret_cast<const uint4*>(wqkv + static_cast<long long>(col) * C + k);
+          *reinterpret_cast<uint4*>(s_b + j * LDA + (k - k0)) = v;
+        }
+      }
+    } else {
+      for (int e = tid; e < BM * KC; e += kThreads) {
+        const int r = e / KC, kk = e % KC, k = k0 + kk;
+        const long long off = s_off[r];
+        float v = 0.0f;
+        if (off >= 0 && k < C) v = ((to_f(x[off + k]) - s_mu[r]) * s_rs[r]) * ln_g[k] + ln_b[k];
+        s_a[r * LDA + kk] = from_f<T>(v);
+      }
+      for (int e = tid; e < BN * KC; e += kThreads) {
+        const int j = e / KC, kk = e % KC, k = k0 + kk, col = n0 + j;
+        s_b[j * LDA + kk] = (col < N && k < C) ? wqkv[static_cast<long long>(col) * C + k]
+                                               : from_f<T>(0.0f);
+      }
+    }
+    __syncthreads();
+    if constexpr (CF::kMma) {
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], s_a + (wm * 32 + i * 16) * LDA + kk, LDA);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::load_matrix_sync(fb[j], s_b + (wn * 64 + j * 16) * LDA + kk, LDA);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc_w[i][j], fa[i], fb[j], acc_w[i][j]);
+      }
+    } else {
+      for (int kk = 0; kk < KC; ++kk) {
+        float a[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = to_f(s_a[(ty + 16 * i) * LDA + kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = to_f(s_b[(tx + 16 * j) * LDA + kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc_s[i][j] += a[i] * bv[j];
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: + bias, round, store
+  if constexpr (CF::kMma) {
+    constexpr int LDW = 20;  // each warp stages one 16 x 16 tile at a time
+    float* scr = reinterpret_cast<float*>(smem) + warp * 16 * LDW;
+    const int row = lane >> 1, cb = (lane & 1) * 8;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::store_matrix_sync(scr, acc_w[i][j], LDW, wmma::mem_row_major);
+        __syncwarp();
+        const int m = m0 + wm * 32 + i * 16 + row;
+        const int col0 = n0 + wn * 64 + j * 16 + cb;
+        if (m < M) {
+          T* dst = qkv + static_cast<long long>(m) * N + col0;
+          if (vec && col0 + 8 <= N) {
+            __align__(16) T out[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) out[e] = from_f<T>(scr[row * LDW + cb + e] + bqkv[col0 + e]);
+            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(out);
+          } else {
+            for (int e = 0; e < 8; ++e)
+              if (col0 + e < N) dst[e] = from_f<T>(scr[row * LDW + cb + e] + bqkv[col0 + e]);
+          }
+        }
+        __syncwarp();
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx + 16 * j;
+        if (m < M && col < N)
+          qkv[static_cast<long long>(m) * N + col] = from_f<T>(acc_s[i][j] + bqkv[col]);
+      }
+    }
+  }
+}
+
+// ---- 3. attention of one (window, head)
+// Shared-memory layout, the same on host and device.
+struct Smem {
+  int np;    // token rows, padded to 16
+  int rows;  // rows held of q, k, v (np with wmma, n without)
+  int hdp;   // head dim, padded to 16 with wmma
+  int ldh;   // row stride of q, k, v and the tables
+  int lds;   // row stride of a scores tile (f32)
+  int ldp;   // row stride of a p tile (T)
+  size_t mat;  // bytes of one of q, k, v
+  size_t off_rel, off_r0;
+  size_t off_p, off_ph, off_pw;  // inside region 0
+  size_t total;
+};
+
+template <typename T>
+__host__ __device__ inline Smem smem_layout(int n, int hd) {
+  using CF = Cfg<T>;
+  Smem s;
+  s.np = (n + 15) & ~15;
+  s.rows = CF::kMma ? s.np : n;
+  s.hdp = CF::kMma ? (hd + 15) & ~15 : hd;
+  s.ldh = tile_ld<T>(s.hdp);
+  s.lds = s.np + 4;
+  s.ldp = CF::kMma ? s.np + 8 : s.lds;
+  s.mat = round128(size_t(s.rows) * s.ldh * sizeof(T));
+  size_t o = 3 * s.mat;
+  s.off_rel = o;  // wmma reads the two tables from shared memory
+  if (CF::kMma) o += 2 * round128(size_t(kRel) * s.ldh * sizeof(T));
+  s.off_r0 = o;
+  // region 0: a query tile's scores | p | table products
+  const size_t scores = round128(size_t(CF::kQT) * s.lds * 4);
+  const size_t p = CF::kMma ? round128(size_t(CF::kQT) * s.ldp * sizeof(T)) : 0;  // f32: in place
+  const size_t rel = round128(size_t(CF::kQT) * kLDR * 4);
+  s.off_p = scores;
+  s.off_ph = scores + p;
+  s.off_pw = scores + p + rel;
+  s.total = s.off_r0 + scores + p + 2 * rel;
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+relpos_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_h,
+                   const T* __restrict__ rel_w, T* __restrict__ o, Geo g, float scale, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using CF = Cfg<T>;
+  constexpr int QT = CF::kQT;
+  const int n = g.n, C = g.C, hd = g.hd, win = g.win;
+  const Smem L = smem_layout<T>(n, hd);
+  const int LDH = L.ldh, LDS = L.lds, LDP = L.ldp;
+
+  T* s_q = reinterpret_cast<T*>(smem);
+  T* s_k = reinterpret_cast<T*>(smem + L.mat);
+  T* s_v = reinterpret_cast<T*>(smem + 2 * L.mat);
+  T* s_relh = reinterpret_cast<T*>(smem + L.off_rel);
+  T* s_relw = s_relh + round128(size_t(kRel) * LDH * sizeof(T)) / sizeof(T);
+  unsigned char* r0 = smem + L.off_r0;
+  float* s_s = reinterpret_cast<float*>(r0);
+  T* s_p = CF::kMma ? reinterpret_cast<T*>(r0 + L.off_p) : reinterpret_cast<T*>(r0);
+  float* s_ph = reinterpret_cast<float*>(r0 + L.off_ph);
+  float* s_pw = reinterpret_cast<float*>(r0 + L.off_pw);
+
+  const int wglob = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int two = 2 * win - 1;
+  const int MW = int(L.mat / sizeof(T));  // elements between q, k and v
+
+  // q | k | v of this head; rows past n and columns past hd are 0
+  const T* src = qkv + static_cast<long long>(wglob) * n * 3 * C + h * hd;
+  if (CF::kMma && vec) {
+    const int G = L.hdp / 8;
+    for (int gi = tid; gi < L.rows * 3 * G; gi += kThreads) {
+      const int t = gi / (3 * G), which = (gi / G) % 3, d = (gi % G) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (t < n && d < hd)
+        v = *reinterpret_cast<const uint4*>(src + static_cast<long long>(t) * 3 * C + which * C + d);
+      *reinterpret_cast<uint4*>(s_q + which * MW + t * LDH + d) = v;
+    }
+  } else {
+    for (int e = tid; e < L.rows * 3 * L.hdp; e += kThreads) {
+      const int t = e / (3 * L.hdp), which = (e / L.hdp) % 3, d = e % L.hdp;
+      T v = from_f<T>(0.0f);
+      if (t < n && d < hd) v = src[static_cast<long long>(t) * 3 * C + which * C + d];
+      s_q[which * MW + t * LDH + d] = v;
+    }
+  }
+  if constexpr (CF::kMma) {  // the tables, zero-padded to [32, hdp]
+    for (int e = tid; e < kRel * LDH; e += kThreads) {
+      const int u = e / LDH, d = e % LDH;
+      const bool in = u < two && d < hd;
+      s_relh[e] = in ? rel_h[u * hd + d] : from_f<T>(0.0f);
+      s_relw[e] = in ? rel_w[u * hd + d] : from_f<T>(0.0f);
+    }
+  }
+  __syncthreads();
+
+  // ---- attention, QT query rows at a time
+  T* orow = o + static_cast<long long>(wglob) * n * C + h * hd;
+  for (int q0 = 0; q0 < n; q0 += QT) {
+    const int nrow = min(QT, n - q0);
+    if constexpr (CF::kMma) {
+      const int MT = min(QT, L.np - q0) / 16, KT = L.np / 16;
+      for (int f = warp; f < MT * KT; f += kWarps) {  // q k^T
+        const int mt = f % MT, nt = f / MT;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.0f);
+        for (int kk = 0; kk < L.hdp; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fa, s_q + (q0 + mt * 16) * LDH + kk, LDH);
+          wmma::load_matrix_sync(fb, s_k + nt * 16 * LDH + kk, LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(s_s + mt * 16 * LDS + nt * 16, acc, LDS, wmma::mem_row_major);
+      }
+      for (int f = warp; f < MT * 2 * (kRel / 16); f += kWarps) {  // q rel_h^T, q rel_w^T
+        const int mt = f % MT, nt = (f / MT) % (kRel / 16), which = f / (MT * (kRel / 16));
+        const T* rel = which ? s_relw : s_relh;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.0f);
+        for (int kk = 0; kk < L.hdp; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+          wmma::load_matrix_sync(fa, s_q + (q0 + mt * 16) * LDH + kk, LDH);
+          wmma::load_matrix_sync(fb, rel + nt * 16 * LDH + kk, LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync((which ? s_pw : s_ph) + mt * 16 * kLDR + nt * 16, acc, kLDR,
+                                wmma::mem_row_major);
+      }
+    } else {
+      for (int e = tid; e < nrow * 2 * two; e += kThreads) {
+        const int i = e / (2 * two), u = e % (2 * two);
+        const T* q = s_q + (q0 + i) * LDH;
+        const T* rel = (u < two ? rel_h + u * hd : rel_w + (u - two) * hd);
+        float dot = 0.0f;
+        for (int d = 0; d < hd; ++d) dot += to_f(q[d]) * to_f(rel[d]);
+        (u < two ? s_ph : s_pw)[i * kLDR + (u < two ? u : u - two)] = dot;
+      }
+      for (int e = tid; e < nrow * n; e += kThreads) {
+        const int i = e / n, j = e % n;
+        const T* q = s_q + (q0 + i) * LDH;
+        const T* kr = s_k + j * LDH;
+        float dot = 0.0f;
+        for (int d = 0; d < hd; ++d) dot += to_f(q[d]) * to_f(kr[d]);
+        s_s[i * LDS + j] = dot;
+      }
+    }
+    __syncthreads();
+
+    // scores + bias, softmax in f32, one warp per row; p rounded to T
+    for (int i = warp; i < nrow; i += kWarps) {
+      float* sr = s_s + i * LDS;
+      const float* ph = s_ph + i * kLDR + (q0 + i) / win + win - 1;
+      const float* pw = s_pw + i * kLDR + (q0 + i) % win + win - 1;
+      float m = -INFINITY;
+      for (int j = lane; j < n; j += 32) {
+        const float s = sr[j] * scale + round_to<T>(ph[-(j / win)]) + round_to<T>(pw[-(j % win)]);
+        sr[j] = s;
+        m = fmaxf(m, s);
+      }
+      for (int d = 16; d; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+      float sum = 0.0f;
+      for (int j = lane; j < n; j += 32) {
+        const float ev = expf(sr[j] - m);
+        sr[j] = ev;
+        sum += ev;
+      }
+      for (int d = 16; d; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+      T* pr = s_p + i * LDP;
+      for (int j = lane; j < L.np; j += 32) {
+        if constexpr (CF::kMma) {
+          pr[j] = from_f<T>(j < n ? sr[j] / sum : 0.0f);
+        } else {
+          if (j < n) pr[j] = sr[j] / sum;
+        }
+      }
+    }
+    if constexpr (CF::kMma) {  // rows of the tile past n: p = 0
+      for (int e = tid + nrow * LDP; e < QT * LDP; e += kThreads) s_p[e] = from_f<T>(0.0f);
+    }
+    __syncthreads();
+
+    // o = p v, this head's columns, window order
+    if constexpr (CF::kMma) {
+      const int MT = min(QT, L.np - q0) / 16, HT = L.hdp / 16, LDO = L.hdp + 4;
+      float* s_o = s_s;  // the scores are spent
+      for (int f = warp; f < MT * HT; f += kWarps) {
+        const int mt = f % MT, nt = f / MT;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.0f);
+        for (int kk = 0; kk < L.np; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fa, s_p + mt * 16 * LDP + kk, LDP);
+          wmma::load_matrix_sync(fb, s_v + kk * LDH + nt * 16, LDH);
+          wmma::mma_sync(acc, fa, fb, acc);
+        }
+        wmma::store_matrix_sync(s_o + mt * 16 * LDO + nt * 16, acc, LDO, wmma::mem_row_major);
+      }
+      __syncthreads();
+      for (int e = tid; e < nrow * hd; e += kThreads) {
+        const int i = e / hd, d = e % hd;
+        orow[static_cast<long long>(q0 + i) * C + d] = from_f<T>(s_o[i * LDO + d]);
+      }
+    } else {
+      for (int e = tid; e < nrow * hd; e += kThreads) {
+        const int i = e / hd, d = e % hd;
+        const T* pr = s_p + i * LDP;
+        float acc = 0.0f;
+        for (int j = 0; j < n; ++j) acc += to_f(pr[j]) * to_f(s_v[j * LDH + d]);
+        orow[static_cast<long long>(q0 + i) * C + d] = from_f<T>(acc);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+
+template <typename TX, typename T>
+int launch(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, const void* bqkv,
+           const void* rel_h, const void* rel_w, void* stats, void* qkv, void* o, const Geo& g,
+           float eps, float scale, cudaStream_t stream) {
+  using CF = Cfg<T>;
+  const int tokens = g.B * g.H * g.W;
+  const int M = g.B * g.nwy * g.nwx * g.n;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  // 16-byte loads need rows that start on 16 bytes
+  const int vec = CF::kMma && g.C % 8 == 0 && aligned(x) && aligned(ln_g) && aligned(ln_b) &&
+                  aligned(wqkv) && aligned(qkv);
+  relpos_ln_stats_kernel<TX><<<(tokens + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<float*>(stats), tokens, g.C, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q((M + CF::kBM - 1) / CF::kBM, (3 * g.C + CF::kBN - 1) / CF::kBN);
+  relpos_qkv_kernel<TX, T><<<grid_q, kThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(stats),
+      static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
+      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(qkv), g, M,
+      tokens, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = relpos_attn_kernel<T>;
+  const size_t smem = smem_layout<T>(g.n, g.hd).total;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_a(g.B * g.nwy * g.nwx, g.heads);
+  kernel<<<grid_a, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(rel_h), static_cast<const T*>(rel_w),
+      static_cast<T*>(o), g, scale, vec && g.hd % 8 == 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// LN + qkv + per-head rel-pos window attention: three kernels, one call.
+// x [B, H, W, C] (f32, or bf16 when the compute type is bf16), ln_g / ln_b
+// [C] f32, wqkv [3C, C] of the compute type, bqkv [3C] f32, rel_h / rel_w
+// [2 win - 1, C / heads] of the compute type, o [B * nW * n, C] of the
+// compute type (window order), all contiguous on the device. Scratch the
+// caller allocates: stats [2 * B * H * W] f32, qkv [B * nW * n, 3C] of the
+// compute type. compute_bf16 / x_bf16: 0 = f32, 1 = bf16; scale =
+// head_dim^-1/2, applied to q . k in f32 after the dot. win <= 14,
+// head_dim <= 80. Launches on `stream`; returns the cudaError_t of the
+// first launch that failed.
+extern "C" int window_attn_relpos_heads_launch(int compute_bf16, int x_bf16, const void* x,
+                                               const void* ln_g, const void* ln_b,
+                                               const void* wqkv, const void* bqkv,
+                                               const void* rel_h, const void* rel_w,
+                                               void* stats, void* qkv, void* o, int B, int H,
+                                               int W, int C, int heads, int win, float eps,
+                                               float scale, void* stream) {
+  Geo g;
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  g.C = C;
+  g.heads = heads;
+  g.hd = C / heads;
+  g.win = win;
+  g.n = win * win;
+  g.Hp = (H + win - 1) / win * win;
+  g.Wp = (W + win - 1) / win * win;
+  g.nwy = g.Hp / win;
+  g.nwx = g.Wp / win;
+  if (g.n > kMaxTokens || g.hd > kMaxHd || 2 * win - 1 > kRel)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compute_bf16) {
+    if (x_bf16)
+      return launch<bf16, bf16>(x, ln_g, ln_b, wqkv, bqkv, rel_h, rel_w, stats, qkv, o, g, eps,
+                                scale, s);
+    return launch<float, bf16>(x, ln_g, ln_b, wqkv, bqkv, rel_h, rel_w, stats, qkv, o, g, eps,
+                               scale, s);
+  }
+  if (x_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float, float>(x, ln_g, ln_b, wqkv, bqkv, rel_h, rel_w, stats, qkv, o, g, eps,
+                              scale, s);
+}

@@ -9,6 +9,7 @@ from cm3d_tpu_torch.datasets.nuscenes.tables import NuScenesTables, CAM_LIST
 from cm3d_tpu_torch.datasets.nuscenes.maps import NuScenesMapLite
 from cm3d_tpu_torch.datasets.nuscenes.frontend import NuScenesFrontend
 from cm3d_tpu_torch.datasets.nuscenes.writer import SubmissionWriter, boxes_to_dicts
+from cm3d_tpu_torch.datasets.nuscenes.gt import load_gt_for_eval
 
 __all__ = [
     "NuScenesTables",
@@ -17,4 +18,5 @@ __all__ = [
     "NuScenesFrontend",
     "SubmissionWriter",
     "boxes_to_dicts",
+    "load_gt_for_eval",
 ]

@@ -12,6 +12,8 @@ import json
 from pathlib import Path
 from typing import Dict, Iterator, List
 
+import numpy as np
+
 # Camera ring in the reference's processing order (2d_to_3d.py:60-67).
 CAM_LIST = (
     "CAM_FRONT",
@@ -22,18 +24,22 @@ CAM_LIST = (
     "CAM_FRONT_LEFT",
 )
 
-# exactly the tables the lift reads: the devkit's category/sensor/instance/
-# map tables and the annotation tables are never touched here and are not
-# loaded. A missing table means a corrupt/partial extraction and must fail
-# loudly, like the version dir itself.
+# exactly the tables the pipeline reads (grep-verified): the devkit's
+# category/sensor/instance/map tables are never touched here and are not
+# loaded. sample_annotation is the one table allowed to be absent
+# (v1.0-test ships no GT); a missing CORE table means a corrupt/partial
+# extraction and must fail loudly, like the version dir itself.
 _TABLES = (
+    "attribute",
     "calibrated_sensor",
     "ego_pose",
     "log",
     "scene",
     "sample",
     "sample_data",
+    "sample_annotation",
 )
+_OPTIONAL_TABLES = frozenset({"sample_annotation"})
 
 
 class NuScenesTables:
@@ -52,12 +58,17 @@ class NuScenesTables:
         self._index: Dict[str, Dict[str, dict]] = {}
         for name in _TABLES:
             p = table_dir / f"{name}.json"
-            if not p.exists():
+            if p.exists():
+                rows = json.loads(p.read_text())
+            elif name in _OPTIONAL_TABLES:
+                rows = []
+            else:
                 raise FileNotFoundError(
                     f"nuScenes table missing: {p} — a corrupt or partially "
-                    f"extracted version dir must fail loudly"
+                    f"extracted version dir must fail loudly (only "
+                    f"{sorted(_OPTIONAL_TABLES)} may be absent, e.g. "
+                    f"v1.0-test)"
                 )
-            rows = json.loads(p.read_text())
             self._tables[name] = rows
             self._index[name] = {r["token"]: r for r in rows}
 
@@ -68,6 +79,9 @@ class NuScenesTables:
 
     def get(self, table: str, token: str) -> dict:
         return self._index[table][token]
+
+    def field2token(self, table: str, field: str, value) -> List[str]:
+        return [r["token"] for r in self._tables[table] if r.get(field) == value]
 
     # -- scene / sample traversal ------------------------------------------
 
@@ -86,8 +100,36 @@ class NuScenesTables:
                 break
             sample = self.get("sample", sample["next"])
 
+    def count_frames(self, scene: dict) -> int:
+        return sum(1 for _ in self.iter_samples(scene))
+
     def scene_location(self, scene: dict) -> str:
         return self.get("log", scene["log_token"])["location"]
+
+    # -- annotation helpers (devkit box_velocity semantics) -----------------
+
+    def box_velocity(self, ann_token: str, max_time_diff: float = 1.5) -> np.ndarray:
+        """Velocity from neighboring annotations of the same instance;
+        NaNs when neighbors are missing or too far apart in time."""
+        current = self.get("sample_annotation", ann_token)
+        has_prev = current["prev"] != ""
+        has_next = current["next"] != ""
+        if not has_prev and not has_next:
+            return np.array([np.nan, np.nan, np.nan])
+        first = self.get("sample_annotation", current["prev"]) if has_prev else current
+        last = self.get("sample_annotation", current["next"]) if has_next else current
+        pos_first = np.asarray(first["translation"], float)
+        pos_last = np.asarray(last["translation"], float)
+        t_first = 1e-6 * self.get("sample", first["sample_token"])["timestamp"]
+        t_last = 1e-6 * self.get("sample", last["sample_token"])["timestamp"]
+        dt = t_last - t_first
+        if has_next and has_prev:
+            # devkit doubles the window when differencing across BOTH
+            # neighbors (prev->next spans two keyframe intervals)
+            max_time_diff *= 2
+        if dt > max_time_diff or dt <= 0:
+            return np.array([np.nan, np.nan, np.nan])
+        return (pos_last - pos_first) / dt
 
     def sample_lidar_ego_pose(self, sample: dict) -> dict:
         sd = self.get("sample_data", sample["data"]["LIDAR_TOP"])

@@ -79,9 +79,18 @@ def map_fields(fn: Callable, *trees):
     return fn(*trees)
 
 
+def _stack(*xs):
+    # device leaves (the fused path's mask planes) stack on the device:
+    # np.stack would take ~9 MB a frame through the host and back
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs)
+    return np.stack(xs, axis=0)
+
+
 def stack_keyframes(frames: list[Keyframe]) -> KeyframeBatch:
-    """Stack host-side keyframes into a batch (numpy, no device transfer)."""
-    return KeyframeBatch(frames=map_fields(lambda *xs: np.stack(xs, axis=0), *frames))
+    """Stack keyframes into a batch: numpy leaves with numpy (no device
+    transfer), tensor leaves where they are."""
+    return KeyframeBatch(frames=map_fields(_stack, *frames))
 
 
 def _host_tensor(x) -> torch.Tensor:
@@ -97,11 +106,15 @@ def to_device(frames: Keyframe, device) -> Keyframe:
     """Move a (stacked) numpy Keyframe to `device` as torch tensors.
 
     CUDA copies go through pinned host memory and are issued non-blocking
-    on the current stream, so the step queued after them needs no sync."""
+    on the current stream, so the step queued after them needs no sync. A
+    leaf that is a tensor already (the fused path's mask planes, straight
+    from the SAM decode) is not copied through the host."""
     device = torch.device(device)
     pinned = device.type == "cuda"
 
     def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
         t = _host_tensor(x)
         if pinned:
             t = t.pin_memory()

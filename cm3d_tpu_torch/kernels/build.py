@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C launcher and compiles with nvcc
 alone (no PyTorch headers, so a build takes seconds) into
-`kernels/_build/lib<name>-<hash>.so`, keyed by a hash of the source and the
-flags, at first use. The wrappers bind the launchers with ctypes. A failed
+`kernels/_build/lib<name>-<hash>.so`, keyed by a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags, at first use. The wrappers bind the launchers with ctypes. A failed
 build raises: there is no fallback for a CUDA tensor.
 """
 
@@ -24,7 +24,8 @@ _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-
 
 # extra nvcc flags per source; medoid must not contract a*b+c into FMAs, so
 # each pairwise distance rounds exactly like the plain PyTorch version
-EXTRA_FLAGS = {"compact": [], "medoid": ["-fmad=false"], "window_attn": []}
+EXTRA_FLAGS = {"compact": [], "medoid": ["-fmad=false"], "window_attn": [],
+               "window_attn_relpos": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,6 +48,8 @@ def _lib_path(name: str) -> tuple[Path, list[str]]:
     src = _CSRC / f"{name}.cu"
     flags = _ARCH + _BASE_FLAGS + EXTRA_FLAGS[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):  # shared by several sources
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so", flags
 

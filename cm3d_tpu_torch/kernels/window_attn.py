@@ -27,6 +27,14 @@ to [B, H, W, C]). `window_attn` composes the two.
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
 wproj [C, C].
+
+Which kernel serves which model: `window_attn_heads` here holds windows of
+at most 64 tokens and heads of at most 64 channels, which is every Swin
+stage (window 7, head dim 32). SAM's windowed ViT blocks (window 14 = 196
+tokens, head dim 80 in ViT-H, a q-dependent decomposed rel-pos bias instead
+of a table) go through `kernels/window_attn_relpos.py`, whose heads kernel
+(csrc/window_attn_relpos.cu) tiles the query rows; it shares this module's
+projection launch, which has no cap on window or head size.
 """
 
 from __future__ import annotations
@@ -165,7 +173,8 @@ def _cuda_dtype_flag(dtype) -> int:
     raise TypeError(f"window_attn: compute dtype must be float32 or bfloat16, got {dtype}")
 
 
-def _check_cuda_x(x: torch.Tensor, dtype, heads: int, window: int) -> None:
+def _check_cuda_x(x: torch.Tensor, dtype, heads: int, window: int,
+                  max_tokens: int = MAX_TOKENS, max_head_dim: int = MAX_HEAD_DIM) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"window_attn: unsupported device {x.device}")
     if not x.is_contiguous():
@@ -174,10 +183,14 @@ def _check_cuda_x(x: torch.Tensor, dtype, heads: int, window: int) -> None:
             x.dtype == torch.bfloat16 and dtype != torch.bfloat16):
         raise TypeError(f"window_attn: x of {x.dtype} with compute dtype {dtype}: the "
                         f"CUDA path takes f32 x, or bf16 x under bf16 compute")
-    if window * window > MAX_TOKENS or x.shape[-1] // heads > MAX_HEAD_DIM:
-        raise ValueError(f"window_attn: the CUDA kernel holds window^2 <= {MAX_TOKENS} "
-                         f"tokens and head_dim <= {MAX_HEAD_DIM}, got window {window}, "
-                         f"head_dim {x.shape[-1] // heads}")
+    if window * window > max_tokens or x.shape[-1] // heads > max_head_dim:
+        raise ValueError(
+            f"window_attn: this CUDA kernel holds window^2 <= {max_tokens} tokens and "
+            f"head_dim <= {max_head_dim}, got window {window}, head_dim "
+            f"{x.shape[-1] // heads}. Swin's table-bias blocks (<= {MAX_TOKENS} tokens, "
+            f"head_dim <= {MAX_HEAD_DIM}) run kernels/window_attn.py window_attn; SAM's "
+            f"rel-pos blocks (<= 196 tokens, head_dim <= 80) run "
+            f"kernels/window_attn_relpos.py window_attn_relpos")
     b, h, w, _ = x.shape
     hp, wp = padded_hw(h, w, window)
     if b * hp * wp >= 2**31:  # the kernels count padded tokens in int32
@@ -220,10 +233,10 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
 window_attn_heads.launches = 0
 
 
-def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shift: int,
-                     dtype) -> torch.Tensor:
-    """o [B * nW * n, C] -> out [B, H, W, C] of `dtype` (see
-    `window_attn_proj_plain`)."""
+def _proj(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype,
+          counter) -> torch.Tensor:
+    """The projection launch behind `window_attn_proj` and
+    `window_attn_relpos_proj`; a launch is counted on `counter`."""
     b, h, w, c = out_shape
     hp, wp = padded_hw(h, w, window)
     if tuple(o.shape) != (b * hp * wp, c) or tuple(wproj.shape) != (c, c):
@@ -248,8 +261,15 @@ def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shi
         b, h, w, c, heads, window, shift, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "window_attn_proj")
-    window_attn_proj.launches += 1
+    counter.launches += 1
     return out
+
+
+def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shift: int,
+                     dtype) -> torch.Tensor:
+    """o [B * nW * n, C] -> out [B, H, W, C] of `dtype` (see
+    `window_attn_proj_plain`)."""
+    return _proj(o, wproj, bproj, out_shape, heads, window, shift, dtype, window_attn_proj)
 
 
 window_attn_proj.launches = 0

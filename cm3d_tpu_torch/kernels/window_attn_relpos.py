@@ -1,0 +1,190 @@
+"""Fused SAM windowed-block attention: CUDA kernel wrappers + plain version.
+
+The attention branch of a windowed SAM ViT block, [B, H, W, C] ->
+[B, H, W, C] before the residual:
+
+    pad H, W to multiples of `window` (bottom / right); per window of
+    n = window^2 tokens: LN (f32, two-pass variance; padding tokens exactly
+    0 after the LN, so their k and v are the bare bias) -> qkv = LN @ Wqkv^T
+    + bqkv -> per head
+    s[i, j] = (q_i . k_j) * hd^-1/2 + q_i . rel_h[r_i - r_j + window - 1]
+                                    + q_i . rel_w[c_i - c_j + window - 1]
+    -> softmax (f32) -> o = p v -> out = o @ Wproj^T + bproj; crop to [H, W].
+
+Replaces the TPU kernel `cm3d_tpu/kernels/window_attn_pallas.py:520
+fused_window_attn_relpos` together with the pad / group / crop that
+`cm3d_tpu/models/sam.py:268 _fused_windowed` wraps around it. Rounding
+follows the TPU kernel, not the unfused block: the scale is applied to the
+f32 dot (the unfused block scales q first), the bias comes from the raw q,
+each of its two terms is rounded to the compute dtype before the f32 sum,
+and LN out, qkv, p, o and out are rounded to the compute dtype. The TPU's
+grouped block-diagonal problem, reversed tables, Toeplitz select-sums and
+one-hot expansion products do not carry over: each window is its own n x n
+problem and the bias is an indexed read of q @ rel^T.
+
+Two launcher calls per block, each with its wrapper, plain version and
+launch counter: `window_attn_relpos_heads` (csrc/window_attn_relpos.cu: LN
+statistics, the qkv GEMM over all windows and the per-(window, head)
+attention, three kernels queued by one call that counts as one launch ->
+o [B*nW*n, C] in window order; windows of at most 196 tokens, heads of at
+most 80 channels) and `window_attn_relpos_proj` (the projection kernel of
+csrc/window_attn.cu with shift 0, which has no such cap).
+`window_attn_relpos` composes the two.
+
+Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
+kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
+wproj [C, C]; the tables are [2 * window - 1, C / heads].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels.window_attn import (
+    _check_cuda_x,
+    _cuda_dtype_flag,
+    _f32,
+    _layer_norm,
+    _proj,
+    _rounded,
+    padded_hw,
+    window_attn_proj_plain,
+)
+
+EPS = 1e-6  # SAM's encoder LayerNorm
+MAX_WINDOW = 14  # 196 tokens a window
+MAX_HEAD_DIM = 80  # ViT-H
+
+
+@functools.lru_cache(maxsize=None)
+def rel_index(window: int) -> tuple[np.ndarray, np.ndarray]:
+    """([n, n], [n, n]) indices into q @ rel_h^T and q @ rel_w^T:
+    r_i - r_j + window - 1 and c_i - c_j + window - 1."""
+    r, c = np.divmod(np.arange(window * window), window)
+    return ((r[:, None] - r[None, :] + window - 1).astype(np.int64),
+            (c[:, None] - c[None, :] + window - 1).astype(np.int64))
+
+
+def _check(x, wqkv, rel_h, rel_w, heads: int, window: int) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"window_attn_relpos: x must be [B, H, W, C], got {tuple(x.shape)}")
+    c = x.shape[-1]
+    if c % heads:
+        raise ValueError(f"window_attn_relpos: channels {c} not divisible by heads {heads}")
+    if tuple(wqkv.shape) != (3 * c, c):
+        raise ValueError(f"window_attn_relpos: wqkv must be [3C, C] = {(3 * c, c)}, "
+                         f"got {tuple(wqkv.shape)}")
+    want = (2 * window - 1, c // heads)
+    if window < 1 or tuple(rel_h.shape) != want or tuple(rel_w.shape) != want:
+        raise ValueError(f"window_attn_relpos: the tables of window {window} must be "
+                         f"[2w-1, head_dim] = {want}, got {tuple(rel_h.shape)} and "
+                         f"{tuple(rel_w.shape)}")
+
+
+def window_attn_relpos_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, *,
+                                   heads: int, window: int, dtype, eps: float = EPS):
+    """Plain PyTorch version of the first launch: x [B, H, W, C] ->
+    o [B * nW * n, C] of `dtype`, rows in window order (windows row-major
+    over the padded grid, tokens row-major inside a window)."""
+    _check(x, wqkv, rel_h, rel_w, heads, window)
+    b, h, w, c = x.shape
+    hd, n = c // heads, window * window
+    hp, wp = padded_hw(h, w, window)
+    ln = _layer_norm(x, ln_weight, ln_bias, eps)
+    # the reference pads AFTER the norm: padding tokens are exact zeros
+    ln = torch.nn.functional.pad(ln, (0, 0, 0, wp - w, 0, hp - h))
+    ln = ln.reshape(b, hp // window, window, wp // window, window, c)
+    ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    qkv = _rounded(ln, dtype) @ _rounded(wqkv, dtype).T + bqkv.float()
+    qkv = _rounded(qkv, dtype).reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # [B*nW, heads, n, hd]
+    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
+    idx_h, idx_w = (torch.as_tensor(i, device=x.device).expand(*s.shape)
+                    for i in rel_index(window))
+    ph = _rounded(q @ _rounded(rel_h, dtype).T, dtype)  # [B*nW, heads, n, 2w-1]
+    pw = _rounded(q @ _rounded(rel_w, dtype).T, dtype)
+    s = s + torch.gather(ph, -1, idx_h) + torch.gather(pw, -1, idx_w)
+    p = _rounded(torch.softmax(s, dim=-1), dtype)
+    o = _rounded(p @ v, dtype)
+    return o.permute(0, 2, 1, 3).reshape(-1, c).to(dtype)
+
+
+def window_attn_relpos_plain(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w, *,
+                             heads: int, window: int, dtype, eps: float = EPS):
+    """Plain PyTorch version of the whole branch (both launches)."""
+    o = window_attn_relpos_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w,
+                                       heads=heads, window=window, dtype=dtype, eps=eps)
+    return window_attn_proj_plain(o, wproj, bproj, out_shape=tuple(x.shape), window=window,
+                                  shift=0, dtype=dtype)
+
+
+def window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, *, heads: int,
+                             window: int, dtype, eps: float = EPS) -> torch.Tensor:
+    """LN + qkv + per-head rel-pos window attention -> o [B * nW * n, C] of
+    `dtype` (see `window_attn_relpos_heads_plain`)."""
+    _check(x, wqkv, rel_h, rel_w, heads, window)
+    if x.device.type == "cpu":
+        return window_attn_relpos_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w,
+                                              heads=heads, window=window, dtype=dtype, eps=eps)
+    flag = _cuda_dtype_flag(dtype)
+    _check_cuda_x(x, dtype, heads, window, MAX_WINDOW ** 2, MAX_HEAD_DIM)
+    b, h, w, c = x.shape
+    hp, wp = padded_hw(h, w, window)
+    dev = x.device
+    o = torch.empty((b * hp * wp, c), dtype=dtype, device=dev)
+    if o.numel() == 0:
+        return o
+    # scratch between the three kernels: per-token mean | rstd, and qkv
+    stats = torch.empty((2, b * h * w), dtype=torch.float32, device=dev)
+    qkv = torch.empty((b * hp * wp, 3 * c), dtype=dtype, device=dev)
+    args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
+            wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev),
+            rel_h.detach().to(device=dev, dtype=dtype).contiguous(),
+            rel_w.detach().to(device=dev, dtype=dtype).contiguous())
+    err = _lib().window_attn_relpos_heads_launch(
+        flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
+        stats.data_ptr(), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, eps,
+        (c // heads) ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "window_attn_relpos_heads")
+    window_attn_relpos_heads.launches += 1
+    return o
+
+
+window_attn_relpos_heads.launches = 0
+
+
+def window_attn_relpos_proj(o, wproj, bproj, *, out_shape, heads: int, window: int,
+                            dtype) -> torch.Tensor:
+    """o [B * nW * n, C] -> out [B, H, W, C] of `dtype`: the projection
+    launch of `kernels/window_attn.py` with no shift, counted here."""
+    return _proj(o, wproj, bproj, out_shape, heads, window, 0, dtype, window_attn_relpos_proj)
+
+
+window_attn_relpos_proj.launches = 0
+
+
+def window_attn_relpos(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w, *,
+                       heads: int, window: int, dtype, eps: float = EPS) -> torch.Tensor:
+    """The attention branch of a windowed SAM block, [B, H, W, C] ->
+    [B, H, W, C] of `dtype` (pre-residual): `window_attn_relpos_heads` then
+    `window_attn_relpos_proj`."""
+    o = window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, heads=heads,
+                                 window=window, dtype=dtype, eps=eps)
+    return window_attn_relpos_proj(o, wproj, bproj, out_shape=tuple(x.shape), heads=heads,
+                                   window=window, dtype=dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("window_attn_relpos")
+    lib.window_attn_relpos_heads_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.window_attn_relpos_heads_launch.restype = ctypes.c_int
+    return lib

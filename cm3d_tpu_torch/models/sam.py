@@ -8,7 +8,11 @@ relative positions (4 global blocks), 256-d prompt/mask space, a 2-layer
 two-way transformer decoder. Parameter names are the released
 `sam_vit_h_4b8939.pth` state dict's. Global and windowed attention are
 plain PyTorch (matmuls + an f32 softmax), as the JAX package leaves them to
-XLA; its opt-in fused windowed kernel and int8 modes are not ported.
+XLA. With `SamConfig(fused_window_attn=True)` (opt-in, as in the JAX
+package) the windowed blocks' norm1 + qkv + rel-pos attention + proj run
+the hand-written kernels of `kernels/window_attn_relpos.py` instead; the
+parameters and state-dict keys are the same in both modes. The int8 modes
+are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cm3d_tpu_torch.kernels.window_attn_relpos import window_attn_relpos
 from cm3d_tpu_torch.models.common import (
     Conv,
     Dense,
@@ -52,9 +57,13 @@ class SamConfig:
     # encode non-square images without padding to the full square (a small
     # documented deviation from SamPredictor; off by default for parity)
     rect_encode: bool = False
-    # not ported: the fused windowed-attention kernel (ROADMAP B4) and the
-    # int8 w8a8 encoder (ROADMAP A12); building a Sam with either raises
+    # fused kernels for the WINDOWED encoder blocks (kernels/
+    # window_attn_relpos.py): norm1 + qkv + decomposed-rel-pos attention +
+    # proj. Opt-in; same parameters. True / False only: the JAX package's
+    # "interpret" names its Pallas interpreter and means nothing here.
     fused_window_attn: bool | str = False
+    # not ported: the int8 w8a8 encoder (ROADMAP A12); building a Sam with
+    # either flag raises
     quant_int8: bool = False
     quant_static: bool = False
 
@@ -74,10 +83,11 @@ SAM_TEST = SamConfig(img_size=64, encoder_dim=32, encoder_depth=2,
 
 
 def _check_ported(cfg: SamConfig) -> None:
-    if cfg.fused_window_attn:
-        raise NotImplementedError(
-            "SamConfig.fused_window_attn: the fused windowed-attention kernel "
-            "(fused_window_attn_relpos) is not ported yet (ROADMAP B4)")
+    if not isinstance(cfg.fused_window_attn, bool):
+        raise ValueError(
+            f"SamConfig.fused_window_attn={cfg.fused_window_attn!r}: the port takes True "
+            f"or False; \"interpret\" is the JAX package's Pallas interpreter mode (on a "
+            f"CPU tensor the port's fused blocks run the kernel's plain PyTorch version)")
     if cfg.quant_int8 or cfg.quant_static:
         raise NotImplementedError(
             "SamConfig.quant_int8 / quant_static: int8 w8a8 is not ported yet "
@@ -111,9 +121,11 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, heads: int, window: int, grid_hw, dtype):
+    def __init__(self, dim: int, heads: int, window: int, grid_hw, dtype,
+                 fused: bool = False):
         super().__init__()
         self.window = window  # 0 = global attention
+        self.fused = bool(fused and window)  # windowed blocks only
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, heads, (window, window) if window else grid_hw, dtype)
         self.norm2 = LayerNorm(dim, eps=1e-6)
@@ -121,6 +133,13 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
+        if self.fused:
+            a = self.attn
+            x = shortcut + window_attn_relpos(
+                x.contiguous(), self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+                a.proj.weight, a.proj.bias, a.rel_pos_h, a.rel_pos_w, heads=a.heads,
+                window=self.window, dtype=a.dtype, eps=self.norm1.eps)
+            return x + self.mlp(self.norm2(x))
         x = self.norm1(x)
         if self.window:
             hw = (x.shape[1], x.shape[2])
@@ -149,7 +168,8 @@ class ImageEncoderViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, hw, hw, cfg.encoder_dim))
         self.blocks = nn.ModuleList(
             Block(cfg.encoder_dim, cfg.encoder_heads,
-                  0 if i in cfg.encoder_global_attn else cfg.window_size, (hw, hw), dtype)
+                  0 if i in cfg.encoder_global_attn else cfg.window_size, (hw, hw), dtype,
+                  fused=cfg.fused_window_attn)
             for i in range(cfg.encoder_depth)
         )
         self.neck = nn.Sequential(

@@ -1,0 +1,383 @@
+"""Fused pseudo-label pipeline: images -> masks -> 3D boxes in ONE process.
+Mirrors `cm3d_tpu/pipelines/e2e.py` for nuScenes.
+
+The reference is two CLIs glued by an on-disk artifact store
+(gen_2d_masks_detic.py writes {frame}_data.json + {frame}_masks.pkl,
+2d_to_3d.py reads them back). That contract still exists here
+(pipelines.masks + pipelines.lift), but because the mask stage's device
+postprocess already emits the lift's bit-plane format (ops.maskpack), the
+two stages also fuse directly: the SAM decode's [W, H, Mw] planes drop into
+the Keyframe as the device tensor they are — no RLE encode, no copy to the
+host and back. One process, one device, pseudo-labels out.
+
+Optionally still writes the reference-layout artifacts (--mask_dir) so the
+two-stage contract (resume, parity testing) is preserved.
+
+Usage:
+  python -m cm3d_tpu_torch.pipelines.e2e --dataroot D --version v1.0-mini \\
+      --scenes scene-0061 --out preds.json --fake_weights [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
+from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
+from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+from cm3d_tpu_torch.pipelines.masks import MaskModels, start_frame_masks, write_frame_artifacts
+from cm3d_tpu_torch.utils.device import resolve_device
+from cm3d_tpu_torch.utils.fetch import TreeFetch
+from cm3d_tpu_torch.utils.observability import MaskCounters
+
+
+def _scale_ratio_for_thumbnail(lift_cfg: LiftStageConfig, thumbnail: int) -> LiftStageConfig:
+    """The reference's intrinsics ratios are calibrated for 1024-wide
+    thumbnails (0.64 = 1024/1600 nuScenes). The fused mask canvas tracks the
+    actual thumbnail size, so any other --thumbnail must rescale the ratio
+    with it or projected points land off the masks (silent
+    misprojection)."""
+    if thumbnail == 1024:
+        return lift_cfg
+    return dataclasses.replace(
+        lift_cfg, image_ratio=lift_cfg.image_ratio * (thumbnail / 1024.0)
+    )
+
+
+def run_fused(
+    models: MaskModels,
+    step,
+    frames,
+    mask_cfg: MaskStageConfig,
+    on_boxes,
+    batch_size: int = 4,
+    counters=None,
+    mask_wh: Optional[tuple] = None,
+    device=None,
+) -> int:
+    """The fused images->masks->boxes core loop (shared by the nuScenes CLI
+    path below and cm3d_tpu_torch.benchmarks.bench_e2e, so the benchmark
+    measures the real code path).
+
+    Three-way overlap, mirroring run_mask_stage: a 2-deep IO thread pulls
+    the frame source and runs prepare() (canvas assembly + the u8 upload
+    rides under the previous frame's device work), the main thread keeps the
+    device queue fed (start_frame_masks per frame, lift step per batch), and
+    a finisher thread hands each batch's boxes to on_boxes. The lift step is
+    queued on the stream the decode ran on, so their order is implicit; the
+    boxes' one copy back is queued right behind the step and the finisher
+    waits on the event recorded after it, never on the device as a whole:
+    the next frames' dispatch goes on meanwhile.
+
+    frames: iterable of (images, assemble) where assemble(handle) returns
+        (Keyframe, token) — or None to skip the frame. handle is the
+        start_frame_masks result (its "planes" a device tensor); assemble is
+        called for EVERY frame, in source order, on the main thread —
+        including frames whose "planes" is None (zero detections) — so
+        artifact writes and scene-completion bookkeeping can live inside it
+        without racing the IO prefetch. The iterable is consumed from the IO
+        thread (it is the sole consumer, so a generator is fine).
+    on_boxes(token, boxes_slice): consume one keyframe's lift outputs (numpy
+        tree, already sliced to this frame). Called from the finisher
+        thread, one batch at a time, in order.
+    mask_wh: fixed bit-plane canvas (w, h); None derives it from each
+        frame's images, which is fine when the camera set is fixed.
+    device: where the step runs (CUDA unless told otherwise); the models
+        must have been built on it.
+    Returns the number of keyframes that went through the lift step.
+    """
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    device = resolve_device(device)
+    if counters is None:  # count regardless; callers pass one to report it
+        counters = MaskCounters()
+    pending: list = []
+    n_frames = 0
+    it = iter(frames)
+
+    def _deliver(entries, fetch):
+        boxes_np = fetch.get()  # waits for this batch's copy only
+        for i, (_, token) in enumerate(entries):
+            on_boxes(token, map_fields(lambda x, i=i: x[i], boxes_np))
+
+    def _pull():
+        # runs on the single IO worker — the only consumer of `it`
+        try:
+            images, assemble = next(it)
+        except StopIteration:
+            return None
+        return models.prepare(images), assemble
+
+    with ThreadPoolExecutor(max_workers=1) as io_pool, \
+            ThreadPoolExecutor(max_workers=1) as finish_pool:
+        deliver_fut = None
+
+        def flush():
+            nonlocal pending, deliver_fut, n_frames
+            if not pending:
+                return
+            entries, pending = pending, []
+            kfs = [kf for kf, _ in entries]
+            kfs += [kfs[-1]] * (batch_size - len(entries))  # pad the tail batch
+            # planes stack on the device; the host leaves go up in one
+            # pinned, non-blocking pass
+            batch = to_device(stack_keyframes(kfs).frames, device)
+            _, boxes = step(batch)
+            fetch = TreeFetch(boxes)  # one copy back, queued behind the step
+            n_frames += len(entries)
+            # at most one delivery outstanding: ordering + bounded memory
+            if deliver_fut is not None:
+                deliver_fut.result()
+            deliver_fut = finish_pool.submit(_deliver, entries, fetch)
+
+        futs = deque()
+        exhausted = False
+
+        def _prefetch():
+            while not exhausted and len(futs) < 2:
+                futs.append(io_pool.submit(_pull))
+
+        _prefetch()
+        while futs:
+            res = futs.popleft().result()
+            if res is None:
+                exhausted = True
+                continue
+            _prefetch()
+            prepared, assemble = res
+            # 2D stage: planes stay on the device, in the lift's layout
+            handle = start_frame_masks(
+                models, None, mask_cfg, mask_wh=mask_wh,
+                plane_layout="xy", prepared=prepared, copy_planes=False,
+            )
+            # same truncation accounting as run_mask_stage — the fused
+            # path must not silently drop what the two-stage path counts
+            counters.update(handle["counts"])
+            out = assemble(handle)
+            if out is None:
+                continue
+            pending.append(out)
+            if len(pending) >= batch_size:
+                flush()
+        flush()
+        if deliver_fut is not None:
+            deliver_fut.result()
+    return n_frames
+
+
+def run_e2e(
+    dataroot: str,
+    version: str,
+    scenes: List[str],
+    out_path: str,
+    models: MaskModels,
+    lift_cfg: LiftStageConfig = LiftStageConfig(),
+    mask_cfg: MaskStageConfig = MaskStageConfig(),
+    thumbnail: int = 1024,
+    mask_dir: Optional[str] = None,
+    batch_size: int = 4,
+    verbose: bool = True,
+    mask_wh: Optional[tuple] = None,
+    device=None,
+) -> dict:
+    """nuScenes images -> submission JSON at `out_path`, in one process.
+    Runs on CUDA unless `device` says otherwise (the models must have been
+    built on the same device)."""
+    from PIL import Image
+
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.nuscenes import NuScenesFrontend, SubmissionWriter
+    from cm3d_tpu_torch.datasets.nuscenes.tables import CAM_LIST
+
+    if mask_cfg.max_masks_total != lift_cfg.max_masks:
+        raise ValueError(
+            f"the fused path needs the mask stage's bit-plane capacity "
+            f"(MaskStageConfig.max_masks_total = {mask_cfg.max_masks_total}) to equal the "
+            f"lift's padded mask count (LiftStageConfig.max_masks = {lift_cfg.max_masks})")
+    device = resolve_device(device)
+    lift_cfg = _scale_ratio_for_thumbnail(lift_cfg, thumbnail)
+    store = MaskArtifactStore(mask_dir) if mask_dir else None
+    # ONE fixed plane canvas for the frontend AND the fused mask stage
+    # (run_fused mask_wh): per-frame canvases would change the keyframe
+    # shape whenever image geometry varies
+    plane_wh = mask_wh or (thumbnail, thumbnail * 9 // 16)
+    frontend = NuScenesFrontend(dataroot, version, store, lift_cfg, mask_wh=plane_wh)
+    step = make_keyframe_step_fn(lift_cfg, device=device)
+    writer = SubmissionWriter()
+    t0 = time.perf_counter()
+
+    def frame_source():
+        for scene_name in scenes:
+            scene = frontend.nusc.scene_by_name(scene_name)
+            nmap = frontend._map_for_scene(scene)
+            lane_points = nmap.all_lane_points(0.5)
+            drivable = (
+                frontend.drivable_for_scene(scene)
+                if lift_cfg.drivable_filter else None
+            )
+            samples = list(frontend.nusc.iter_samples(scene))
+            for frame_num, sample in enumerate(samples):
+                images = []
+                for cam in CAM_LIST:
+                    sd = frontend.nusc.get("sample_data", sample["data"][cam])
+                    im = Image.open(f"{dataroot}/{sd['filename']}").convert("RGB")
+                    im.thumbnail((thumbnail, thumbnail))
+                    images.append(np.asarray(im))
+                # sweep aggregation (file reads + host transforms) runs
+                # HERE — the generator body executes on run_fused's IO
+                # worker — so the main thread's device-feed loop never
+                # stalls on point IO (it only assembles)
+                points = frontend.aggregate_sweeps(sample)
+
+                def assemble(handle, scene_name=scene_name, frame_num=frame_num,
+                             sample=sample, points=points, lane_points=lane_points,
+                             drivable=drivable, n_total=len(samples)):
+                    # assemble runs on the MAIN thread in frame order, so
+                    # the write below for frame n_total-1 is the scene's
+                    # last artifact write — marking completion here (not in
+                    # the IO-prefetch generator, which runs frames ahead)
+                    # keeps the resume manifest truthful under a mid-scene
+                    # crash. Zero-detection frames still write (empty)
+                    # artifacts, matching run_mask_stage. Only this write
+                    # copies the planes to the host, and it waits here for
+                    # this frame's decode: with a mask_dir the next frame's
+                    # dispatch starts after it, not under it.
+                    if store is not None:  # optional reference artifacts
+                        write_frame_artifacts(store, scene_name, frame_num, handle)
+                        if frame_num == n_total - 1:
+                            store.mark_scene_complete(scene_name, n_total)
+                    if handle["planes"] is None:
+                        return None
+                    # planes stay a DEVICE tensor: the keyframe batch is
+                    # stacked device-side in run_fused
+                    packed = (handle["labels"], handle["scores"], handle["cams"],
+                              handle["planes"])
+                    kf, meta = frontend.assemble_keyframe(
+                        scene_name, frame_num, sample, lane_points, packed, drivable,
+                        points=points,
+                    )
+                    return kf, meta.sample_token
+
+                yield images, assemble
+
+    counters = MaskCounters()
+    n_frames = run_fused(
+        models, step, frame_source(), mask_cfg, writer.add_device_outputs, batch_size,
+        counters=counters, mask_wh=plane_wh, device=device,
+    )
+
+    submission = writer.write(out_path)
+    if verbose:
+        dt = time.perf_counter() - t0
+        n_boxes = sum(len(v) for v in submission["results"].values())
+        print(f"e2e: {n_frames} keyframes -> {n_boxes} boxes in {dt:.1f}s "
+              f"({n_frames / max(dt, 1e-9):.2f} kf/s)")
+        print(counters.report())
+    return submission
+
+
+def merge_submissions(paths: List[str], out_path: str) -> dict:
+    """Merge submission JSONs over disjoint sample sets (runs split by
+    scene) into one. Duplicate sample tokens concatenate."""
+    merged: dict = {"meta": None, "results": {}}
+    for path in paths:
+        with open(path) as f:
+            sub = json.load(f)
+        if merged["meta"] is None:
+            merged["meta"] = sub.get("meta", {})
+        for token, objs in sub["results"].items():
+            merged["results"].setdefault(token, []).extend(objs)
+    with open(out_path, "w") as f:
+        json.dump(merged, f)
+    return merged
+
+
+# flags of the JAX CLI whose feature is not ported yet -> its ROADMAP item
+_UNPORTED_FLAGS = {
+    "detic_ckpt": "A6 (checkpoint loading)",
+    "sam_ckpt": "A6 (checkpoint loading)",
+    "clip_ckpt": "A6 (CLIP text encoder + checkpoint loading)",
+    "bpe_path": "A6 (CLIP text encoder + checkpoint loading)",
+    "quant_int8": "A12 (int8 w8a8)",
+    "quant_static": "A12 (int8 w8a8)",
+    "gdino_ckpt": "A13 (GroundingDINO)",
+    "gdino_vocab": "A13 (GroundingDINO)",
+    "gdino_bf16": "A13 (GroundingDINO)",
+    "camera_mesh": "A14 (multi-chip)",
+    "host_shard": "A14 (multi-chip)",
+}
+
+
+def main(argv=None):
+    """CLI: the fused nuScenes pipeline on the port (CUDA unless --device
+    says otherwise)."""
+    p = argparse.ArgumentParser(
+        description="CM3D fused images->masks->boxes pipeline (PyTorch port)")
+    p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
+    p.add_argument("--dataroot", required=True)
+    p.add_argument("--version", default="v1.0-mini")
+    p.add_argument("--scenes", required=True, help="comma-separated names")
+    p.add_argument("--out", default="pseudolabels.json")
+    p.add_argument("--mask_dir", default="",
+                   help="also write reference-layout mask artifacts here")
+    p.add_argument("--thumbnail", type=int, default=1024)
+    p.add_argument("--run_nms", type=int, default=-1,
+                   help="class-wise 2D NMS before SAM prompting: 1 on / 0 off / "
+                   "-1 dataset default (on)")
+    p.add_argument("--fake_weights", action="store_true",
+                   help="tiny random-weight models (hermetic smoke run); required "
+                   "until checkpoint loading is ported")
+    p.add_argument("--rect_encode", action="store_true",
+                   help="SAM rectangle encode (faster; small deviation)")
+    p.add_argument("--encode_chunk", type=int, default=1,
+                   help="cameras per SAM-encode step (must divide the ring size)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
+    # accepted so that a JAX command line fails with a pointer, not a usage error
+    p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"])
+    p.add_argument("--detector", default="detic", choices=("detic", "gdino"))
+    for flag in ("detic_ckpt", "sam_ckpt", "clip_ckpt", "bpe_path", "gdino_ckpt",
+                 "gdino_vocab"):
+        p.add_argument(f"--{flag}", default="")
+    for flag in ("quant_int8", "quant_static", "gdino_bf16", "host_shard"):
+        p.add_argument(f"--{flag}", action="store_true")
+    p.add_argument("--camera_mesh", type=int, default=0)
+    args = p.parse_args(argv)
+
+    for flag, item in _UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+    if args.detector != "detic":
+        raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
+    if args.sam_size != "vit_h":
+        raise NotImplementedError(
+            "--sam_size selects a released checkpoint's encoder; checkpoint loading is "
+            "not ported yet (ROADMAP A6) and --fake_weights builds one fixed tiny model")
+    if args.dataset != "nuscenes":
+        raise NotImplementedError(
+            f"--dataset {args.dataset} is not ported yet "
+            f"(ROADMAP {'A8' if args.dataset == 'waymo' else 'A9'})")
+    if not args.fake_weights:
+        p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
+
+    from cm3d_tpu_torch.pipelines.masks import build_fake_models
+
+    models = build_fake_models(rect_encode=args.rect_encode, encode_chunk=args.encode_chunk,
+                               device=args.device)
+    run_nms = True if args.run_nms < 0 else bool(args.run_nms)
+    run_e2e(
+        args.dataroot, args.version, args.scenes.split(","), args.out, models,
+        mask_cfg=MaskStageConfig(run_nms=run_nms), thumbnail=args.thumbnail,
+        mask_dir=args.mask_dir or None, device=args.device,
+    )
+
+
+if __name__ == "__main__":
+    main()

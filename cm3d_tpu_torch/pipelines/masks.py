@@ -34,6 +34,7 @@ import torch
 from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
+from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
 
@@ -60,32 +61,12 @@ class MaskModels:
     vocabulary: Tuple[str, ...] = CUSTOM_VOCABULARY_NUSCENES
 
 
-class HostCopy:
-    """Device->host copy of a few tensors, started now on the current
-    stream (pinned memory, non-blocking) and waited for on `get()`."""
-
-    def __init__(self, tensors: Sequence[torch.Tensor]):
-        self.event = None
-        if tensors and tensors[0].device.type == "cuda":
-            self.host = []
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                self.host.append(h)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host = [t.detach() for t in tensors]
-
-    def get(self) -> List[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
-
-
 def planes_numpy(handle: dict) -> np.ndarray:
-    """The handle's planes as host uint32 words (waits for the copy)."""
-    return handle["planes"].get()[0].view(np.uint32)
+    """The handle's planes as host uint32 words: waits for the copy that
+    `start_frame_masks` started, or starts it now if it was asked not to."""
+    if handle["planes_host"] is None:
+        handle["planes_host"] = HostCopy([handle["planes"]])
+    return handle["planes_host"].get()[0].view(np.uint32)
 
 
 def classwise_nms_np(boxes, scores, labels, iou_thresh=0.75):
@@ -123,12 +104,18 @@ def start_frame_masks(
     mask_wh: Optional[Tuple[int, int]] = None,
     plane_layout: str = "yx",
     prepared: Optional[dict] = None,
+    copy_planes: bool = True,
 ) -> dict:
     """Queue a keyframe up to its last device work (Detic, SAM encode, host
-    NMS, the decode + bit-pack) and start the planes' copy to the host;
-    `finish_frame_masks` / `write_frame_artifacts` wait for it. Frame N's
-    decode is queued before frame N+1's encoder, while frame N's RLE writes
-    and frame N+1's image IO run on the host under the device work."""
+    NMS, the decode + bit-pack). The handle carries the planes as a device
+    tensor ("planes", int32 words; None without detections). With
+    `copy_planes` their copy to pinned host memory starts here, right after
+    the decode is queued, and `finish_frame_masks` / `write_frame_artifacts`
+    wait for it; a caller that feeds the planes to the lift step on the
+    device passes False, and the copy starts only if artifacts are written.
+    Frame N's decode is queued before frame N+1's encoder, while frame N's
+    RLE writes and frame N+1's image IO run on the host under the device
+    work."""
     frame_inputs = prepared if prepared is not None else models.prepare(images)
     if images is None:
         images = frame_inputs["images"]
@@ -196,10 +183,11 @@ def start_frame_masks(
         # smallest prompt bucket that fits the busiest camera
         pmax = int(n_boxes.max())
         bucket = next((b for b in sorted(cfg.prompt_buckets) if b >= pmax), p)
-        planes = HostCopy([models.sam_decode_planes(
-            emb, prompts[:, :bucket], n_boxes, cam_hw, plane_wh, nw, plane_layout)])
+        planes = models.sam_decode_planes(
+            emb, prompts[:, :bucket], n_boxes, cam_hw, plane_wh, nw, plane_layout)
     return {
         "planes": planes, "total": total, "plane_wh": plane_wh,
+        "planes_host": HostCopy([planes]) if total and copy_planes else None,
         "layout": plane_layout,
         "labels": all_labels, "scores": all_scores, "cams": all_cams,
         "counts": counts,
@@ -449,10 +437,12 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
 
 def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
                       rect_encode: bool = False, encode_chunk: int = 1,
-                      device=None) -> MaskModels:
+                      device=None, fused_window_attn: bool = False) -> MaskModels:
     """Tiny random-weight models (DETIC_TEST, SAM_TEST; weights drawn on the
     CPU from a torch.Generator seeded with `seed`, so every device gets the
-    same models) behind the same batched wrappers as the full-size ones."""
+    same models) behind the same batched wrappers as the full-size ones.
+    `fused_window_attn` runs SAM's windowed blocks through the fused
+    kernels (same weights)."""
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
     from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
@@ -462,7 +452,8 @@ def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
     clf /= np.linalg.norm(clf, axis=0, keepdims=True)
     gen = torch.Generator()
     detic = init_weights(Detic(DETIC_TEST), gen.manual_seed(seed))
-    sam = init_weights(Sam(dataclasses.replace(SAM_TEST, rect_encode=rect_encode)),
+    sam = init_weights(Sam(dataclasses.replace(SAM_TEST, rect_encode=rect_encode,
+                                               fused_window_attn=fused_window_attn)),
                        gen.manual_seed(seed + 1))
     return _batched_model_fns(detic, clf, sam, vocabulary, device=device,
                               encode_chunk=encode_chunk)

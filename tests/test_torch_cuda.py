@@ -13,7 +13,8 @@ plain version to 1e-4 of the output's largest magnitude in f32 (only the
 summation order and exp/rsqrt rounding differ) and to 2^-5 of it in bf16,
 four bf16 ulps at the top of the range: the two sides round qkv, p, o and
 out at the same places, but a last-bit difference in an f32 sum can move a
-bf16 rounding by one ulp.
+bf16 rounding by one ulp. SAM's rel-pos window attention is held to the same
+two tolerances.
 """
 
 import json
@@ -34,6 +35,13 @@ from cm3d_tpu_torch.kernels.window_attn import (
     window_attn_heads_plain,
     window_attn_plain,
     window_attn_proj,
+)
+from cm3d_tpu_torch.kernels.window_attn_relpos import (
+    window_attn_relpos,
+    window_attn_relpos_heads,
+    window_attn_relpos_heads_plain,
+    window_attn_relpos_plain,
+    window_attn_relpos_proj,
 )
 
 pytestmark = pytest.mark.cuda
@@ -160,6 +168,89 @@ def test_window_attn_wrapper_rejects_bad_input(cuda):
         window_attn(*args, dtype=torch.float32, heads=3, window=4, shift=0)
 
 
+def _relpos_inputs(rng, b, h, w, c, heads, win, x_dtype, device):
+    args = _window_attn_inputs(rng, b, h, w, c, heads, win, x_dtype, device)[:7]
+    tables = tuple(torch.from_numpy(
+        (0.3 * rng.standard_normal((2 * win - 1, c // heads))).astype(np.float32)).to(device)
+        for _ in range(2))
+    return args + tables
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,win,x_dtype,dtype", [
+    (2, 8, 8, 32, 2, 4, torch.float32, torch.float32),  # no padding
+    (2, 4, 4, 32, 2, 3, torch.float32, torch.float32),  # SAM_TEST's padded 4x4 grid
+    (1, 10, 17, 40, 2, 7, torch.float32, torch.float32),  # padding both ways, head dim 20
+    (1, 20, 30, 160, 2, 14, torch.float32, torch.float32),  # 196 tokens, head dim 80
+    (2, 4, 4, 32, 2, 3, torch.float32, torch.bfloat16),
+    (1, 10, 17, 40, 2, 7, torch.float32, torch.bfloat16),  # head dim 20 pads to 32
+    (1, 20, 30, 128, 2, 14, torch.bfloat16, torch.bfloat16),  # ViT-L / B head dim 64
+    (1, 36, 64, 1280, 16, 14, torch.float32, torch.bfloat16),  # ViT-H rect grid
+])
+def test_window_attn_relpos_kernel_matches_plain(cuda, b, h, w, c, heads, win, x_dtype, dtype):
+    rng = np.random.default_rng(b * h * w * c + win)
+    args = _relpos_inputs(rng, b, h, w, c, heads, win, x_dtype, cuda)
+    kw = dict(heads=heads, window=win, dtype=dtype)
+    before = (window_attn_relpos_heads.launches, window_attn_relpos_proj.launches,
+              window_attn_proj.launches)
+    got = window_attn_relpos(*args, **kw)
+    got_o = window_attn_relpos_heads(*args[:5], *args[7:], **kw)
+    torch.cuda.synchronize()
+    assert (window_attn_relpos_heads.launches, window_attn_relpos_proj.launches,
+            window_attn_proj.launches) == (before[0] + 2, before[1] + 1, before[2])
+    want = window_attn_relpos_plain(*args, **kw)
+    want_o = window_attn_relpos_heads_plain(*args[:5], *args[7:], **kw)
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    for g, ref in ((got_o, want_o), (got, want)):
+        err = float((g.float() - ref.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max()), (err, tol)
+
+
+def test_window_attn_relpos_wrapper_rejects_bad_input(cuda):
+    rng = np.random.default_rng(0)
+    args = _relpos_inputs(rng, 1, 8, 8, 32, 2, 4, torch.float32, cuda)
+    kw = dict(heads=2, window=4)
+    with pytest.raises(TypeError, match="f32 x"):  # bf16 x under f32 compute
+        window_attn_relpos(args[0].bfloat16(), *args[1:], dtype=torch.float32, **kw)
+    with pytest.raises(TypeError, match="compute dtype"):
+        window_attn_relpos(*args, dtype=torch.float16, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_attn_relpos(args[0].transpose(1, 2), *args[1:], dtype=torch.float32, **kw)
+    # caps: the message names the entry that serves the other model
+    big = _relpos_inputs(rng, 1, 16, 16, 32, 2, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="window_attn_relpos"):
+        window_attn_relpos(*big, heads=2, window=16, dtype=torch.float32)
+    swin = _window_attn_inputs(rng, 1, 14, 14, 32, 2, 14, torch.float32, cuda)
+    with pytest.raises(ValueError, match="window_attn_relpos"):
+        window_attn(*swin, heads=2, window=14, shift=0, dtype=torch.float32)
+
+
+def test_fused_sam_encoder_card_matches_cpu(cuda, monkeypatch):
+    """SAM_TEST with window 3 (a 4x4 grid padded to 6x6): the fused encoder
+    on the card (f32, TF32 off) within 1e-4 of the CPU's largest magnitude,
+    one launch of each kernel per windowed block."""
+    import dataclasses
+
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(SAM_TEST, window_size=3, fused_window_attn=True)
+    model = init_weights(Sam(cfg), torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(
+        np.random.default_rng(4).standard_normal((2, 64, 64, 3)).astype(np.float32))
+    before = (window_attn_relpos_heads.launches, window_attn_relpos_proj.launches)
+    with torch.no_grad():
+        want = model.encode_image(x)
+        got = model.to(cuda).encode_image(x.to(cuda))
+    n_windowed = cfg.encoder_depth - len(cfg.encoder_global_attn)
+    assert (window_attn_relpos_heads.launches, window_attn_relpos_proj.launches) == (
+        before[0] + n_windowed, before[1] + n_windowed)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+
+
 def test_swin_shrunk_window_card_matches_cpu(cuda, monkeypatch):
     """SWIN_TEST on a 24x40 input: stage 1 is 3x5, so its window shrinks
     from 4 to 3 and the kernels read the centre of the bias table. f32 with
@@ -184,7 +275,8 @@ def test_swin_shrunk_window_card_matches_cpu(cuda, monkeypatch):
 
 
 def _mini_nuscenes(root, n_frames=2, seed=0):
-    """The six tables the port reads, plus one JPEG per camera and frame."""
+    """The tables the mask stage reads (the rest empty), plus one JPEG per
+    camera and frame."""
     from PIL import Image
 
     from cm3d_tpu_torch.datasets.nuscenes.tables import CAM_LIST
@@ -206,7 +298,7 @@ def _mini_nuscenes(root, n_frames=2, seed=0):
     tables = {"scene": [{"token": "sc", "name": "scene-0001", "first_sample_token": "s0",
                          "log_token": "l"}],
               "sample": samples, "sample_data": sample_data, "log": [],
-              "calibrated_sensor": [], "ego_pose": []}
+              "calibrated_sensor": [], "ego_pose": [], "attribute": []}
     for name, rows in tables.items():
         (version / f"{name}.json").write_text(json.dumps(rows))
 
@@ -242,3 +334,63 @@ def test_masks_cli_cuda_matches_cpu(cuda, tmp_path, capsys):
             assert (got.masks != want.masks).mean() <= 1e-3
         n_masks += len(want.labels)
     assert n_masks > 0
+
+
+def test_e2e_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The fused images -> boxes CLI on the card (Detic and SAM through the
+    window-attention kernels, the lift through compaction and medoid; f32
+    with TF32 off) writes the CPU run's submission: the same samples, names
+    and counts, centres within 1e-3 m, scores within 1e-4. The dataroot is
+    the JAX package's test fixture, so this one test needs that package
+    importable; the port itself still imports none of it."""
+    pytest.importorskip("jax", reason="the fabricated dataroot comes from tests/nusc_fixture.py")
+    from nusc_fixture import VERSION, make_fake_nuscenes
+
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.kernels.window_attn_relpos import window_attn_relpos_heads
+    from cm3d_tpu_torch.pipelines import e2e
+    from cm3d_tpu_torch.pipelines import masks as masks_mod
+
+    root = tmp_path / "nusc"
+    info = make_fake_nuscenes(root, tmp_path / "planted", n_frames=3, n_objects=6)
+    small = LiftStageConfig(max_points=16384, max_masks=32, max_points_per_mask=512,
+                            max_points_per_camera=8192, max_points_in_masks=2048,
+                            max_lane_points=1024)
+    real_run, real_build = e2e.run_e2e, masks_mod.build_fake_models
+
+    def small_run_e2e(*a, **kw):  # the CLI's production caps, cut to the fixture's size
+        import dataclasses
+
+        kw.update(lift_cfg=small, batch_size=2, mask_cfg=dataclasses.replace(
+            kw["mask_cfg"], max_detections=16, max_masks_total=32, dtype="float32"))
+        return real_run(*a, **kw)
+
+    monkeypatch.setattr(e2e, "run_e2e", small_run_e2e)
+    # the CLI has no flag for the fused blocks (the JAX CLIs have none): switch
+    # them on under it, so the card run goes through every kernel of the port
+    monkeypatch.setattr(masks_mod, "build_fake_models",
+                        lambda **kw: real_build(fused_window_attn=True, **kw))
+    subs = {}
+    for device in ("cpu", "cuda"):
+        out = tmp_path / f"{device}.json"
+        counts = (compact_rows.launches, medoid_distance_sums_rows.launches,
+                  window_attn_heads.launches, window_attn_relpos_heads.launches)
+        e2e.main(["--dataroot", str(root), "--version", VERSION, "--scenes",
+                  info["scene_name"], "--out", str(out), "--fake_weights", "--thumbnail", "160",
+                  "--device", device])
+        after = (compact_rows.launches, medoid_distance_sums_rows.launches,
+                 window_attn_heads.launches, window_attn_relpos_heads.launches)
+        assert all((a > b) == (device == "cuda") for a, b in zip(after, counts))
+        subs[device] = json.loads(out.read_text())
+    want, got = subs["cpu"], subs["cuda"]
+    assert set(got["results"]) == set(want["results"])
+    n_boxes = 0
+    for tok, boxes in want["results"].items():
+        assert len(got["results"][tok]) == len(boxes)
+        for g, w in zip(got["results"][tok], boxes):
+            assert g["detection_name"] == w["detection_name"]
+            np.testing.assert_allclose(g["translation"], w["translation"], rtol=0, atol=1e-3)
+            np.testing.assert_allclose(g["detection_score"], w["detection_score"], rtol=0,
+                                       atol=1e-4)
+        n_boxes += len(boxes)
+    assert n_boxes > 0

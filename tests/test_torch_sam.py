@@ -150,9 +150,43 @@ def test_plane_postprocess_matches_jax(layout, rect):
 
 
 def test_unported_sam_options_raise():
-    for cfg in (dataclasses.replace(SAM_TEST, fused_window_attn=True),
-                dataclasses.replace(SAM_TEST, fused_window_attn="interpret")):
-        with pytest.raises(NotImplementedError, match="B4"):
-            Sam(cfg)
+    # "interpret" names the JAX package's Pallas interpreter: not a mode here
+    with pytest.raises(ValueError, match="interpret"):
+        Sam(dataclasses.replace(SAM_TEST, fused_window_attn="interpret"))
     with pytest.raises(NotImplementedError, match="A12"):
         Sam(dataclasses.replace(SAM_TEST, quant_int8=True))
+
+
+# window 3 on SAM_TEST's 4x4 token grid pads it to 6x6 (the padding path of
+# tests/test_window_attn_pallas.py test_sam_encoder_fused_full_parity); the
+# (48, 64) rect encode gives a 3x4 grid
+@pytest.mark.parametrize("h,w,rect", [(64, 64, False), (48, 64, True)])
+def test_fused_sam_encoder_matches_jax_fused_and_unfused(sam_params, h, w, rect):
+    """The port's fused encoder (the kernel's plain version on the CPU)
+    against the JAX fused encoder in interpret mode, the JAX unfused one and
+    the port's own unfused one, f32, 3e-4 (the JAX package's own bound
+    between its two encoders); one state dict loads into both modes."""
+    cfg = dataclasses.replace(SAM_TEST, window_size=3, rect_encode=rect)
+    jax_cfg = dataclasses.replace(JAX_SAM_TEST, window_size=3, rect_encode=rect)
+    # window 3's tables are [5, hd]: fresh noise of that shape
+    params = jax.tree.map(np.array, sam_params)
+    rng = np.random.default_rng(5)
+    attn = params["image_encoder"]["block0"]["attn"]
+    hd = cfg.encoder_dim // cfg.encoder_heads
+    for k in ("rel_pos_h", "rel_pos_w"):
+        attn[k] = 0.3 * rng.standard_normal((5, hd)).astype(np.float32)
+    sd = sam_state_dict_from_flax(params, cfg)
+    unfused, fused = Sam(cfg).eval(), Sam(dataclasses.replace(cfg, fused_window_attn=True)).eval()
+    unfused.load_state_dict(sd)
+    fused.load_state_dict(sd)  # strict: same keys in both modes
+    assert [b.fused for b in fused.image_encoder.blocks] == [True, False]
+    x = rng.standard_normal((2, h, w, 3)).astype(np.float32)
+    with torch.no_grad():
+        got = fused.encode_image(_t(x)).numpy()
+        own = unfused.encode_image(_t(x)).numpy()
+    for mode in ("interpret", False):
+        jax_model = JaxSam(dataclasses.replace(jax_cfg, fused_window_attn=mode))
+        want = np.asarray(jax_model.apply({"params": params}, x, method=jax_model.encode_image))
+        np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(got, own, rtol=3e-4, atol=3e-4)
+    assert np.abs(got - own).max() > 0  # the two paths do round differently
