@@ -55,7 +55,48 @@ Phases, each of which raises on a failed check (exit code != 0):
    off), run_fused over 4 synthetic keyframes on the card and on the CPU:
    equal point counts, keep flags and labels, centroids within 1e-4 m but
    for medoid ties.
-10. One JSON line per kernel summary, then the card's name and power limit,
+10. Segment kernels (training): the inputs of one real batch-8 pillarize and
+   of the batch-8 lift-splat pooling, the latter twice: with the identity
+   extrinsics of bench_fusion_train (the main path's inputs: a few cells hold
+   runs of hundreds of elements) and with a ring of six outward cameras (most
+   elements in range). segment_sum_max and segment_sum against their plain
+   scatter versions (sums rtol 1e-5 / atol 1e-5; maxima, empty-cell -inf / 0
+   and the sink exact), the backward against autograd of the plain version
+   (exact: it is a gather), each run twice with bit-equal outputs; CUDA-event
+   times of kernel, plain version and the one-call library form
+   (scatter_add_, plus scatter_reduce_ for the maximum; torch.gather for the
+   backward) beside the byte bound.
+11. Window attention at Swin-T's shapes: one f32 forward of the BEVFusion
+   Swin-T camera on a batch-8 ring of 6 x 144 x 256 images records the
+   wrapper's inputs at its 7 (stage, shift) shapes (12 blocks; stage 3 runs
+   on a 5 x 8 map with the window shrunk to 5). Forward as in phase 4, plus
+   the f32 launches' times, the recompute backward's time, and one
+   backward through the whole camera trunk: every parameter's gradient is
+   finite and non-zero, the shrunk window's only in its table's centre.
+12. Training: bench_train, then bench_fusion_train with the conv camera, the
+   Swin-T camera in f32 and in bf16, at full width (PillarConfig(),
+   CenterPointConfig(), batch 8 x 32768 points x 64 boxes, 6 x 144 x 256
+   ring, 24 depth bins, 32 channels), every count reset just before each:
+   per step 1 segment_sum_max launch; with a camera 1 segment_sum and 1
+   segment_sum_bwd; with Swin-T 12 + 12 window-attention launches. The loss
+   is finite and falls on the fixed batch. One step of each is profiled.
+13. Training card-against-CPU: the small configurations of the CPU tests
+   (CenterPoint; fusion with the conv and a tiny Swin camera) from one state
+   dict, 3 steps on both: losses within 1e-3 relative, first-step gradients
+   within 1e-3 of each tensor's largest; then detect on both from the same
+   weights: the same kept boxes.
+14. In a child process with CUBLAS_WORKSPACE_CONFIG set (PyTorch's
+   deterministic algorithms want cuBLAS's workspace fixed before a process's
+   first matrix product, and with the variable set the host side of every
+   matrix product is slower, which the phases above must not feel): at Swin-T's
+   shapes a random cotangent through window_attn's autograd.Function against
+   autograd through the plain branch, in f32 and bf16: every gradient
+   non-zero and equal bit for bit (the backward IS that branch); bench_train
+   as it is and under deterministic algorithms (what run_pretrain turns on);
+   replay: 4 steps straight against 2 + save + load + 2 on the card, with
+   augmentation, EMA, clip and cosine schedule: bit-equal parameters, batch
+   statistics, optimizer moments and EMA.
+15. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -68,6 +109,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -93,6 +135,13 @@ MEDOID_OPS_PER_PAIR = 11
 STAGES = ("camera", "union", "mask")
 N_CAMERAS = 6  # nuScenes ring
 REPS = 20
+SWIN_T_BLOCKS = 12  # Swin-T depths (2, 2, 6, 2)
+TRAIN_BATCH = 8
+TRAIN_IMAGE_HW = (144, 256)
+TRAIN_LOSS_RTOL = 1e-3  # training card vs CPU: loss of each of 3 steps
+TRAIN_GRAD_TOL = 1e-3  # first-step gradients, x the tensor's largest |gradient|
+DETERMINISTIC_FLAG = "--deterministic-phases"  # the child process of phase 14
+DETERMINISTIC_WORKSPACE = ":4096:8"  # what deterministic cuBLAS asks for
 
 
 def check(cond, what: str) -> None:
@@ -278,9 +327,8 @@ def profile_phase(torch, step, n_steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{calls:<4d} {name[:90]}", flush=True)
 
 
-def capture_window_attn_inputs(torch, models, images, n_blocks=SWIN_BLOCKS_PER_FORWARD,
-                               n_shapes=8):
-    """Run one Detic forward on the ring, recording the window-attention
+def capture_window_attn_inputs(torch, forward, n_blocks=SWIN_BLOCKS_PER_FORWARD, n_shapes=8):
+    """Run one Swin forward (`forward()`), recording the window-attention
     wrapper's inputs at the first block of each distinct (C, shift) and how
     many blocks of the forward run at each."""
     import cm3d_tpu_torch.models.swin as swin
@@ -298,7 +346,7 @@ def capture_window_attn_inputs(torch, models, images, n_blocks=SWIN_BLOCKS_PER_F
 
     swin.window_attn = spy
     try:
-        models.detic(models.prepare(images))
+        forward()
     finally:
         swin.window_attn = real
     torch.cuda.synchronize()
@@ -309,7 +357,11 @@ def capture_window_attn_inputs(torch, models, images, n_blocks=SWIN_BLOCKS_PER_F
     return [(key, shapes[key], mult[key]) for key in sorted(shapes)]
 
 
-def window_attn_phase(torch, captured):
+def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False):
+    """Both launches against their plain versions at each captured shape,
+    bf16 and f32, and the bf16 launches' times beside the bound.
+    `model_dtype` is the compute type the capturing forward ran in (bf16
+    unless given); `time_f32` also times the f32 launches."""
     from cm3d_tpu_torch.kernels.window_attn import (
         window_attn_heads,
         window_attn_heads_plain,
@@ -319,10 +371,11 @@ def window_attn_phase(torch, captured):
     )
 
     bf16, f32 = torch.bfloat16, torch.float32
+    model_dtype = model_dtype or bf16
     out = []
     for (c, shift), (x, (g, b, wqkv, bqkv, wproj, bproj, table), kw), mult in captured:
         heads, win = kw["heads"], kw["window"]
-        check(kw["dtype"] == bf16, "the Detic forward computes in bf16")
+        check(kw["dtype"] == model_dtype, f"the capturing forward computes in {model_dtype}")
         bsz, h, w, _ = x.shape
         geo = dict(heads=heads, window=win, shift=shift)
         # weights as the kernels read them (bf16 qkv / proj, f32 rest)
@@ -389,6 +442,30 @@ def window_attn_phase(torch, captured):
             rec[name] = {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
                          "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                          "max_abs_err": errs[name][0], "max_rel_err": errs[name][1]}
+        if time_f32:
+            # the f32 launches (SIMT, no tensor cores): f32 words, f32 peak
+            o32 = window_attn_heads(xf, g, b, wqkv, bqkv, table, dtype=f32, **geo)
+            f_h = time_ms(torch, lambda: window_attn_heads(xf, g, b, wqkv, bqkv, table,
+                                                           dtype=f32, **geo), reps=5)
+            f_p = time_ms(torch, lambda: window_attn_proj(o32, wproj, bproj,
+                                                          out_shape=tuple(x.shape), dtype=f32,
+                                                          **geo), reps=5)
+            fp_h = time_ms(torch, lambda: window_attn_heads_plain(xf, g, b, wqkv, bqkv, table,
+                                                                  dtype=f32, **geo), reps=5)
+            fp_p = time_ms(torch, lambda: window_attn_proj_plain(
+                o32, wproj, bproj, out_shape=tuple(x.shape), window=win, shift=shift,
+                dtype=f32), reps=5)
+            bytes_h32 = x.numel() * 4 + 3 * c * c * 4 + tokens * c * 4
+            for name, ms, plain, ops, nbytes in (("heads", f_h, fp_h, ops_h, bytes_h32),
+                                                  ("proj", f_p, fp_p, ops_p, 2 * bytes_p)):
+                ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+                bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+                rec[f"{name}_f32"] = {"ms": ms, "plain_ms": plain,
+                                      "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+                                      "bytes_ms": bytes_ms, "max_abs_err": err32}
+            print(f"  f32 launches: heads {f_h:.4f} ms + proj {f_p:.4f} ms, plain "
+                  f"{fp_h:.4f} + {fp_p:.4f} ms, bound {rec['heads_f32']['bound_ms']:.4f} + "
+                  f"{rec['proj_f32']['bound_ms']:.4f} ms", flush=True)
         out.append(rec)
         print(f"window attention C={c} shift {shift} {list(x.shape)} h{heads}: "
               f"bf16 rel err {errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
@@ -802,7 +879,609 @@ def e2e_cpu_check(torch, n_frames: int = 4, batch_size: int = 2):
             "centroids_differ": n_diff}
 
 
-def main() -> int:
+def ring_extrinsics(batch_size: int) -> np.ndarray:
+    """[B, 6, 4, 4] cam_to_ego of six cameras looking outward every 60
+    degrees, 1.5 m up: camera z (forward) -> a horizontal ego direction,
+    camera x (right) -> its right, camera y (down) -> ego -z."""
+    exts = np.zeros((N_CAMERAS, 4, 4), np.float32)
+    for i in range(N_CAMERAS):
+        a = 2 * np.pi * i / N_CAMERAS
+        fwd = np.array([np.cos(a), np.sin(a), 0.0])
+        right = np.array([np.sin(a), -np.cos(a), 0.0])
+        exts[i, :3, 0], exts[i, :3, 1], exts[i, :3, 2] = right, [0.0, 0.0, -1.0], fwd
+        exts[i, :3, 3] = [0.5 * np.cos(a), 0.5 * np.sin(a), 1.5]
+        exts[i, 3, 3] = 1.0
+    return np.tile(exts, (batch_size, 1, 1, 1))
+
+
+def capture_segment_inputs(torch):
+    """One real batch-8 pillarize and the batch-8 lift-splat pooling of a
+    full-width conv-camera BevFusionDetector forward (twice: the identity
+    extrinsics of bench_fusion_train, then a ring of outward cameras),
+    recording what each segment wrapper gets."""
+    import cm3d_tpu_torch.train.bevfusion as bevfusion
+    import cm3d_tpu_torch.train.voxelize as voxelize
+    from cm3d_tpu_torch.benchmarks import fusion_bench_setup
+
+    step, state, batch, cfg = fusion_bench_setup(TRAIN_BATCH, TRAIN_IMAGE_HW, device="cuda")
+    pill, splats = [], []
+    real_max, real_sum = voxelize.segment_sum_max, bevfusion.segment_sum
+
+    def max_spy(cell, values, maxvals, n_cells):
+        pill.append((cell.clone(), values.clone(), maxvals.clone(), n_cells))
+        return real_max(cell, values, maxvals, n_cells)
+
+    def sum_spy(cell, values, n_cells):
+        splats.append((cell.clone(), values.detach().contiguous().clone(), n_cells))
+        return real_sum(cell, values, n_cells)
+
+    voxelize.segment_sum_max, bevfusion.segment_sum = max_spy, sum_spy
+    try:
+        with torch.no_grad():
+            step.loss_fn(batch)
+            ring = torch.from_numpy(ring_extrinsics(TRAIN_BATCH)).cuda()
+            step.loss_fn(batch._replace(cam_to_ego=ring))
+    finally:
+        voxelize.segment_sum_max, bevfusion.segment_sum = real_max, real_sum
+    torch.cuda.synchronize()
+    check(len(pill) == 2 and len(splats) == 2,
+          f"a fusion forward makes 1 pillarize and 1 splat reduction, saw {len(pill)} and "
+          f"{len(splats)} over two")
+    return pill[0], {"bench": splats[0], "ring": splats[1]}
+
+
+def _run_stats(torch, cell, n_cells):
+    real = cell < n_cells
+    counts = torch.zeros((cell.shape[0], n_cells + 1), dtype=torch.int64, device=cell.device)
+    counts.scatter_add_(1, cell.clamp(max=n_cells).long(), torch.ones_like(cell, dtype=torch.int64))
+    counts = counts[:, :n_cells]
+    return {"in_range": int(real.sum()), "cells_hit": int((counts > 0).sum()),
+            "longest_run": int(counts.max())}
+
+
+def segment_phase(torch, pill, splats):
+    """The segment kernels against their plain versions on captured inputs."""
+    from cm3d_tpu_torch.kernels.segment import (
+        segment_sum,
+        segment_sum_bwd,
+        segment_sum_bwd_plain,
+        segment_sum_max,
+        segment_sum_max_plain,
+        segment_sum_plain,
+    )
+
+    tol = dict(rtol=1e-5, atol=1e-5)
+    ninf = float("-inf")
+    out = {}
+
+    # --- sum + max, the pillarize call ---
+    cell, values, maxvals, n_cells = pill
+    r, d, n = values.shape
+    check(bool((cell[:, 1:] >= cell[:, :-1]).all()), "pillarize hands over sorted ids")
+    sums, maxs = segment_sum_max(cell, values, maxvals, n_cells)
+    again_s, again_m = segment_sum_max(cell, values, maxvals, n_cells)
+    want_s, want_m = segment_sum_max_plain(cell, values, maxvals, n_cells)
+    torch.cuda.synchronize()
+    check(torch.equal(sums, again_s) and torch.equal(maxs, again_m),
+          "segment_sum_max twice: bit-equal")
+    check(torch.allclose(sums, want_s, **tol), "segment_sum_max sums within rtol 1e-5 / atol "
+          f"1e-5 of plain (worst {float((sums - want_s).abs().max()):.3g})")
+    check(torch.equal(maxs, want_m), "segment_sum_max maxima equal to plain")
+    stats = _run_stats(torch, cell, n_cells)
+    empty = want_m == ninf
+    check(bool(empty.any()) and bool((maxs[empty] == ninf).all())
+          and bool((sums.transpose(1, 2)[empty] == 0).all()), "empty cells give -inf and 0")
+    idx = cell.clamp(max=n_cells).long()
+    idx3 = idx[:, None, :].expand(r, d, n)
+
+    def library_pair():
+        s_ = torch.zeros((r, d, n_cells + 1), device=cell.device).scatter_add_(2, idx3, values)
+        m_ = torch.full((r, n_cells + 1), ninf, device=cell.device).scatter_reduce_(
+            1, idx, maxvals, "amax", include_self=True)
+        return s_, m_
+
+    n_bytes = cell.numel() * 4 + values.numel() * 4 + maxvals.numel() * 4 \
+        + sums.numel() * 4 + maxs.numel() * 4
+    rec = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, **stats,
+           "max_abs_err": float((sums - want_s).abs().max()),
+           "ms": time_ms(torch, lambda: segment_sum_max(cell, values, maxvals, n_cells)),
+           "plain_ms": time_ms(torch, lambda: segment_sum_max_plain(cell, values, maxvals,
+                                                                    n_cells)),
+           "library_ms": time_ms(torch, library_pair),
+           "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": n_bytes}
+    out["segment_sum_max"] = rec
+    print(f"segment_sum_max (pillarize): R={r} N={n} D={d} cells={n_cells} in range "
+          f"{stats['in_range']} cells hit {stats['cells_hit']} longest run "
+          f"{stats['longest_run']}; max abs err {rec['max_abs_err']:.3g}, maxima exact, replay "
+          f"bit-equal; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms scatter_add_ + "
+          f"scatter_reduce_ {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms",
+          flush=True)
+
+    # --- sum only, forward and backward, the splat call ---
+    for name, (cell, values, n_cells) in splats.items():
+        r, d, n = values.shape
+        check(bool((cell[:, 1:] >= cell[:, :-1]).all()), "the splat hands over sorted ids")
+        stats = _run_stats(torch, cell, n_cells)
+        got = segment_sum(cell, values, n_cells)
+        again = segment_sum(cell, values, n_cells)
+        want = segment_sum_plain(cell, values, n_cells)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"segment_sum ({name}) twice: bit-equal")
+        # the splat's sink is the last column, which holds every ray that
+        # left the grid (most of them) and is cut off by the caller: the
+        # columns the path keeps are held to rtol 1e-5 / atol 1e-5, and every
+        # column, the sink's long sum included, to the error an f32 sum of k
+        # terms can have in any order, k 2^-24 sum|v|, of the sum taken in f64
+        kept = slice(0, n_cells - 1)
+        err = float((got[..., kept] - want[..., kept]).abs().max())
+        check(torch.allclose(got[..., kept], want[..., kept], **tol), f"segment_sum ({name}) "
+              f"within rtol 1e-5 / atol 1e-5 of plain (worst {err:.3g})")
+        exact = segment_sum_plain(cell, values.double(), n_cells)
+        mass = segment_sum_plain(cell, values.abs().double(), n_cells)
+        count = segment_sum_plain(cell, torch.ones_like(values[:, :1]).double(), n_cells)
+        slack = 1e-6 + count * 2.0 ** -24 * mass
+        check(bool(((got.double() - exact).abs() <= slack).all()), f"segment_sum ({name}): "
+              f"every column within k 2^-24 sum|v| of the f64 sum (worst "
+              f"{float(((got.double() - exact).abs() / slack).max()):.3g} of the allowance)")
+        del exact, mass, count, slack
+        hit = torch.zeros((r, n_cells + 1), dtype=torch.bool, device=cell.device)
+        hit.scatter_(1, cell.clamp(max=n_cells).long(), True)
+        check(bool((got.transpose(1, 2)[~hit[:, :n_cells]] == 0).all()),
+              f"segment_sum ({name}): empty cells give exactly 0")
+        # backward: a random cotangent through the Function against autograd
+        # through the plain scatter version (a gather on both sides: exact)
+        ct = torch.randn(got.shape, device=cell.device,
+                         generator=torch.Generator("cuda").manual_seed(0))
+        a = values.clone().requires_grad_()
+        b = values.clone().requires_grad_()
+        (segment_sum(cell, a, n_cells) * ct).sum().backward()
+        (segment_sum_plain(cell, b, n_cells) * ct).sum().backward()
+        torch.cuda.synchronize()
+        check(torch.equal(a.grad, b.grad), f"segment_sum ({name}) backward equals autograd of "
+              f"the plain version")
+        check(bool((a.grad.transpose(1, 2)[cell >= n_cells] == 0).all()),
+              f"segment_sum ({name}) backward: sink ids read 0")
+        check(torch.equal(segment_sum_bwd(cell, ct), segment_sum_bwd_plain(cell, ct))
+              and torch.equal(segment_sum_bwd(cell, ct), a.grad),
+              f"segment_sum_bwd ({name}) equals its plain gather, twice")
+        idx3 = cell.clamp(max=n_cells).long()[:, None, :].expand(r, d, n)
+        gz = torch.cat([ct, ct.new_zeros((r, d, 1))], dim=2)
+        n_bytes = cell.numel() * 4 + values.numel() * 4 + got.numel() * 4
+        fwd = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, **stats,
+               "max_abs_err": err,
+               "ms": time_ms(torch, lambda: segment_sum(cell, values, n_cells)),
+               "plain_ms": time_ms(torch, lambda: segment_sum_plain(cell, values, n_cells)),
+               "library_ms": time_ms(torch, lambda: torch.zeros(
+                   (r, d, n_cells + 1), device=cell.device).scatter_add_(2, idx3, values)),
+               "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": n_bytes}
+        bwd = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, "max_abs_err": 0.0,
+               "ms": time_ms(torch, lambda: segment_sum_bwd(cell, ct)),
+               "plain_ms": time_ms(torch, lambda: segment_sum_bwd_plain(cell, ct)),
+               "library_ms": time_ms(torch, lambda: torch.gather(gz, 2, idx3)),
+               "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": n_bytes}
+        out[f"segment_sum/{name}"] = fwd
+        out[f"segment_sum_bwd/{name}"] = bwd
+        print(f"segment_sum (splat, {name} extrinsics): R={r} N={n} D={d} cells={n_cells} in "
+              f"range {stats['in_range']} cells hit {stats['cells_hit']} longest run "
+              f"{stats['longest_run']}; max abs err {err:.3g}, backward exact, replay "
+              f"bit-equal; forward kernel {fwd['ms']:.4f} ms plain {fwd['plain_ms']:.4f} ms "
+              f"scatter_add_ {fwd['library_ms']:.4f} ms; backward kernel {bwd['ms']:.4f} ms "
+              f"plain {bwd['plain_ms']:.4f} ms torch.gather {bwd['library_ms']:.4f} ms; bound "
+              f"{fwd['bound_ms']:.4f} ms each way", flush=True)
+    return out
+
+
+def capture_swin_t_inputs(torch):
+    """A seed-0 Swin-T camera trunk at full width, a batch-8 ring of images,
+    and the window-attention wrapper's inputs at the trunk's 7 shapes."""
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.train.bevfusion import BevFusionConfig, CameraTrunk
+
+    gen = torch.Generator().manual_seed(0)
+    trunk = init_weights(CameraTrunk(BevFusionConfig(camera_backbone="swin_t")), gen).cuda()
+    ih, iw = TRAIN_IMAGE_HW
+    images = torch.rand((TRAIN_BATCH * N_CAMERAS, ih, iw, 3), generator=gen).cuda()
+    with torch.no_grad():
+        captured = capture_window_attn_inputs(torch, lambda: trunk(images),
+                                              n_blocks=SWIN_T_BLOCKS, n_shapes=7)
+    return trunk, images, captured
+
+
+def swin_t_phase(torch):
+    """Window attention at the shapes of the BEVFusion Swin-T camera: the
+    forward as phase 4 holds it, the times of a forward and of the recompute
+    backward, then one backward through the whole trunk."""
+    from cm3d_tpu_torch.kernels.window_attn import window_attn
+
+    trunk, images, captured = capture_swin_t_inputs(torch)
+    shapes = window_attn_phase(torch, captured, model_dtype=torch.float32, time_f32=True)
+    for rec, ((c, shift), (x, params, kw), _) in zip(shapes, captured):
+        def fwd_bwd(grad: bool):
+            leaves = [t.clone().requires_grad_(grad) for t in (x,) + params]
+            out = window_attn(*leaves, **kw)
+            if grad:
+                out.backward(torch.ones_like(out))
+
+        both = time_ms(torch, lambda: fwd_bwd(True), reps=5)
+        fwd = time_ms(torch, lambda: fwd_bwd(False), reps=5)
+        rec["f32_forward_ms"], rec["f32_recompute_backward_ms"] = fwd, both - fwd
+        if rec["window"] < 7:  # the shrunk window reads the table's centre only
+            check(kw["window"] == 5, "stage 3 runs on a 5 x 8 map with window 5")
+        print(f"window attention C={c} shift {shift} {list(x.shape)} window {kw['window']}: "
+              f"f32 forward {fwd:.4f} ms, recompute backward {both - fwd:.4f} ms", flush=True)
+    # the full table of a shrunk block gets its gradient in the centre only
+    blk = trunk.swin.layers[3].blocks[0]
+    feats, depth = trunk(images[:N_CAMERAS])
+    (feats.sum() + (depth * depth).sum()).backward()
+    tg = blk.attn.relative_position_bias_table.grad.reshape(13, 13, -1)
+    outside = tg.clone()
+    outside[2:11, 2:11] = 0
+    check(float(tg[2:11, 2:11].abs().sum()) > 0 and float(outside.abs().sum()) == 0,
+          "a window shrunk to 5 moves only the centre 9 x 9 of its 13 x 13 bias table")
+    for name, p in trunk.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"Swin-T camera: finite gradient for {name}")
+    dead = [n for n, p in trunk.named_parameters() if float(p.grad.abs().sum()) == 0]
+    check(not dead, f"Swin-T camera on the card: parameters without gradient: {dead[:6]}")
+    print(f"Swin-T camera trunk on the card: all {len(list(trunk.parameters()))} parameters "
+          f"get a non-zero gradient through the fused kernels", flush=True)
+    return shapes
+
+
+def swin_t_gradient_phase(torch):
+    """Gradients through window_attn's autograd.Function at Swin-T's shapes
+    against autograd through the plain branch, under deterministic
+    algorithms: non-zero and equal bit for bit, f32 and bf16."""
+    from cm3d_tpu_torch.kernels.window_attn import window_attn, window_attn_plain
+    from cm3d_tpu_torch.pipelines.pretrain import deterministic_training
+
+    _, _, captured = capture_swin_t_inputs(torch)
+    names = ("x", "ln_weight", "ln_bias", "wqkv", "bqkv", "wproj", "bproj", "table")
+    out = []
+    with deterministic_training():
+        for (c, shift), (x, params, kw), _ in captured:
+            for dtype in (torch.float32, torch.bfloat16):
+                kw = dict(kw, dtype=dtype)
+                got_in = [t.clone().requires_grad_() for t in (x,) + params]
+                ref_in = [t.clone().requires_grad_() for t in (x,) + params]
+                got = window_attn(*got_in, **kw)
+                ref = window_attn_plain(*ref_in, **kw)
+                ct = torch.randn(got.shape, device="cuda",
+                                 generator=torch.Generator("cuda").manual_seed(1)).to(got.dtype)
+                got.backward(ct)
+                ref.backward(ct)
+                torch.cuda.synchronize()
+                for name, g, r in zip(names, got_in, ref_in):
+                    check(g.grad is not None and float(g.grad.abs().sum()) > 0,
+                          f"window attention C={c} shift={shift} {dtype}: gradient of {name} "
+                          f"is non-zero")
+                    check(torch.equal(g.grad, r.grad), f"window attention C={c} shift={shift} "
+                          f"{dtype}: gradient of {name} equals autograd through the plain "
+                          f"branch (worst {float((g.grad - r.grad).abs().max()):.3g})")
+            out.append({"channels": c, "shift": shift, "shape": list(x.shape),
+                        "window": kw["window"], "gradients_equal_and_nonzero": len(names)})
+            print(f"window attention gradients C={c} shift {shift} {list(x.shape)} window "
+                  f"{kw['window']}: f32 and bf16 equal to the plain branch's, all 8 non-zero",
+                  flush=True)
+    return out
+
+
+def train_phase(torch):
+    """bench_train and bench_fusion_train at full width, counted."""
+    from cm3d_tpu_torch.benchmarks import (
+        bench_fusion_train,
+        bench_train,
+        fusion_bench_setup,
+        train_bench_setup,
+    )
+    from cm3d_tpu_torch.kernels.segment import segment_sum, segment_sum_bwd, segment_sum_max
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+
+    wrappers = (segment_sum_max, segment_sum, segment_sum_bwd, window_attn_heads,
+                window_attn_proj)
+    n_iters = 20
+    steps = n_iters + 1
+    runs = [
+        ("bench_train", lambda: bench_train(TRAIN_BATCH, n_iters, device="cuda"), (1, 0, 0, 0)),
+        ("bench_fusion_train conv", lambda: bench_fusion_train(
+            TRAIN_BATCH, n_iters, TRAIN_IMAGE_HW, device="cuda"), (1, 1, 1, 0)),
+        ("bench_fusion_train swin_t", lambda: bench_fusion_train(
+            TRAIN_BATCH, n_iters, TRAIN_IMAGE_HW, device="cuda", camera_backbone="swin_t"),
+         (1, 1, 1, SWIN_T_BLOCKS)),
+        ("bench_fusion_train swin_t bf16", lambda: bench_fusion_train(
+            TRAIN_BATCH, n_iters, TRAIN_IMAGE_HW, device="cuda", camera_backbone="swin_t",
+            camera_bf16=True), (1, 1, 1, SWIN_T_BLOCKS)),
+    ]
+    out = {}
+    for name, run, (n_max, n_sum, n_bwd, n_wa) in runs:
+        for wr in wrappers:
+            wr.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        bench = run()
+        launches = {wr.__name__: wr.launches for wr in wrappers}
+        bench["launches"] = launches
+        bench["launches_per_step"] = {k: v / steps for k, v in launches.items()}
+        bench["peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"{name}: " + json.dumps(bench), flush=True)
+        want = {"segment_sum_max": n_max, "segment_sum": n_sum, "segment_sum_bwd": n_bwd,
+                "window_attn_heads": n_wa, "window_attn_proj": n_wa}
+        for key, per_step in want.items():
+            check(launches[key] == per_step * steps, f"{name}: {per_step} {key} launches a "
+                  f"step over {steps} steps, got {launches[key]}")
+        check(np.isfinite(bench["first_loss"]) and np.isfinite(bench["last_loss"])
+              and bench["last_loss"] < bench["first_loss"],
+              f"{name}: the loss is finite and falls on the fixed batch "
+              f"({bench['first_loss']:.4f} -> {bench['last_loss']:.4f})")
+        out[name] = bench
+
+    step, state, batch = train_bench_setup(TRAIN_BATCH, device="cuda")
+    print("profile of bench_train's step:", flush=True)
+    profile_phase(torch, lambda: step(state, batch), n_steps=2)
+    del step, state, batch
+    for backbone in ("conv", "swin_t"):
+        step, state, batch, _ = fusion_bench_setup(TRAIN_BATCH, TRAIN_IMAGE_HW, backbone,
+                                                   device="cuda")
+        print(f"profile of bench_fusion_train's step ({backbone}):", flush=True)
+        profile_phase(torch, lambda: step(state, batch), n_steps=2)
+        del step, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_train_configs():
+    from cm3d_tpu_torch.models.swin import SwinConfig
+    from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig
+    from cm3d_tpu_torch.train.bevfusion import BevFusionConfig
+
+    lidar_pillar = PillarConfig(x_min=-25.6, x_max=25.6, y_min=-25.6, y_max=25.6,
+                                resolution=0.8)
+    lidar_model = CenterPointConfig(num_classes=3, trunk_channels=(32, 32))
+    fusion_pillar = PillarConfig(x_min=-8.0, x_max=8.0, y_min=-8.0, y_max=8.0,
+                                 resolution=1.0, z_min=-3.0, z_max=3.0)
+    small_cp = CenterPointConfig(num_classes=3, trunk_channels=(8, 8))
+    conv = BevFusionConfig(centerpoint=small_cp, cam_channels=4, cam_trunk=(4, 8),
+                           depth_bins=4, d_min=1.0, d_max=7.0)
+    swin = BevFusionConfig(
+        centerpoint=small_cp, cam_channels=4, depth_bins=4, d_min=1.0, d_max=7.0,
+        camera_backbone="swin_t",
+        swin=SwinConfig(embed_dim=8, depths=(1, 1, 1), num_heads=(1, 2, 2), out_indices=(1, 2)))
+    return lidar_pillar, lidar_model, fusion_pillar, conv, swin
+
+
+def _small_batch(pillar_cfg, n_classes: int, bsz: int, n: int, m: int, image_hw=None, seed=0):
+    """A small synthetic batch (numpy, from a seed); with `image_hw` a
+    two-camera FusionBatch whose cameras look along +x and -y."""
+    from cm3d_tpu_torch.train.bevfusion import FusionBatch
+    from cm3d_tpu_torch.train.train import TrainBatch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = pillar_cfg.x_min + 1, pillar_cfg.x_max - 1
+    pts = rng.uniform([lo, lo, -2, 0], [hi, hi, 0.5, 1], (bsz, n, 4)).astype(np.float32)
+    boxes = np.zeros((bsz, m, 8), np.float32)
+    boxes[..., :2] = rng.uniform(lo + 1, hi - 1, (bsz, m, 2))
+    boxes[..., 2] = 0.5
+    boxes[..., 3:6] = [1.8, 4.2, 1.6]
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (bsz, m))
+    boxes[..., 7] = rng.integers(0, n_classes, (bsz, m))
+    base = dict(points=pts, point_valid=rng.random((bsz, n)) < 0.95, boxes=boxes,
+                box_valid=np.ones((bsz, m), bool))
+    if image_hw is None:
+        return TrainBatch(**base)
+    ih, iw = image_hw
+    intr = np.array([[12.0, 0, iw / 2], [0, 12.0, ih / 2], [0, 0, 1]], np.float32)
+    e0 = np.array([[0, 0, 1, 0.5], [-1, 0, 0, 0.0], [0, -1, 0, 0.2], [0, 0, 0, 1]], np.float32)
+    e1 = np.array([[-1, 0, 0, 0.0], [0, 0, -1, -0.5], [0, -1, 0, 0.2], [0, 0, 0, 1]],
+                  np.float32)
+    return FusionBatch(
+        **base, images=rng.random((bsz, 2, ih, iw, 3)).astype(np.float32),
+        intrinsics=np.tile(intr, (bsz, 2, 1, 1)),
+        cam_to_ego=np.tile(np.stack([e0, e1]), (bsz, 1, 1, 1)))
+
+
+def train_cpu_check(torch):
+    """Small configurations, 3 steps on the card and on the CPU from one
+    state dict, then detect on both from the same weights."""
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.kernels.segment import segment_sum, segment_sum_max
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads
+    from cm3d_tpu_torch.pipelines.detect import make_detect_fn
+    from cm3d_tpu_torch.train.bevfusion import init_fusion_state, make_fusion_train_step
+    from cm3d_tpu_torch.train.train import init_state, make_train_step
+
+    t0 = time.perf_counter()
+    lidar_pillar, lidar_model, fusion_pillar, conv, swin = _small_train_configs()
+    cases = [
+        ("centerpoint", lidar_pillar, None, _small_batch(lidar_pillar, 3, 2, 4096, 6)),
+        ("fusion conv", fusion_pillar, conv,
+         _small_batch(fusion_pillar, 3, 2, 256, 3, image_hw=(24, 32))),
+        ("fusion swin", fusion_pillar, swin,
+         _small_batch(fusion_pillar, 3, 2, 256, 3, image_hw=(48, 64))),
+    ]
+    out = {}
+    for name, pillar_cfg, fusion_cfg, host_batch in cases:
+        def build(device):
+            if fusion_cfg is None:
+                state, model, tx = init_state(0, pillar_cfg, lidar_model, learning_rate=3e-3,
+                                              device=device)
+                return state, model, make_train_step(model, tx, pillar_cfg)
+            state, model, tx = init_fusion_state(0, pillar_cfg, fusion_cfg, (0, 0),
+                                                 learning_rate=3e-3, device=device)
+            return state, model, make_fusion_train_step(model, tx, pillar_cfg)
+
+        state_c, model_c, step_c = build("cpu")
+        state_g, model_g, step_g = build("cuda")
+        model_g.load_state_dict(model_c.state_dict())  # one state dict for both
+        batch_c, batch_g = to_device(host_batch, "cpu"), to_device(host_batch, "cuda")
+        before = (segment_sum_max.launches, segment_sum.launches, window_attn_heads.launches)
+
+        grads = []
+        for model, step, batch in ((model_c, step_c, batch_c), (model_g, step_g, batch_g)):
+            model.train()
+            stats = {k: v.clone() for k, v in model.state_dict().items()}
+            loss, _ = step.loss_fn(batch)
+            names = [k for k, _ in model.named_parameters()]
+            g = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+            grads.append({k: t.cpu() for k, t in zip(names, g)})
+            model.load_state_dict(stats)  # undo the batch statistics' update
+        worst = 0.0
+        for k, gc in grads[0].items():
+            scale = float(gc.abs().max())
+            err = float((grads[1][k] - gc).abs().max())
+            worst = max(worst, err / max(scale, 1e-12))
+            check(err <= TRAIN_GRAD_TOL * scale + 1e-7, f"{name}: first-step gradient of {k} "
+                  f"on the card within {TRAIN_GRAD_TOL} of its largest on the CPU "
+                  f"({err:.3g} of {scale:.3g})")
+            check(scale > 0, f"{name}: {k} has a gradient")
+        losses = []
+        for _ in range(3):
+            state_c, mc = step_c(state_c, batch_c)
+            state_g, mg = step_g(state_g, batch_g)
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            losses.append((lc, lg))
+            check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc), f"{name}: loss on the card "
+                  f"{lg:.6f} within {TRAIN_LOSS_RTOL} relative of the CPU's {lc:.6f}")
+        check(segment_sum_max.launches > before[0], f"{name}: the card run launches "
+              f"segment_sum_max")
+        if fusion_cfg is not None:
+            check(segment_sum.launches > before[1], f"{name}: the card run launches segment_sum")
+        if fusion_cfg is swin:
+            check(window_attn_heads.launches > before[2],
+                  f"{name}: the card run launches the window-attention kernels")
+
+        # detect on both from the same (CPU-trained) weights
+        model_g.load_state_dict(model_c.state_dict())
+        radius = np.full(3, 4.0, np.float32)
+        kept = []
+        for model, batch in ((model_c, batch_c), (model_g, batch_g)):
+            detect = make_detect_fn(model, pillar_cfg, radius, top_k=32, score_thresh=0.0,
+                                    fusion=fusion_cfg is not None)
+            camera = () if fusion_cfg is None else (batch.images, batch.intrinsics,
+                                                    batch.cam_to_ego)
+            boxes, scores, classes, keep = (t.cpu().numpy() for t in detect(
+                batch.points, batch.point_valid, *camera))
+            kept.append([{(int(classes[b, i]), round(float(boxes[b, i, 0]), 2),
+                           round(float(boxes[b, i, 1]), 2)) for i in np.flatnonzero(keep[b])}
+                         for b in range(len(keep))])
+        check(kept[0] == kept[1], f"{name}: detect keeps the same boxes on the card and the CPU")
+        n_kept = sum(len(k) for k in kept[0])
+        check(n_kept > 0, f"{name}: detect keeps boxes")
+        out[name] = {"losses_cpu_card": losses, "worst_grad_rel_err": worst, "boxes_kept": n_kept}
+        print(f"training card vs CPU, {name}: losses {losses}, worst gradient error "
+              f"{worst:.3g} of its tensor's largest, {n_kept} boxes kept on both", flush=True)
+    print(f"training card-against-CPU check: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def replay_phase(torch):
+    """4 steps straight against 2 + save + load + 2 on the card."""
+    import shutil
+    import tempfile
+
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.models.checkpoints import load_params, save_params
+    from cm3d_tpu_torch.pipelines.pretrain import deterministic_training
+    from cm3d_tpu_torch.train import AugmentConfig, CenterPointConfig, PillarConfig
+    from cm3d_tpu_torch.train.bevfusion import init_fusion_state, make_fusion_train_step
+    from cm3d_tpu_torch.train.train import init_state, make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    _, _, fusion_pillar, _, swin = _small_train_configs()
+    full_pillar, full_model = PillarConfig(), CenterPointConfig()
+    cases = [
+        ("centerpoint, full width, batch 4", full_pillar, None,
+         lambda s: _small_batch(full_pillar, 10, 4, 32768, 64, seed=s)),
+        ("fusion, tiny Swin camera", fusion_pillar, swin,
+         lambda s: _small_batch(fusion_pillar, 3, 2, 256, 3, image_hw=(48, 64), seed=s)),
+    ]
+    recipe = dict(ema_decay=0.9, augment=AugmentConfig(), aug_seed=5)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="replay_")
+    try:
+        with deterministic_training():
+            for name, pillar_cfg, fusion_cfg, make_batch in cases:
+                def build():
+                    tx = make_optimizer(3e-3, total_steps=4, schedule="cosine", warmup_steps=1,
+                                        grad_clip=1.0)
+                    if fusion_cfg is None:
+                        state, model, tx = init_state(0, pillar_cfg, full_model, tx=tx,
+                                                      ema=True, device="cuda")
+                        return state, make_train_step(model, tx, pillar_cfg, **recipe)
+                    state, model, tx = init_fusion_state(0, pillar_cfg, fusion_cfg, (0, 0),
+                                                         tx=tx, ema=True, device="cuda")
+                    return state, make_fusion_train_step(model, tx, pillar_cfg, **recipe)
+
+                def run(state, step, first, last):
+                    for s in range(first, last):
+                        state, _ = step(state, to_device(make_batch(s), "cuda"))
+                    return state
+
+                straight, step = build()
+                straight = run(straight, step, 0, 4)
+                half, step = build()
+                half = run(half, step, 0, 2)
+                save_params(half.tree(), f"{tmp}/{len(out)}", overwrite=True)
+                resumed, step = build()  # a fresh process would start here
+                resumed.load_tree(load_params(f"{tmp}/{len(out)}"))
+                check(resumed.step == 2 and resumed.opt_state["count"] == 2,
+                      f"{name}: the loaded state is at step 2")
+                resumed = run(resumed, step, 2, 4)
+                n = 0
+                for key in ("params", "batch_stats", "ema_params"):
+                    for k, t in getattr(straight, key).items():
+                        check(torch.equal(t, getattr(resumed, key)[k]),
+                              f"replay ({name}): {key}.{k} bit-equal after resume")
+                        n += 1
+                for key in ("mu", "nu"):
+                    for k, t in straight.opt_state[key].items():
+                        check(torch.equal(t, resumed.opt_state[key][k]),
+                              f"replay ({name}): opt_state.{key}.{k} bit-equal after resume")
+                        n += 1
+                moved = any(not torch.equal(t, half.params[k]) for k, t in
+                            straight.params.items())
+                check(moved and straight.step == resumed.step == 4,
+                      f"replay ({name}): the last two steps moved the parameters")
+                out[name] = {"tensors_bit_equal": n}
+                print(f"replay ({name}): 4 steps straight == 2 + save + load + 2, {n} tensors "
+                      f"bit-equal", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"replay check: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+def deterministic_phases(torch) -> dict:
+    """Phase 14, what runs in the child process: CUBLAS_WORKSPACE_CONFIG is
+    in its environment from the start."""
+    from cm3d_tpu_torch.benchmarks import bench_train
+    from cm3d_tpu_torch.pipelines.pretrain import deterministic_training
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == DETERMINISTIC_WORKSPACE,
+          "the child process has cuBLAS's workspace fixed")
+    gradients = swin_t_gradient_phase(torch)
+    plain = bench_train(TRAIN_BATCH, 20, device="cuda")
+    with deterministic_training():
+        det = bench_train(TRAIN_BATCH, 20, device="cuda")
+    print(f"bench_train with CUBLAS_WORKSPACE_CONFIG set: {plain['value']:.3f} ms/step; under "
+          f"deterministic algorithms as well: {det['value']:.3f}", flush=True)
+    return {"swin_t_gradients": gradients, "bench_train_workspace_fixed": plain,
+            "bench_train_deterministic": det, "replay": replay_phase(torch)}
+
+
+def deterministic_phases_in_child() -> dict:
+    """Run phase 14 in a child process and return its results. The child
+    prints its progress lines, then one JSON line, which is parsed here."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), DETERMINISTIC_FLAG],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=DETERMINISTIC_WORKSPACE),
+        stdout=subprocess.PIPE, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines, f"the deterministic phases' process exited with "
+          f"{proc.returncode}: {lines[-1] if lines else 'no output'}")
+    return json.loads(lines[-1])
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -813,6 +1492,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the cm3d_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
+    if argv == [DETERMINISTIC_FLAG]:
+        print(json.dumps(deterministic_phases(torch)), flush=True)
+        return 0
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
         IMG_W,
@@ -916,7 +1598,8 @@ def main() -> int:
     print(f"full-width Detic Swin-B + SAM ViT-H, bf16, random weights: "
           f"{time.perf_counter() - t0:.2f} s to build", flush=True)
     ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
-    wa = window_attn_phase(torch, capture_window_attn_inputs(torch, prod, ring))
+    wa = window_attn_phase(torch, capture_window_attn_inputs(
+        torch, lambda: prod.detic(prod.prepare(ring))))
 
     # --- 5. the mask stage, counted, then one keyframe profiled ---
     realistic = _realistic_load(prod)
@@ -944,7 +1627,15 @@ def main() -> int:
     cpu_check = mask_cpu_check(torch)
     e2e_check = e2e_cpu_check(torch)
 
-    # --- 10. summary ---
+    # --- 10.-14. the training path ---
+    seg = segment_phase(torch, *capture_segment_inputs(torch))
+    swin_t = swin_t_phase(torch)
+    train = train_phase(torch)
+    train_check = train_cpu_check(torch)
+    torch.cuda.empty_cache()
+    deterministic = deterministic_phases_in_child()
+
+    # --- 15. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -984,6 +1675,38 @@ def main() -> int:
             "per": "one ViT-H encode of one camera: 28 launches at [1, 64, 64, 1280], bf16",
         }
 
+    def segment_entry(name, key, replaces, launches):
+        rec = seg[key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "cm3d_tpu_torch/csrc/segment.cu",
+            "replaces": replaces,
+            "launches": launches,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+            "per": f"one batch-{TRAIN_BATCH} training step: R={rec['rows']} N={rec['n']} "
+                   f"D={rec['channels']} cells={rec['n_cells']}, f32",
+        }
+
+    def swin_t_entry(name):
+        """One Swin-T camera forward of a batch-8 ring: 12 f32 launches."""
+        part = f"{name}_f32"
+        total = {k: sum(r[part][k] * r["blocks_per_forward"] for r in swin_t)
+                 for k in ("ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")}
+        return {
+            "name": f"window_attn_{name}_swin_t",
+            "route": "cuda",
+            "source": "cm3d_tpu_torch/csrc/window_attn.cu",
+            "replaces": "cm3d_tpu/kernels/window_attn_pallas.py:303",
+            "launches": train["bench_fusion_train swin_t"]["launches"][f"window_attn_{name}"],
+            "max_abs_err": max(r["f32_max_abs_err"] for r in swin_t),
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
+            "library_ms": None,
+            "per": "one Swin-T camera forward: 12 launches, 48 images at 144x256, f32",
+        }
+
     kernels = [
         {
             "name": "compact_rows",
@@ -1014,6 +1737,17 @@ def main() -> int:
         window_attn_entry("proj"),
         relpos_entry("heads", "cm3d_tpu_torch/csrc/window_attn_relpos.cu"),
         relpos_entry("proj", "cm3d_tpu_torch/csrc/window_attn.cu"),
+        segment_entry("segment_sum_max", "segment_sum_max",
+                      "cm3d_tpu/kernels/segment_pallas.py:141",
+                      train["bench_train"]["launches"]["segment_sum_max"]),
+        segment_entry("segment_sum", "segment_sum/bench",
+                      "cm3d_tpu/kernels/segment_pallas.py:161",
+                      train["bench_fusion_train conv"]["launches"]["segment_sum"]),
+        segment_entry("segment_sum_bwd", "segment_sum_bwd/bench",
+                      "cm3d_tpu/kernels/segment_pallas.py:183",
+                      train["bench_fusion_train conv"]["launches"]["segment_sum_bwd"]),
+        swin_t_entry("heads"),
+        swin_t_entry("proj"),
     ]
     print("kernels launched on the main path: " + ", ".join(
         f"{k['name']} x{k['launches']}" for k in kernels), flush=True)
@@ -1021,7 +1755,10 @@ def main() -> int:
                       "window_attn_shapes": wa, "mask_stage": benches,
                       "mask_cpu_check": cpu_check, "relpos_shapes": rp,
                       "vit_h_encode_ab": encode_ab, "e2e_fused": e2e_fused,
-                      "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check}), flush=True)
+                      "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check,
+                      "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
+                      "train_cpu_check": train_check, "deterministic": deterministic}),
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -1034,4 +1771,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -5,6 +5,10 @@
                      full-width random-weight Detic Swin-B + SAM ViT-H.
   bench_e2e        — the fused images -> boxes loop (pipelines.e2e.run_fused)
                      with the same models and the production lift step.
+  bench_train      — the CenterPoint pretraining step at production pillar
+                     scale (128 x 128 grid, full trunk, batch 8).
+  bench_fusion_train — the BEVFusion step: the same plus a 6-camera ring
+                     through the camera backbone and the lift-splat pooling.
 
 Model content caveat (mask stage): random full-width weights give the
 production FLOPs and geometry but meaningless detections, so the detector's
@@ -329,3 +333,151 @@ def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, 
         "dtype": dtype,
     }
 
+
+
+def _synthetic_train_arrays(batch_size: int, pillar_cfg, num_classes: int,
+                            n_pts: int = 32768, n_box: int = 64, seed: int = 0):
+    """Shared synthetic LiDAR training workload for bench_train and
+    bench_fusion_train (the JAX package's arrays, from the same seed): one
+    definition so the LiDAR-only and fusion step numbers stay comparable."""
+    rng = np.random.default_rng(seed)
+    pts = np.empty((batch_size, n_pts, 4), np.float32)
+    pts[..., 0] = rng.uniform(pillar_cfg.x_min, pillar_cfg.x_max, (batch_size, n_pts))
+    pts[..., 1] = rng.uniform(pillar_cfg.y_min, pillar_cfg.y_max, (batch_size, n_pts))
+    pts[..., 2] = rng.uniform(-2.0, 1.0, (batch_size, n_pts))
+    pts[..., 3] = rng.uniform(0.0, 1.0, (batch_size, n_pts))
+    boxes = np.zeros((batch_size, n_box, 8), np.float32)
+    boxes[..., 0] = rng.uniform(-45, 45, (batch_size, n_box))
+    boxes[..., 1] = rng.uniform(-45, 45, (batch_size, n_box))
+    boxes[..., 3:6] = rng.uniform(0.5, 4.5, (batch_size, n_box, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (batch_size, n_box))
+    boxes[..., 7] = rng.integers(0, num_classes, (batch_size, n_box))
+    return pts, boxes, n_pts, n_box
+
+
+def _timed_steps(step, state, batch, n_iters: int, device):
+    """One warm-up step, then `n_iters` timed ones with one synchronisation
+    at the end; returns (seconds, first loss, last loss)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    state, metrics = step(state, batch)  # warm-up: kernel build, cuDNN's choices
+    sync()
+    first = float(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        state, metrics = step(state, batch)
+    sync()  # one stream: the last sync covers all
+    dt = time.perf_counter() - t0
+    return dt, first, float(metrics["loss"])
+
+
+def train_bench_setup(batch_size: int = 8, device=None, pillar_cfg=None, model_cfg=None,
+                      n_pts: int = 32768, n_box: int = 64):
+    """(step, state, batch) of bench_train: a seed-0 CenterPointDetector and
+    one fixed synthetic batch on `device`."""
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig, make_train_step
+    from cm3d_tpu_torch.train.train import TrainBatch, init_state
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
+
+    device = resolve_device(device)
+    strict_f32()
+    pillar_cfg = pillar_cfg or PillarConfig()
+    model_cfg = model_cfg or CenterPointConfig()
+    state, model, tx = init_state(0, pillar_cfg, model_cfg, device=device)
+    step = make_train_step(model, tx, pillar_cfg)
+    pts, boxes, n_pts, n_box = _synthetic_train_arrays(
+        batch_size, pillar_cfg, model_cfg.num_classes, n_pts, n_box)
+    batch = to_device(TrainBatch(
+        points=pts, point_valid=np.ones((batch_size, n_pts), bool),
+        boxes=boxes, box_valid=np.ones((batch_size, n_box), bool)), device)
+    return step, state, batch
+
+
+def bench_train(batch_size: int = 8, n_iters: int = 20, device=None, **setup) -> dict:
+    """Pretraining step time at production pillar scale (128 x 128 grid,
+    full trunk): voxelize -> CenterPoint forward -> focal + L1 -> AdamW, on
+    one fixed synthetic batch. Protocol: one warm-up step, `n_iters` timed,
+    one synchronisation at the end. Runs on CUDA unless `device` says
+    otherwise; `setup` (see train_bench_setup) lets a test run it small."""
+    from cm3d_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    step, state, batch = train_bench_setup(batch_size, device, **setup)
+    dt, first, last = _timed_steps(step, state, batch, n_iters, device)
+    return {
+        "metric": "train_step_ms_batch8",
+        "value": dt / n_iters * 1000,
+        "unit": f"ms/step (batch {batch_size})",
+        "steps_per_sec": n_iters / dt,
+        "first_loss": first,
+        "last_loss": last,
+        "n_iters": n_iters,
+    }
+
+
+def fusion_bench_setup(batch_size: int = 8, image_hw=(144, 256), camera_backbone: str = "conv",
+                       camera_bf16: bool = False, camera_fused: bool = True, device=None,
+                       pillar_cfg=None, fusion_cfg=None, n_pts: int = 32768, n_box: int = 64):
+    """(step, state, batch) of bench_fusion_train: bench_train's LiDAR
+    workload plus a random 6-camera ring with identity extrinsics."""
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig
+    from cm3d_tpu_torch.train.bevfusion import (
+        BevFusionConfig,
+        FusionBatch,
+        init_fusion_state,
+        make_fusion_train_step,
+    )
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
+
+    device = resolve_device(device)
+    strict_f32()
+    pillar_cfg = pillar_cfg or PillarConfig()
+    cfg = fusion_cfg or BevFusionConfig(
+        centerpoint=CenterPointConfig(), camera_backbone=camera_backbone,
+        camera_bf16=camera_bf16, camera_fused=camera_fused)
+    state, model, tx = init_fusion_state(0, pillar_cfg, cfg, image_hw, n_cams=C, device=device)
+    step = make_fusion_train_step(model, tx, pillar_cfg)
+
+    rng = np.random.default_rng(0)
+    ih, iw = image_hw
+    pts, boxes, n_pts, n_box = _synthetic_train_arrays(
+        batch_size, pillar_cfg, cfg.centerpoint.num_classes, n_pts, n_box)
+    k = np.array([[260.0, 0, iw / 2], [0, 260.0, ih / 2], [0, 0, 1]], np.float32)
+    batch = to_device(FusionBatch(
+        points=pts, point_valid=np.ones((batch_size, n_pts), bool),
+        boxes=boxes, box_valid=np.ones((batch_size, n_box), bool),
+        images=rng.random((batch_size, C, ih, iw, 3)).astype(np.float32),
+        intrinsics=np.tile(k, (batch_size, C, 1, 1)),
+        cam_to_ego=np.tile(np.eye(4, dtype=np.float32), (batch_size, C, 1, 1))), device)
+    return step, state, batch, cfg
+
+
+def bench_fusion_train(batch_size: int = 8, n_iters: int = 20, image_hw=(144, 256),
+                       device=None, **setup) -> dict:
+    """BEVFusion training-step time at production pillar scale: bench_train's
+    LiDAR workload plus the 6-camera ring through the camera backbone (lite
+    conv trunk or full Swin-T, `camera_backbone`) + depth head + lift-splat
+    BEV pooling (82944 splat elements a sample at 144 x 256 / 24 bins). Same
+    protocol as bench_train; `setup` as fusion_bench_setup takes it."""
+    from cm3d_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    step, state, batch, cfg = fusion_bench_setup(batch_size, image_hw, device=device, **setup)
+    dt, first, last = _timed_steps(step, state, batch, n_iters, device)
+    ih, iw = image_hw
+    return {
+        "metric": "fusion_train_step_ms_batch8",
+        "value": dt / n_iters * 1000,
+        "unit": f"ms/step (batch {batch_size}, {C}x{ih}x{iw} ring)",
+        "steps_per_sec": n_iters / dt,
+        "first_loss": first,
+        "last_loss": last,
+        "n_iters": n_iters,
+        "camera_backbone": cfg.camera_backbone,
+        "camera_bf16": cfg.camera_bf16,
+        "camera_fused": cfg.camera_fused,
+    }

@@ -151,16 +151,19 @@ def main(argv=None) -> dict:
         meta=meta,
         verbose=bool(args.verbose),
     )
-    if args.plot_examples > 0 and args.dataroot and not args.gt_json:
-        # table mode draws the lidar points behind the boxes through the
-        # pretraining pipeline's points frontend, which is not ported yet;
-        # hermetic --gt_json mode renders boxes-only examples
-        raise NotImplementedError(
-            "--plot_examples with --dataroot needs pipelines.pretrain's "
-            "points frontend, which is not ported yet (ROADMAP A11); use "
-            "--gt_json for boxes-only examples"
-        )
     points_provider = None
+    if args.plot_examples > 0 and args.dataroot and not args.gt_json:
+        # table mode can draw the lidar points behind the boxes; hermetic
+        # --gt_json mode renders boxes-only examples (even when a dataroot
+        # happens to be set: its tables need not exist for fabricated GT)
+        from cm3d_tpu_torch.pipelines.pretrain import make_points_frontend
+
+        fe = make_points_frontend(args.dataroot, args.version, 32768, tables=eval_tables)
+        token_to_sample = {s["token"]: s for s in fe.nusc.table("sample")}
+
+        def points_provider(token):
+            sample = token_to_sample.get(token)
+            return None if sample is None else fe.aggregate_sweeps(sample)[:, :2]
 
     return ev.main(render_curves=bool(args.render_curves),
                    plot_examples=args.plot_examples,

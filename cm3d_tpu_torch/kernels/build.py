@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C launcher and compiles with nvcc
 alone (no PyTorch headers, so a build takes seconds) into
 `kernels/_build/lib<name>-<hash>.so`, keyed by a hash of the source, the
-shared headers (`csrc/*.cuh`) and the flags, at first use. The wrappers bind the launchers with ctypes. A failed
-build raises: there is no fallback for a CUDA tensor.
+shared headers (`csrc/*.cuh`) and the flags, at first use. The wrappers bind
+the launchers with ctypes. A failed build raises: there is no fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-
 # extra nvcc flags per source; medoid must not contract a*b+c into FMAs, so
 # each pairwise distance rounds exactly like the plain PyTorch version
 EXTRA_FLAGS = {"compact": [], "medoid": ["-fmad=false"], "window_attn": [],
-               "window_attn_relpos": []}
+               "window_attn_relpos": [], "segment": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -275,14 +275,59 @@ def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shi
 window_attn_proj.launches = 0
 
 
-def window_attn(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads: int,
-                window: int, shift: int, dtype, eps: float = EPS) -> torch.Tensor:
-    """The attention branch of a Swin block, [B, H, W, C] -> [B, H, W, C]
-    of `dtype` (pre-residual): `window_attn_heads` then `window_attn_proj`."""
+def _launch_branch(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads: int,
+                   window: int, shift: int, dtype, eps: float) -> torch.Tensor:
     o = window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, heads=heads,
                           window=window, shift=shift, dtype=dtype, eps=eps)
     return window_attn_proj(o, wproj, bproj, out_shape=tuple(x.shape), heads=heads,
                             window=window, shift=shift, dtype=dtype)
+
+
+class _WindowAttn(torch.autograd.Function):
+    """Forward: the two launches (no graph is recorded through them).
+    Backward: recompute the branch through `window_attn_plain` on the saved
+    x and parameters and return its gradients, as the JAX package's
+    `_fused_attn_fn` recomputes through its unfused branch; no backward
+    kernel exists there or here."""
+
+    @staticmethod
+    def forward(ctx, geo, *tensors):
+        ctx.geo = geo
+        ctx.save_for_backward(*tensors)
+        return _launch_branch(*tensors, **geo)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[1:]
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = window_attn_plain(*leaves, **ctx.geo)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype), allow_unused=True))
+        return (None,) + tuple(next(grads) if need else None for need in needs)
+
+
+def needs_graph(*tensors) -> bool:
+    """True when autograd would record a graph through these inputs."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def window_attn(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads: int,
+                window: int, shift: int, dtype, eps: float = EPS) -> torch.Tensor:
+    """The attention branch of a Swin block, [B, H, W, C] -> [B, H, W, C]
+    of `dtype` (pre-residual): `window_attn_heads` then `window_attn_proj`.
+
+    Differentiable in x and every parameter: when an input requires grad
+    the call is a `torch.autograd.Function` whose backward recomputes the
+    branch through `window_attn_plain` (on the card the kernels record no
+    graph themselves). Without grad it is the two launches and nothing
+    else."""
+    tensors = (x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table)
+    geo = dict(heads=heads, window=window, shift=shift, dtype=dtype, eps=eps)
+    if needs_graph(*tensors):
+        return _WindowAttn.apply(geo, *tensors)
+    return _launch_branch(*tensors, **geo)
 
 
 def _lib() -> ctypes.CDLL:

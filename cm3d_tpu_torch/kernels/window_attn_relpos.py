@@ -52,6 +52,7 @@ from cm3d_tpu_torch.kernels.window_attn import (
     _layer_norm,
     _proj,
     _rounded,
+    needs_graph,
     padded_hw,
     window_attn_proj_plain,
 )
@@ -170,11 +171,24 @@ def window_attn_relpos_proj(o, wproj, bproj, *, out_shape, heads: int, window: i
 window_attn_relpos_proj.launches = 0
 
 
+def refuse_graph_on_card(x, *params) -> None:
+    """Raise where autograd would need a graph through the CUDA kernels:
+    they record none, so the gradients of x and of the block's parameters
+    would silently be zero. SAM is never trained in the JAX package, so no
+    backward is ported; the plain version (any CPU tensor) differentiates."""
+    if x.device.type == "cuda" and needs_graph(x, *params):
+        raise NotImplementedError(
+            "window_attn_relpos has no backward on the card: SAM's training is not part "
+            "of the JAX package, so none was ported. Run under torch.no_grad(), or "
+            "differentiate window_attn_relpos_plain")
+
+
 def window_attn_relpos(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w, *,
                        heads: int, window: int, dtype, eps: float = EPS) -> torch.Tensor:
     """The attention branch of a windowed SAM block, [B, H, W, C] ->
     [B, H, W, C] of `dtype` (pre-residual): `window_attn_relpos_heads` then
     `window_attn_relpos_proj`."""
+    refuse_graph_on_card(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w)
     o = window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, heads=heads,
                                  window=window, dtype=dtype, eps=eps)
     return window_attn_relpos_proj(o, wproj, bproj, out_shape=tuple(x.shape), heads=heads,

@@ -45,6 +45,23 @@ def _ln(out: dict, prefix: str, p: dict) -> None:
     out[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _full_table(table, window: int) -> torch.Tensor:
+    """A block's [(2 window - 1)^2, heads] bias table. On a map smaller than
+    the window the JAX package creates the table of the shrunk window; the
+    port's block always holds the full table and reads its centre
+    (`models.swin.shrunk_table`), so a shrunk table lands in the centre of a
+    zero one."""
+    table = np.asarray(table, np.float32)
+    side = 2 * window - 1
+    small = int(round(table.shape[0] ** 0.5))
+    if small == side:
+        return _t(table)
+    lo = (side - small) // 2
+    full = np.zeros((side, side, table.shape[1]), np.float32)
+    full[lo:lo + small, lo:lo + small] = table.reshape(small, small, -1)
+    return _t(full.reshape(side * side, -1))
+
+
 def swin_state_dict_from_flax(params: dict, cfg, prefix: str = "backbone.bottom_up.") -> dict:
     """`cm3d_tpu.models.swin.SwinTransformer` params -> state dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -58,8 +75,8 @@ def swin_state_dict_from_flax(params: dict, cfg, prefix: str = "backbone.bottom_
             _ln(out, f"{b}.norm2", blk["norm2"])
             _dense(out, f"{b}.attn.qkv", blk["attn"]["qkv"])
             _dense(out, f"{b}.attn.proj", blk["attn"]["proj"])
-            out[f"{b}.attn.relative_position_bias_table"] = _t(
-                blk["attn"]["rel_pos_bias_table"])
+            out[f"{b}.attn.relative_position_bias_table"] = _full_table(
+                blk["attn"]["rel_pos_bias_table"], cfg.window_size)
             _dense(out, f"{b}.mlp.fc1", blk["fc1"])
             _dense(out, f"{b}.mlp.fc2", blk["fc2"])
         if i < len(cfg.depths) - 1:
@@ -167,4 +184,48 @@ def sam_state_dict_from_flax(params: dict, cfg: SamConfig = SAM_VIT_H) -> dict:
     _mlp_layers(out, "mask_decoder.iou_prediction_head", dec["iou_head"])
     for i in range(cfg.num_multimask_outputs + 1):
         _mlp_layers(out, f"mask_decoder.output_hypernetworks_mlps.{i}", dec[f"hyper{i}"])
+    return out
+
+
+def _bn(out: dict, prefix: str, p: dict, stats: dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+
+
+def centerpoint_state_dict_from_flax(params: dict, batch_stats: dict, cfg,
+                                     prefix: str = "") -> dict:
+    """`cm3d_tpu.train.centerpoint.CenterPointDetector` params and
+    batch_stats -> the port's CenterPointDetector state dict."""
+    from cm3d_tpu_torch.train.centerpoint import HEADS
+
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.trunk_channels)):
+        for half in ("a", "b"):
+            name = f"trunk{i}_{half}"
+            _conv(out, f"{prefix}{name}.conv", params[name]["Conv_0"])
+            _bn(out, f"{prefix}{name}.bn", params[name]["BatchNorm_0"],
+                batch_stats[name]["BatchNorm_0"])
+    for head, _ in HEADS:
+        _conv(out, f"{prefix}{head}_conv", params[f"{head}_conv"])
+        _conv(out, f"{prefix}{head}_out", params[f"{head}_out"])
+    return out
+
+
+def bevfusion_state_dict_from_flax(params: dict, batch_stats: dict, cfg) -> dict:
+    """`cm3d_tpu.train.bevfusion.BevFusionDetector` params and batch_stats
+    -> the port's BevFusionDetector state dict (the camera's Swin through
+    `swin_state_dict_from_flax`)."""
+    out = centerpoint_state_dict_from_flax(
+        params["centerpoint"], batch_stats["centerpoint"], cfg.centerpoint, "centerpoint.")
+    cam = params["camera"]
+    if cfg.camera_backbone == "swin_t":
+        out.update(swin_state_dict_from_flax(cam["swin"], cfg.swin, prefix="camera.swin."))
+    else:
+        for i in range(len(cfg.cam_trunk)):
+            _conv(out, f"camera.cam{i}", cam[f"cam{i}"])
+            _bn(out, f"camera.cam{i}_bn", cam[f"cam{i}_bn"], batch_stats["camera"][f"cam{i}_bn"])
+    _conv(out, "camera.cam_feat", cam["cam_feat"])
+    _conv(out, "camera.cam_depth", cam["cam_depth"])
     return out

@@ -19,8 +19,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from cm3d_tpu_torch.kernels.window_attn import window_attn
+from cm3d_tpu_torch.kernels.window_attn import window_attn, window_attn_plain
 from cm3d_tpu_torch.models.common import Conv, Dense, LayerNorm
 
 
@@ -34,6 +35,14 @@ class SwinConfig:
     mlp_ratio: float = 4.0
     out_indices: Tuple[int, ...] = (1, 2, 3)  # strides 8, 16, 32
     dtype: str = "float32"  # compute dtype (params stay f32)
+    # True: every block's attention branch goes through the fused kernel
+    # wrapper (the CUDA kernels on the card). False: the plain PyTorch
+    # branch on every device, for A/B runs. Same parameters either way.
+    fused_attn: bool = True
+    # Recompute each block on the backward pass (torch.utils.checkpoint)
+    # instead of holding its activations: memory for FLOPs when TRAINING the
+    # backbone. No effect without grad. Same parameters either way.
+    remat: bool = False
 
     def stage_dim(self, i: int) -> int:
         return self.embed_dim * (2 ** i)
@@ -93,9 +102,10 @@ class Mlp(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_attn: bool = True):
         super().__init__()
         self.heads, self.window, self.shift, self.dtype = heads, window, shift, dtype
+        self.fused_attn = fused_attn
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, heads, window)
         self.norm2 = LayerNorm(dim, eps=1e-5)
@@ -105,7 +115,8 @@ class SwinBlock(nn.Module):
         """x: [B, H, W, C]."""
         win, shift = block_window(x.shape[1], x.shape[2], self.window, self.shift)
         a = self.attn
-        x = x + window_attn(
+        branch = window_attn if self.fused_attn else window_attn_plain
+        x = x + branch(
             x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
             a.proj.weight, a.proj.bias, shrunk_table(a.relative_position_bias_table,
                                                      self.window, win),
@@ -145,7 +156,8 @@ class SwinLayer(nn.Module):
         dim = cfg.stage_dim(i)
         self.blocks = nn.ModuleList(
             SwinBlock(dim, cfg.num_heads[i], cfg.window_size,
-                      0 if j % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio, dtype)
+                      0 if j % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio, dtype,
+                      cfg.fused_attn)
             for j in range(cfg.depths[i])
         )
         self.downsample = PatchMerging(dim, dtype) if i < len(cfg.depths) - 1 else None
@@ -167,7 +179,10 @@ class SwinTransformer(nn.Module):
         outs: Dict[str, torch.Tensor] = {}
         for i, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x)
+                if self.cfg.remat and torch.is_grad_enabled():
+                    x = checkpoint(blk, x, use_reentrant=False)
+                else:
+                    x = blk(x)
             if i in self.cfg.out_indices:
                 outs[f"swin{i}"] = getattr(self, f"norm{i}")(x)
             if layer.downsample is not None:

@@ -14,7 +14,11 @@ summation order and exp/rsqrt rounding differ) and to 2^-5 of it in bf16,
 four bf16 ulps at the top of the range: the two sides round qkv, p, o and
 out at the same places, but a last-bit difference in an f32 sum can move a
 bf16 rounding by one ulp. SAM's rel-pos window attention is held to the same
-two tolerances.
+two tolerances. The segment kernels agree with their plain scatter versions to
+rtol 1e-5 / atol 1e-5 in the sums (addition order), exactly in maxima, empty
+cells, the sink and the gather backward, and give equal bits twice in a row.
+Window attention under autograd returns the plain branch's gradients (its
+backward IS the plain branch, recomputed on the card).
 """
 
 import json
@@ -28,6 +32,14 @@ from cm3d_tpu_torch.kernels.medoid import (
     medoid_distance_sums,
     medoid_distance_sums_rows,
     medoid_distance_sums_rows_plain,
+)
+from cm3d_tpu_torch.kernels.segment import (
+    segment_sum,
+    segment_sum_bwd,
+    segment_sum_bwd_plain,
+    segment_sum_max,
+    segment_sum_max_plain,
+    segment_sum_plain,
 )
 from cm3d_tpu_torch.kernels.window_attn import (
     window_attn,
@@ -394,3 +406,180 @@ def test_e2e_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
                                        atol=1e-4)
         n_boxes += len(boxes)
     assert n_boxes > 0
+
+
+def _segment_inputs(seed, r, n, d, n_cells, device):
+    rng = np.random.default_rng(seed)
+    used = rng.permutation(n_cells)[: max(1, 2 * n_cells // 3)]  # the rest stay empty
+    cell = rng.choice(used, (r, n)).astype(np.int32)
+    cell[rng.random((r, n)) < 0.2] = n_cells + 1  # the sink
+    if r > 1 and n <= 5000:
+        cell[1] = used[0]  # one run as long as the row
+    cell.sort(axis=1)
+    values = rng.normal(size=(r, d, n)).astype(np.float32)
+    maxvals = rng.normal(size=(r, n)).astype(np.float32)
+    values[np.broadcast_to((cell >= n_cells)[:, None], values.shape)] = 0.0
+    maxvals[cell >= n_cells] = -np.inf
+    return tuple(torch.from_numpy(a).to(device) for a in (cell, values, maxvals))
+
+
+@pytest.mark.parametrize("r,n,d,n_cells", [
+    (1, 64, 1, 7),
+    (3, 1000, 5, 129),  # pillarize's channel count
+    (2, 257, 32, 600),  # the splat's channel count, cells > elements
+    (8, 32768, 5, 16385),  # batch-8 pillarize
+    (2, 82944, 32, 16385),  # two samples of the camera splat
+    (4, 5000, 19, 1),  # one cell, a ragged channel chunk
+])
+def test_segment_kernels_match_plain(cuda, r, n, d, n_cells):
+    cell, values, maxvals = _segment_inputs(r * n + d, r, n, d, n_cells, cuda)
+    before = (segment_sum_max.launches, segment_sum.launches, segment_sum_bwd.launches)
+    sums, maxs = segment_sum_max(cell, values, maxvals, n_cells)
+    only = segment_sum(cell, values, n_cells)
+    torch.cuda.synchronize()
+    assert (segment_sum_max.launches, segment_sum.launches) == (before[0] + 1, before[1] + 1)
+    want_s, want_m = segment_sum_max_plain(cell, values, maxvals, n_cells)
+    # against the sums taken in f64: an f32 sum of k terms in any order is
+    # within k * 2^-24 * sum|v| of it (1e-5 of the sum for the short runs of
+    # real data; the fixture also holds a run as long as its row)
+    exact = segment_sum_plain(cell, values.double(), n_cells)
+    mass = segment_sum_plain(cell, values.abs().double(), n_cells)
+    count = segment_sum_plain(cell, torch.ones_like(values[:, :1]).double(), n_cells)
+    bound = 1e-6 + count * 2.0 ** -24 * mass
+    assert bool(((sums.double() - exact).abs() <= bound).all())
+    assert bool(((want_s.double() - exact).abs() <= bound).all())
+    assert torch.equal(maxs, want_m)
+    assert torch.equal(only, sums)  # the two variants add in the same order
+    empty = torch.ones((r, n_cells), dtype=torch.bool, device=cuda)
+    rows = torch.arange(r, device=cuda)[:, None].expand_as(cell)
+    real = cell < n_cells
+    empty[rows[real], cell[real].long()] = False
+    assert bool((maxs[empty] == float("-inf")).all())
+    assert bool((sums.transpose(1, 2)[empty] == 0).all())
+    # replay: the same bits twice
+    again_s, again_m = segment_sum_max(cell, values, maxvals, n_cells)
+    assert torch.equal(again_s, sums) and torch.equal(again_m, maxs)
+    # the backward is the gather, equal to autograd through the plain scatter
+    ct = torch.randn(sums.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    a = values.clone().requires_grad_()
+    b = values.clone().requires_grad_()
+    (segment_sum(cell, a, n_cells) * ct).sum().backward()
+    (segment_sum_plain(cell, b, n_cells) * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert segment_sum_bwd.launches == before[2] + 1
+    assert torch.equal(a.grad, b.grad)
+    assert torch.equal(segment_sum_bwd(cell, ct), segment_sum_bwd_plain(cell, ct))
+
+
+def test_segment_wrappers_reject_bad_input_on_card(cuda):
+    cell = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    values = torch.zeros((2, 3, 8), device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        segment_sum(cell.long(), values, 4)
+    with pytest.raises(TypeError, match="float32"):
+        segment_sum_max(cell, values.half(), values[:, 0], 4)
+    with pytest.raises(ValueError, match="different devices"):
+        segment_sum(cell, values.cpu(), 4)
+    # degenerate sizes never reach the kernel and still fill every output
+    sums, maxs = segment_sum_max(cell[:, :0], values[:, :, :0], values[:, 0, :0], 4)
+    assert bool((sums == 0).all()) and bool((maxs == float("-inf")).all())
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,win,shift,dtype", [
+    (2, 12, 16, 96, 3, 7, 0, torch.float32),  # Swin-T stage 0 widths
+    (2, 12, 16, 96, 3, 7, 3, torch.float32),
+    (2, 9, 16, 384, 12, 7, 3, torch.bfloat16),  # stage 2, bf16 compute
+    (3, 5, 8, 768, 24, 5, 0, torch.float32),  # stage 3: the window shrunk to 5
+])
+def test_window_attn_gradients_on_card(cuda, b, h, w, c, heads, win, shift, dtype):
+    """A loss through `window_attn` on the card reaches x and every
+    parameter, with the plain branch's gradients."""
+    gen = torch.Generator(cuda).manual_seed(b * c + shift)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=cuda, generator=gen) * scale
+
+    args = [rnd(b, h, w, c), 1 + rnd(c, scale=0.1), rnd(c, scale=0.1),
+            rnd(3 * c, c, scale=c ** -0.5), rnd(3 * c, scale=0.1), rnd(c, c, scale=c ** -0.5),
+            rnd(c, scale=0.1), rnd((2 * win - 1) ** 2, heads, scale=0.5)]
+    kw = dict(heads=heads, window=win, shift=shift, dtype=dtype)
+    got_in = [t.clone().requires_grad_() for t in args]
+    ref_in = [t.clone().requires_grad_() for t in args]
+    before = window_attn_heads.launches
+    out = window_attn(*got_in, **kw)
+    assert window_attn_heads.launches == before + 1
+    ref = window_attn_plain(*ref_in, **kw)
+    ct = torch.randn(out.shape, device=cuda, generator=gen).to(out.dtype)
+    out.backward(ct)
+    ref.backward(ct)
+    torch.cuda.synchronize()
+    tol = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-4
+    err = float((out.detach().float() - ref.detach().float()).abs().max())
+    assert err <= tol * float(ref.detach().abs().max())
+    for name, g, r in zip(("x", "ln_w", "ln_b", "wqkv", "bqkv", "wproj", "bproj", "table"),
+                          got_in, ref_in):
+        assert g.grad is not None and float(g.grad.abs().sum()) > 0, name
+        torch.testing.assert_close(g.grad, r.grad, rtol=0, atol=0, msg=name)
+    # no graph without grad: the inference path is the two launches alone
+    with torch.no_grad():
+        assert not window_attn(*got_in, **kw).requires_grad
+
+
+def test_window_attn_relpos_refuses_a_graph_on_card(cuda):
+    c, heads, win = 32, 2, 4
+    x = torch.randn(1, 8, 8, c, device=cuda)
+    params = [torch.ones(c, device=cuda), torch.zeros(c, device=cuda),
+              torch.randn(3 * c, c, device=cuda) * 0.1, torch.zeros(3 * c, device=cuda),
+              torch.randn(c, c, device=cuda) * 0.1, torch.zeros(c, device=cuda),
+              torch.randn(2 * win - 1, c // heads, device=cuda),
+              torch.randn(2 * win - 1, c // heads, device=cuda)]
+    kw = dict(heads=heads, window=win, dtype=torch.float32)
+    window_attn_relpos(x, *params, **kw)  # no grad needed: runs
+    with pytest.raises(NotImplementedError, match="no backward on the card"):
+        window_attn_relpos(x.requires_grad_(), *params, **kw)
+    with torch.no_grad():
+        window_attn_relpos(x, *params, **kw)
+
+
+def test_pillarize_and_splat_on_card_match_cpu(cuda):
+    """The two callers of the segment kernels, card against CPU on the same
+    numpy inputs: pillar features and the pooled camera map within rtol /
+    atol 1e-5 (f32 sums in another order; the geometry bins identically in
+    full f32), the splat's gradients within 1e-6 (gathers times the other
+    factor)."""
+    from cm3d_tpu_torch.train.bevfusion import BevFusionConfig, splat_to_bev
+    from cm3d_tpu_torch.train.voxelize import PillarConfig, pillarize
+    from cm3d_tpu_torch.utils.device import strict_f32
+
+    strict_f32()
+    rng = np.random.default_rng(0)
+    pcfg = PillarConfig(x_min=-8.0, x_max=8.0, y_min=-8.0, y_max=8.0, resolution=1.0,
+                        z_min=-3.0, z_max=3.0)
+    pts = torch.from_numpy(rng.uniform([-9, -9, -4, 0], [9, 9, 4, 1], (3, 5000, 4))
+                           .astype(np.float32))
+    valid = torch.from_numpy(rng.random((3, 5000)) < 0.9)
+    before = (segment_sum_max.launches, segment_sum.launches, segment_sum_bwd.launches)
+    got = pillarize(pts.to(cuda), valid.to(cuda), pcfg)
+    torch.testing.assert_close(got.cpu(), pillarize(pts, valid, pcfg), rtol=1e-5, atol=1e-5)
+
+    cfg = BevFusionConfig(cam_channels=4, cam_trunk=(4, 8), depth_bins=4, d_min=1.0, d_max=7.0)
+    feats = torch.from_numpy(rng.normal(size=(2, 2, 6, 8, 4)).astype(np.float32))
+    depth = torch.softmax(torch.from_numpy(rng.normal(size=(2, 2, 6, 8, 4)).astype(np.float32)),
+                          dim=-1)
+    intr = torch.tensor([[12.0, 0, 16.0], [0, 12.0, 12.0], [0, 0, 1]]).tile(2, 2, 1, 1)
+    e0 = torch.tensor([[0, 0, 1, 0.5], [-1, 0, 0, 0.0], [0, -1, 0, 0.2], [0, 0, 0, 1.0]])
+    e1 = torch.tensor([[-1, 0, 0, 0.0], [0, 0, -1, -0.5], [0, -1, 0, 0.2], [0, 0, 0, 1.0]])
+    ext = torch.stack([e0, e1]).tile(2, 1, 1, 1)
+    ct = torch.from_numpy(rng.normal(size=(2, 16, 16, 4)).astype(np.float32))
+    results = []
+    for device in (torch.device("cpu"), cuda):
+        f, d = (t.clone().to(device).requires_grad_() for t in (feats, depth))  # leaves
+        bev = splat_to_bev(f, d, intr.to(device), ext.to(device), pcfg, cfg)
+        (bev * ct.to(device)).sum().backward()
+        results.append((bev.detach().cpu(), f.grad.cpu(), d.grad.cpu()))
+    assert float(results[0][0].abs().sum()) > 0
+    torch.testing.assert_close(results[1][0], results[0][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(results[1][1], results[0][1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-6)
+    assert (segment_sum_max.launches, segment_sum.launches, segment_sum_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)

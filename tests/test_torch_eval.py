@@ -265,14 +265,14 @@ def test_cli_hermetic_mode_and_error_paths(tmp_path, fake_root):
     with pytest.raises(KeyError, match="ego pose for sample 'tok9'"):
         add_center_dist_from_poses(load_prediction(str(tmp_path / "extra.json"))[0],
                                    {"tok0": (0, 0, 0), "tok1": (0, 0, 0)})
-    # table mode's example plots draw lidar points through the pretraining
-    # pipeline's frontend, which is not ported
+    # table mode's example plots draw the lidar points behind the boxes
+    # through the pretraining pipeline's points frontend
     root, version, _, tmp = fake_root
     _perfect_submission(root, version, tmp / "perfect2.json")
-    with pytest.raises(NotImplementedError, match="A11"):
-        eval_main([str(tmp / "perfect2.json"), "--dataroot", str(root), "--version", version,
-                   "--eval_set", "all", "--output_dir", str(tmp_path / "mt"), "--verbose", "0",
-                   "--plot_examples", "1"])
+    eval_main([str(tmp / "perfect2.json"), "--dataroot", str(root), "--version", version,
+               "--eval_set", "all", "--output_dir", str(tmp_path / "mt"), "--verbose", "0",
+               "--plot_examples", "1"])
+    assert len(os.listdir(tmp_path / "mt" / "examples")) == 1
     with pytest.raises(FileNotFoundError):
         eval_main([pred, "--dataroot", "/nonexistent/nuscenes", "--output_dir",
                    str(tmp_path / "mn"), "--verbose", "0"])

@@ -98,9 +98,16 @@ def test_swin_shrunk_window_matches_jax(fused):
     noise = np.random.default_rng(4)
     for j in range(SWIN_TEST.depths[1]):
         key = f"layers.1.blocks.{j}.attn.relative_position_bias_table"
-        assert tuple(sd[key].shape) == (5 * 5, heads)
+        # the converter carries JAX's 5 x 5 table into the centre of a zero
+        # 7 x 7 one; the surround becomes noise here
+        small = params[f"stage1_block{j}"]["attn"]["rel_pos_bias_table"]
+        assert tuple(small.shape) == (5 * 5, heads)
+        assert tuple(sd[key].shape) == (side * side, heads)
+        carried = sd[key].numpy().reshape(side, side, heads)
+        np.testing.assert_array_equal(carried[1:6, 1:6], small.reshape(5, 5, heads))
+        assert np.count_nonzero(carried) == np.count_nonzero(small)  # zero around it
         full = noise.standard_normal((side, side, heads)).astype(np.float32)
-        full[1:6, 1:6] = sd[key].numpy().reshape(5, 5, heads)
+        full[1:6, 1:6] = carried[1:6, 1:6]
         sd[key] = torch.from_numpy(full.reshape(-1, heads))
     swin = SwinTransformer(SWIN_TEST)
     swin.load_state_dict(sd)
