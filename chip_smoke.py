@@ -24,7 +24,11 @@ Phases, each of which raises on a failed check (exit code != 0):
    (max abs error <= 2^-5 of max|plain|, four bf16 ulps at the top of the
    range), the f32 kernels to the f32 plain version (<= 1e-4 of max|plain|),
    and kernels and bf16 plain version are timed with CUDA events beside the
-   bound.
+   bound; the heads launcher's time is split over its three kernels (LN
+   statistics, qkv GEMM, attention; torch.profiler device times), and two
+   yardsticks the port never calls are timed beside them: one
+   scaled_dot_product_attention call on the same q / k / v with the bias and
+   shift mask, and F.linear on the window-ordered o.
 5. Mask stage: bench_mask_stage at production geometry (Detic Swin-B +
    SAM ViT-H, bf16, 6 x 1024x576, 8 frames) with the window-attention
    counts reset just before; every Detic forward must launch each of the two
@@ -42,9 +46,10 @@ Phases, each of which raises on a failed check (exit code != 0):
    kernels (heads, then the shared projection) against the f32 plain
    version on the same bf16-rounded inputs (<= 2^-5 of max|plain|), the f32
    kernels against the f32 plain version (<= 1e-4 of max|plain|); CUDA-event
-   times beside the bound. Then one 6-camera ViT-H encode with the fused
-   blocks and without, same weights: ms per camera and the difference of
-   the embeddings.
+   times beside the bound, the launcher's split over its three kernels and
+   the F.linear yardstick as in phase 4. Then one 6-camera ViT-H encode with
+   the fused blocks and without, same weights: ms per camera and the
+   difference of the embeddings.
 8. Fused path: bench_e2e (images -> Detic -> SAM -> planes on the card ->
    lift step -> boxes; 4 warm-up + 12 timed keyframes in batches of 4) with
    SAM's windowed blocks fused, every count reset just before: each
@@ -327,6 +332,59 @@ def profile_phase(torch, step, n_steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{calls:<4d} {name[:90]}", flush=True)
 
 
+# the kernels a heads launcher call queues, by a part of their names
+LAUNCHER_KERNELS = ("ln_stats_kernel", "qkv_gemm_kernel", "window_attn_core", "relpos_attn_kernel")
+
+
+def launcher_split(torch, fn, reps: int = 5) -> dict:
+    """Device ms a launch of each kernel that a launcher call `fn()` queues
+    (torch.profiler over `reps` calls after a warm-up), by LAUNCHER_KERNELS
+    name: the mean over the launches the profiler recorded, which late in a
+    long process are not always all of them. Empty when it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        part = next((k for k in LAUNCHER_KERNELS if k in e.key), None)
+        if e.device_type == DeviceType.CUDA and part:
+            total[part] = total.get(part, 0.0) + e.device_time_total / 1e3
+            count[part] = count.get(part, 0) + e.count
+    return {k: total[k] / count[k] for k in total if count[k]}
+
+
+def _split_text(split: dict) -> str:
+    return " + ".join(f"{k} {v:.4f}" for k, v in split.items()) or "not measured"
+
+
+def sdpa_yardstick_ms(torch, qkv, table, x_shape, heads: int, window: int, shift: int) -> float:
+    """The attention of the heads launcher as one
+    scaled_dot_product_attention call on the same q / k / v (window order,
+    the compute type) with the table bias and the shift mask as its additive
+    mask. A yardstick only: the port never calls it."""
+    from cm3d_tpu_torch.kernels.window_attn import padded_hw, rel_pos_index, shift_attn_mask
+
+    b, h, w, c = x_shape
+    hd, n = c // heads, window * window
+    hp, wp = padded_hw(h, w, window)
+    q, k, v = (t.contiguous() for t in
+               qkv.reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    idx = torch.as_tensor(rel_pos_index(window), device=qkv.device).reshape(-1)
+    mask = table.float()[idx].reshape(n, n, heads).permute(2, 0, 1)[None]
+    if shift:
+        sm = torch.as_tensor(shift_attn_mask(hp, wp, window, shift), device=qkv.device)
+        mask = (mask[None] + sm[None, :, None]).expand(b, -1, -1, -1, -1).reshape(-1, heads, n, n)
+    mask = mask.to(q.dtype).contiguous()
+    return time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=hd ** -0.5))
+
+
 def capture_window_attn_inputs(torch, forward, n_blocks=SWIN_BLOCKS_PER_FORWARD, n_shapes=8):
     """Run one Swin forward (`forward()`), recording the window-attention
     wrapper's inputs at the first block of each distinct (C, shift) and how
@@ -368,6 +426,7 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
         window_attn_plain,
         window_attn_proj,
         window_attn_proj_plain,
+        window_attn_qkv_plain,
     )
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -418,6 +477,15 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
         plain_p = time_ms(torch, lambda: window_attn_proj_plain(
             o, wproj_b, bproj, out_shape=tuple(x.shape), window=win, shift=shift, dtype=bf16),
             reps=5)
+        # the heads launcher's three kernels; yardsticks (never called by the
+        # port): one SDPA call on the same q / k / v with bias + mask, and
+        # F.linear on the window-ordered o (no scatter)
+        split = launcher_split(torch, lambda: window_attn_heads(*heads_args, dtype=bf16, **geo))
+        qkv = window_attn_qkv_plain(x, g, b, wqkv_b, bqkv, window=win, shift=shift, dtype=bf16)
+        sdpa_ms = sdpa_yardstick_ms(torch, qkv, table, tuple(x.shape), heads, win, shift)
+        del qkv
+        bp_b = bproj.to(bf16)
+        linear_ms = time_ms(torch, lambda: torch.nn.functional.linear(o, wproj_b, bp_b))
         # the work the branch needs, counted on the real tokens: a padding
         # token's output is cropped, and its k / v are the bare biases (its
         # LN output is 0), so neither needs a product. o ([tokens, C] bf16)
@@ -434,6 +502,9 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
             "blocks_per_forward": mult, "max_abs_err": errs["branch"][0],
             "max_rel_err": errs["branch"][1], "f32_max_abs_err": err32,
             "gflop": (ops_h + ops_p) / 1e9,
+            # the qkv scratch: written by the GEMM, read by the attention
+            "qkv_scratch_bytes": o.shape[0] * 3 * c * 2,
+            "qkv_scratch_ms": 2 * o.shape[0] * 3 * c * 2 / PEAK_BYTES_PER_S * 1e3,
         }
         for name, ms, plain, ops, nbytes in (("heads", ms_h, plain_h, ops_h, bytes_h),
                                               ("proj", ms_p, plain_p, ops_p, bytes_p)):
@@ -442,6 +513,9 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
             rec[name] = {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
                          "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                          "max_abs_err": errs[name][0], "max_rel_err": errs[name][1]}
+        rec["heads"]["split_ms"] = split
+        rec["heads"]["sdpa_yardstick_ms"] = sdpa_ms
+        rec["proj"]["linear_yardstick_ms"] = linear_ms
         if time_f32:
             # the f32 launches (SIMT, no tensor cores): f32 words, f32 peak
             o32 = window_attn_heads(xf, g, b, wqkv, bqkv, table, dtype=f32, **geo)
@@ -455,6 +529,8 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
             fp_p = time_ms(torch, lambda: window_attn_proj_plain(
                 o32, wproj, bproj, out_shape=tuple(x.shape), window=win, shift=shift,
                 dtype=f32), reps=5)
+            split32 = launcher_split(torch, lambda: window_attn_heads(
+                xf, g, b, wqkv, bqkv, table, dtype=f32, **geo))
             bytes_h32 = x.numel() * 4 + 3 * c * c * 4 + tokens * c * 4
             for name, ms, plain, ops, nbytes in (("heads", f_h, fp_h, ops_h, bytes_h32),
                                                   ("proj", f_p, fp_p, ops_p, 2 * bytes_p)):
@@ -463,15 +539,19 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
                 rec[f"{name}_f32"] = {"ms": ms, "plain_ms": plain,
                                       "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
                                       "bytes_ms": bytes_ms, "max_abs_err": err32}
-            print(f"  f32 launches: heads {f_h:.4f} ms + proj {f_p:.4f} ms, plain "
-                  f"{fp_h:.4f} + {fp_p:.4f} ms, bound {rec['heads_f32']['bound_ms']:.4f} + "
-                  f"{rec['proj_f32']['bound_ms']:.4f} ms", flush=True)
+            rec["heads_f32"]["split_ms"] = split32
+            print(f"  f32 launches: heads {f_h:.4f} ms ({_split_text(split32)}) + proj "
+                  f"{f_p:.4f} ms, plain {fp_h:.4f} + {fp_p:.4f} ms, bound "
+                  f"{rec['heads_f32']['bound_ms']:.4f} + {rec['proj_f32']['bound_ms']:.4f} ms",
+                  flush=True)
         out.append(rec)
         print(f"window attention C={c} shift {shift} {list(x.shape)} h{heads}: "
               f"bf16 rel err {errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
               f"{errs['proj'][1]:.3g}), f32 abs err {err32:.3g}; heads {ms_h:.4f} ms + proj "
               f"{ms_p:.4f} ms, plain {plain_h:.4f} + {plain_p:.4f} ms, bound "
-              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms", flush=True)
+              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
+              f"{_split_text(split)}; yardsticks SDPA {sdpa_ms:.4f} ms, F.linear "
+              f"{linear_ms:.4f} ms", flush=True)
     return out
 
 
@@ -689,6 +769,10 @@ def relpos_phase(torch, captured):
             x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo), reps=5)
         plain_p = time_ms(torch, lambda: window_attn_proj_plain(
             o, wproj_b, bproj, out_shape=shape, window=win, shift=0, dtype=bf16), reps=5)
+        split = launcher_split(torch, lambda: window_attn_relpos_heads(
+            x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo))
+        bp_b = bproj.to(bf16)
+        linear_ms = time_ms(torch, lambda: torch.nn.functional.linear(o, wproj_b, bp_b))
         # the work the branch needs, counted on the real tokens (a padding
         # token's output is cropped and its k / v are the bare biases): qkv,
         # scores and p v over n keys, the two table products; then proj
@@ -709,12 +793,15 @@ def relpos_phase(torch, captured):
             rec[part] = {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
                          "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                          "max_abs_err": errs[part][0], "max_rel_err": errs[part][1]}
+        rec["heads"]["split_ms"] = split
+        rec["proj"]["linear_yardstick_ms"] = linear_ms
         out.append(rec)
         print(f"rel-pos window attention {name} {list(shape)} h{heads} win {win}: bf16 rel err "
               f"{errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
               f"{errs['proj'][1]:.3g}), f32 abs err {err32:.3g}; heads {ms_h:.4f} ms + proj "
               f"{ms_p:.4f} ms, plain {plain_h:.4f} + {plain_p:.4f} ms, bound "
-              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms", flush=True)
+              f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
+              f"{_split_text(split)}; yardstick F.linear {linear_ms:.4f} ms", flush=True)
     return out
 
 
@@ -1655,7 +1742,23 @@ def main(argv) -> int:
             "bound_by": "operations" if ops >= per_forward(name, "bytes_ms") else "bytes",
             "library_ms": None,
             "per": "one Detic forward: 24 launches, 6 cameras at 1024x576, bf16",
+            **_per_forward_extras(wa, name, "blocks_per_forward"),
         }
+
+    def _per_forward_extras(recs, name, mult_key):
+        """The heads launcher's split by kernel and the yardstick calls,
+        summed like the times."""
+        out = {}
+        if name == "heads":
+            split = {}
+            for r in recs:
+                for k, v in r[name]["split_ms"].items():
+                    split[k] = split.get(k, 0.0) + v * (r[mult_key] if mult_key else 1)
+            out["split_ms"] = split
+        key = "sdpa_yardstick_ms" if name == "heads" else "linear_yardstick_ms"
+        if all(key in r[name] for r in recs):
+            out[key] = sum(r[name][key] * (r[mult_key] if mult_key else 1) for r in recs)
+        return out
 
     def relpos_entry(name, source):
         """One square ViT-H encode: 28 launches at [1, 64, 64, 1280]."""
@@ -1673,6 +1776,9 @@ def main(argv) -> int:
             "bound_by": "operations" if sq["ops_ms"] >= sq["bytes_ms"] else "bytes",
             "library_ms": None,
             "per": "one ViT-H encode of one camera: 28 launches at [1, 64, 64, 1280], bf16",
+            **{k: v * SAM_WINDOWED_BLOCKS if isinstance(v, float) else
+               {kk: vv * SAM_WINDOWED_BLOCKS for kk, vv in v.items()}
+               for k, v in _per_forward_extras(rp[:1], name, None).items()},
         }
 
     def segment_entry(name, key, replaces, launches):
@@ -1704,6 +1810,10 @@ def main(argv) -> int:
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
             "library_ms": None,
+            **({"split_ms": {k: sum(r[part]["split_ms"].get(k, 0.0) * r["blocks_per_forward"]
+                                    for r in swin_t)
+                             for k in swin_t[0][part]["split_ms"]}}
+               if name == "heads" else {}),
             "per": "one Swin-T camera forward: 12 launches, 48 images at 144x256, f32",
         }
 

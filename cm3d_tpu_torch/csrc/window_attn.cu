@@ -15,37 +15,49 @@
 // the compute type T (bf16 or f32); every sum is taken in f32.
 //
 // Bound on the H100: 8 C^2 (qkv + proj) + 4 n C (q k^T + p v) operations a
-// token over the padded grid, against a few tens of MB of input, weights
-// and output per launch: operations bind the first launch (bytes at Swin-B's
-// stage 0, whose x is f32), bytes bind the projection; about 1 ms per Detic
-// forward over 6 cameras at 1024x576 in all. The TPU's interleaved
+// token, against a few tens of MB of input, weights and output per launch:
+// operations bind the first launch, bytes the projection; about 0.9 ms per
+// Detic forward over 6 cameras at 1024x576 in all. The TPU's interleaved
 // block-diagonal [T, T] attention over G windows (expand_bias_interleaved,
 // pick_group) only kept its matrix unit's tiles large and wasted a factor G
 // of flops; here every window's n x n problem is computed by itself.
 //
-// Design (a first version: right and simple). Two launches per block:
-//  1. window_attn_heads: one thread block per (window, head). The block
-//     takes the LN statistics of its window's (up to 64) tokens, then
-//     streams K-chunks of x, normalising them as they are loaded, against
-//     the head's 3 * hd columns of Wqkv (bf16: wmma 16x16x16 tensor-core
-//     tiles with f32 accumulators; f32: SIMT FMA). q, k, v of the head stay
-//     in shared memory; scores, softmax and p v run in SIMT f32. The head's
-//     slice of o [B * nW * n, C] goes to device memory in window order.
-//     One head per block keeps shared memory small at C = 1024 (a whole
-//     window's LN(x) in f32 would need 256 KB, over the 227 KB a block may
-//     have) and gives 90 windows x 32 heads = 2880 blocks a camera at
-//     Swin-B's last stage, where one block per window would leave most SMs
-//     idle. The price: every head re-reads its window's x and LN statistics.
-//  2. window_attn_proj: a 64 x 64 tiled GEMM o @ Wproj^T (wmma for bf16,
-//     SIMT for f32) whose epilogue adds the bias and writes each real token
-//     to its place in [B, H, W, C]; padding tokens are dropped there.
-// The pad, roll and crop live in the addressing: window token (r, c) of the
-// rolled, padded grid reads x at ((r + shift) mod Hp, (c + shift) mod Wp),
-// a source row >= H or column >= W is a padding token, and the shift mask
-// comes from region ids computed in the kernel. The rel-pos bias is read
-// from the [(2 win - 1)^2, heads] table directly.
-// Not yet done (later work): cp.async / TMA double buffering of the K
-// chunks, wgmma, several heads per block to reuse the x tiles.
+// Design. Two launcher calls per block, each its own wrapper and counter:
+//  1. window_attn_heads_launch queues three kernels:
+//     a. ln_stats_kernel (window_attn_common.cuh): mean and rstd of every
+//        real token, once, in image order (the shift does not touch them).
+//     b. qkv_gemm_kernel (window_attn_common.cuh): ONE GEMM over all
+//        windows' tokens in window order, [M = B Hp Wp, C] x [C, 3C] + bqkv
+//        into the scratch qkv [M, 3C] of T. The A tile is gathered through
+//        the shift-aware token_offset and normalised as it loads (a padding
+//        token's row is 0, so its qkv is the bias); bf16 on mma.sync
+//        tensor-core tiles of 128 x 128 fed by a 3-stage cp.async ring. The same GEMM
+//        serves SAM's rel-pos blocks (window_attn_relpos.cu, shift 0).
+//     c. window_attn_core_kernel: one block per (window, group of heads),
+//        one warp per (head, 16 query rows): q, k and v^T of the group in
+//        shared memory from 16-byte loads of qkv; S = q k^T on mma.sync
+//        m16n8k16 (n padded to 16, head dim to 16) in f32 registers; scale,
+//        the table bias and the shift mask (region ids) added there; softmax
+//        in registers across the quad; p rounded to bf16 and fed straight
+//        back as the A operand of o = p v (mma.sync again); o rounded, staged
+//        in the warp's own q rows and written as 16-byte stores per row.
+//        f32: window_attn_core_f32_kernel, one block per (window, head),
+//        SIMT, q / k / v and the scores in shared memory.
+//     Before this cut one block per (window, head) re-read its window's x,
+//     re-took its LN statistics and re-streamed its 96 rows of Wqkv per
+//     head (16x at Swin-B's stage 2), on scalar loads, with SIMT scores:
+//     54.9 ms per Detic forward at 89x its bound.
+//  2. window_attn_proj_launch: proj_gemm_kernel, the same GEMM with A = o
+//     (both operands by cp.async) whose epilogue adds the bias, rounds and
+//     writes each real token's slice of the tile to its place in
+//     [B, H, W, C] (one token_offset per row, 16-byte stores); padding
+//     tokens are dropped there. No cap on n or C; SAM uses it with shift 0.
+// The pad, roll and crop live in the addressing; the qkv round trip costs
+// 6 M C bytes of HBM a block (54 MB at Swin-B's stage 2, about 0.03 ms).
+// What bounds it now (9.3 ms per Detic forward against a 0.62 ms bound):
+// the qkv GEMM at about 140 TFLOP/s on mma.sync (no wgmma, no TMA), half of
+// the time, and the attention blocks' load latency (few blocks an SM, one
+// barrier between the loads and the products).
 
 #include <cmath>
 
@@ -53,221 +65,348 @@
 
 namespace {
 
-using namespace nvcuda;
 using namespace wattn;
 
-constexpr int kRows = 64;      // tokens per window, padded (win * win <= 64)
-constexpr int kKC = 32;        // K chunk of both GEMMs
-constexpr int kMaxNT = 12;     // 16-column tiles of 3 * hd (hd <= 64)
-constexpr int kMaxFrag = 4 * kMaxNT / kWarps;  // wmma accumulators per warp
+constexpr int kTok = 64;        // tokens a window holds (win^2 <= 64), padded to 16
+constexpr int kMaxHd = 64;      // head dim
+constexpr int kTab = 225;       // entries of a table column, (2 win - 1)^2 for win <= 8
+constexpr int kLDV = kTok + 8;  // row stride of v^T (keys)
 
-template <typename T>
-__host__ __device__ constexpr int lda() {  // row stride (elements) of the GEMM operand tiles
-  return tile_ld<T>(kKC);
+// mma.sync operands of the attention: two bf16 as one 32-bit register, lower address low
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void st32(bf16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
-struct Geo {
-  int B, H, W, C, heads, hd, win, n, shift, Hp, Wp, nwy, nwx;
+// Shared-memory layout of the bf16 attention kernel, the same on host and device
+struct CoreSmem {
+  int np;      // tokens padded to 16
+  int hdp;     // head dim padded to 16
+  int ldh;     // row stride of q and k
+  int G;       // heads a block
+  size_t qk;   // bytes of one of q, k
+  size_t head; // bytes of one head's q | k | v^T
+  size_t off_heads, total;
 };
 
-// Source element offset of token t of window wl (in one image), or -1 for a
-// padding token.
-__device__ __forceinline__ long long token_offset(const Geo& g, int b, int wl, int t) {
-  const int r = (wl / g.nwx) * g.win + t / g.win;
-  const int c = (wl % g.nwx) * g.win + t % g.win;
-  const int sr = (r + g.shift) % g.Hp;
-  const int sc = (c + g.shift) % g.Wp;
-  if (sr >= g.H || sc >= g.W) return -1;
-  return ((static_cast<long long>(b) * g.H + sr) * g.W + sc) * g.C;
-}
-
-// Region id of rolled coordinate r along an axis of length len
-// (models/swin.py _shift_attn_mask's three slices).
-__device__ __forceinline__ int region(int r, int len, int win, int shift) {
-  return r < len - win ? 0 : (r < len - shift ? 1 : 2);
-}
-
-struct HeadsSmem {
-  size_t off_qkv, off_r0, total;
-};
-
-__host__ __device__ inline HeadsSmem heads_smem(int nq, int tsize, int ld) {
-  const int nqp = (nq + 15) & ~15;
-  HeadsSmem s;
-  s.off_qkv = 1024;  // s_off [64] int64, mu [64], rs [64] f32
-  s.off_r0 = s.off_qkv + round128(size_t(kRows) * (nq + 1) * tsize);
-  const size_t gemm = round128(size_t(kRows) * ld * tsize) + round128(size_t(nqp) * ld * tsize);
-  const size_t stage = size_t(kRows) * (nqp + 4) * 4;
-  const size_t scores = size_t(kRows) * (kRows + 1) * 4;
-  size_t r0 = gemm > stage ? gemm : stage;
-  r0 = r0 > scores ? r0 : scores;
-  s.total = s.off_r0 + round128(r0);
+__host__ __device__ inline CoreSmem core_smem(int n, int hd, int heads) {
+  CoreSmem s;
+  s.np = (n + 15) & ~15;
+  s.hdp = (hd + 15) & ~15;
+  s.ldh = s.hdp + 8;
+  const int per = kWarps / (s.np / 16);  // one warp per (head, 16 query rows)
+  s.G = per < heads ? per : heads;
+  s.qk = round128(size_t(s.np) * s.ldh * sizeof(bf16));
+  s.head = 2 * s.qk + round128(size_t(s.hdp) * kLDV * sizeof(bf16));
+  s.off_heads = 3 * kTok * sizeof(int) + round128(size_t(s.G) * kTab * sizeof(float));
+  s.off_heads = round128(s.off_heads);
+  s.total = s.off_heads + s.G * s.head;
   return s;
 }
 
-template <typename TX, typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_heads_kernel(const TX* __restrict__ x, const float* __restrict__ ln_g,
-                         const float* __restrict__ ln_b, const T* __restrict__ wqkv,
-                         const float* __restrict__ bqkv, const float* __restrict__ table,
-                         T* __restrict__ o, Geo g, float eps, float scale) {
+// kKT8 / kDT: the most key / head-dim 8-column tiles the instance holds
+// (registers scale with them)
+template <int kKT8, int kDT>
+__global__ void __launch_bounds__(kThreads, 3)
+window_attn_core_kernel(const bf16* __restrict__ qkv, const float* __restrict__ table,
+                        bf16* __restrict__ o, Geo g, float scale, int vec) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDA = lda<T>();
-  const int nq = 3 * g.hd;
-  const int nqp = (nq + 15) & ~15;
-  const int NT = nqp / 16;
-  const int LQ = nq + 1;
-  const int LDS = nqp + 4;
-  const HeadsSmem lay = heads_smem(nq, sizeof(T), LDA);
-
-  long long* s_off = reinterpret_cast<long long*>(smem);
-  float* s_mu = reinterpret_cast<float*>(smem + 512);
-  float* s_rs = reinterpret_cast<float*>(smem + 768);
-  T* s_qkv = reinterpret_cast<T*>(smem + lay.off_qkv);
-  unsigned char* r0 = smem + lay.off_r0;
-  T* s_a = reinterpret_cast<T*>(r0);
-  T* s_b = reinterpret_cast<T*>(r0 + round128(size_t(kRows) * LDA * sizeof(T)));
-  float* s_stage = reinterpret_cast<float*>(r0);
-  float* s_s = reinterpret_cast<float*>(r0);
-
-  const int nwin = g.nwy * g.nwx;
-  const int wglob = blockIdx.x;
-  const int b = wglob / nwin, wl = wglob % nwin;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = g.n, C = g.C, hd = g.hd;
-
-  if (tid < kRows) s_off[tid] = tid < n ? token_offset(g, b, wl, tid) : -1;
-  __syncthreads();
-
-  // LayerNorm statistics, two-pass, one warp per token
-  for (int t = warp; t < n; t += kWarps) {
-    const long long off = s_off[t];
-    float mu = 0.0f, rs = 0.0f;
-    if (off >= 0) {
-      const TX* xr = x + off;
-      float sum = 0.0f;
-      for (int k = lane; k < C; k += 32) sum += to_f(xr[k]);
-      for (int d = 16; d; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
-      mu = sum / C;
-      float sq = 0.0f;
-      for (int k = lane; k < C; k += 32) {
-        const float dx = to_f(xr[k]) - mu;
-        sq += dx * dx;
-      }
-      for (int d = 16; d; d >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, d);
-      rs = rsqrtf(sq / C + eps);
-    }
-    if (lane == 0) {
-      s_mu[t] = mu;
-      s_rs[t] = rs;
-    }
-  }
-  __syncthreads();
-
-  // qkv columns of this head: LN(x) [64, C] @ Wqkv[rows of head h]^T
-  const int ty = tid >> 4, tx = tid & 15;  // SIMT (f32) output layout
-  float acc_s[4][kMaxNT];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_w[kMaxFrag];
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int i = 0; i < kMaxFrag; ++i) wmma::fill_fragment(acc_w[i], 0.0f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) acc_s[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < C; k0 += kKC) {
-    for (int e = tid; e < kRows * kKC; e += kThreads) {
-      const int t = e / kKC, kk = e % kKC, k = k0 + kk;
-      float v = 0.0f;
-      if (t < n && k < C) {
-        const long long off = s_off[t];
-        if (off >= 0) v = ((to_f(x[off + k]) - s_mu[t]) * s_rs[t]) * ln_g[k] + ln_b[k];
-      }
-      s_a[t * LDA + kk] = from_f<T>(v);
-    }
-    for (int e = tid; e < nqp * kKC; e += kThreads) {
-      const int j = e / kKC, kk = e % kKC, k = k0 + kk;
-      T v = from_f<T>(0.0f);
-      if (j < nq && k < C) {
-        const long long row = static_cast<long long>(j / hd) * C + h * hd + j % hd;
-        v = wqkv[row * C + k];
-      }
-      s_b[j * LDA + kk] = v;
-    }
-    __syncthreads();
-    if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-#pragma unroll
-        for (int i = 0; i < kMaxFrag; ++i) {
-          const int f = warp + kWarps * i;
-          if (f < 4 * NT) {
-            const int mt = f & 3, nt = f >> 2;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, s_a + mt * 16 * LDA + kk, LDA);
-            wmma::load_matrix_sync(fb, s_b + nt * 16 * LDA + kk, LDA);
-            wmma::mma_sync(acc_w[i], fa, fb, acc_w[i]);
-          }
-        }
-      }
-    } else {
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(s_a[(ty + 16 * i) * LDA + kk]);
-#pragma unroll
-        for (int j = 0; j < kMaxNT; ++j) {
-          if (j < NT) {
-            const float bv = to_f(s_b[(tx + 16 * j) * LDA + kk]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc_s[i][j] += a[i] * bv;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // f32 sums -> staging (region 0 is free now)
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int i = 0; i < kMaxFrag; ++i) {
-      const int f = warp + kWarps * i;
-      if (f < 4 * NT) {
-        const int mt = f & 3, nt = f >> 2;
-        wmma::store_matrix_sync(s_stage + mt * 16 * LDS + nt * 16, acc_w[i], LDS,
-                                wmma::mem_row_major);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j)
-        if (j < NT) s_stage[(ty + 16 * i) * LDS + tx + 16 * j] = acc_s[i][j];
-  }
-  __syncthreads();
-  for (int e = tid; e < n * nq; e += kThreads) {
-    const int t = e / nq, j = e % nq;
-    const int col = (j / hd) * C + h * hd + j % hd;
-    s_qkv[t * LQ + j] = from_f<T>(s_stage[t * LDS + j] + bqkv[col]);
-  }
-  __syncthreads();
-
-  // scores: (q . k) * scale + B_rel[h] (+ shift mask), f32
-  const int win = g.win;
+  const CoreSmem L = core_smem(g.n, g.hd, g.heads);
+  int* s_ry = reinterpret_cast<int*>(smem);
+  int* s_rx = s_ry + kTok;
+  int* s_reg = s_rx + kTok;
+  float* s_tab = reinterpret_cast<float*>(smem + 3 * kTok * sizeof(int));
+  const int n = g.n, C = g.C, hd = g.hd, win = g.win, two = 2 * win - 1;
+  const int wglob = blockIdx.x, h0 = blockIdx.y * L.G;
+  const int nwin = g.nwy * g.nwx, wl = wglob % nwin;
   const int wy = wl / g.nwx, wx = wl % g.nwx;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ldh = L.ldh;
+  auto head_q = [&](int gh) {
+    return reinterpret_cast<bf16*>(smem + L.off_heads + gh * L.head);
+  };
+
+  // token rows / columns in the window and their shift-mask regions
+  if (tid < kTok) {
+    const int ry = tid / win, rx = tid % win;
+    int reg = 0;
+    if (g.shift > 0 && tid < n)
+      reg = 3 * region(wy * win + ry, g.Hp, win, g.shift) +
+            region(wx * win + rx, g.Wp, win, g.shift);
+    s_ry[tid] = ry;
+    s_rx[tid] = rx;
+    s_reg[tid] = reg;
+  }
+  for (int e = tid; e < L.G * two * two; e += kThreads) {
+    const int gh = e / (two * two), idx = e % (two * two), h = h0 + gh;
+    s_tab[gh * kTab + idx] = h < g.heads ? table[idx * g.heads + h] : 0.0f;
+  }
+  // q, k (rows = tokens) and v^T (rows = head dims) of the group's heads;
+  // padding rows and columns are 0
+  const bf16* src = qkv + static_cast<long long>(wglob) * n * 3 * C;
+  if (vec) {
+    // 16-byte chunks; row r = 3 t + which of the group (q, k, v of token t)
+    // holds a run of the G heads' chunks. A thread walks its chunks with
+    // the indices stepped, not divided; four loads in flight before their
+    // stores.
+    const int D8 = L.hdp / 8, run = L.G * D8, rows = 3 * L.np;
+    const int dc = kThreads % run, dr = kThreads / run;
+    int c = tid % run, r = tid / run;
+    while (r < rows) {
+      uint4 v[4];
+      int cs[4], rs[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        cs[u] = c;
+        rs[u] = r;
+        v[u] = make_uint4(0, 0, 0, 0);
+        const int t = r / 3, which = r - 3 * t;
+        const int h = h0 + c / D8, d = (c % D8) * 8;
+        if (r < rows && h < g.heads && t < n && d < hd)
+          v[u] = *reinterpret_cast<const uint4*>(src + static_cast<long long>(t) * 3 * C +
+                                                 which * C + h * hd + d);
+        c += dc;
+        r += dr;
+        if (c >= run) {
+          c -= run;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (rs[u] >= rows) continue;
+        const int t = rs[u] / 3, which = rs[u] - 3 * t;
+        const int gh = cs[u] / D8, d = (cs[u] % D8) * 8;
+        bf16* base = head_q(gh);
+        if (which < 2) {
+          *reinterpret_cast<uint4*>(base + (which * L.qk) / sizeof(bf16) + t * ldh + d) = v[u];
+        } else {
+          bf16* vt = base + (2 * L.qk) / sizeof(bf16);
+          const bf16* ve = reinterpret_cast<const bf16*>(&v[u]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) vt[(d + i) * kLDV + t] = ve[i];
+        }
+      }
+    }
+  } else {
+    const int run = L.G * L.hdp;
+    for (int e = tid; e < L.np * 3 * run; e += kThreads) {
+      const int c = e % run, which = (e / run) % 3, t = e / (3 * run);
+      const int gh = c / L.hdp, d = c % L.hdp, h = h0 + gh;
+      bf16 v = __float2bfloat16(0.0f);
+      if (h < g.heads && t < n && d < hd)
+        v = src[static_cast<long long>(t) * 3 * C + which * C + h * hd + d];
+      bf16* base = head_q(gh);
+      if (which < 2)
+        base[(which * L.qk) / sizeof(bf16) + t * ldh + d] = v;
+      else
+        base[(2 * L.qk) / sizeof(bf16) + d * kLDV + t] = v;
+    }
+  }
+  __syncthreads();
+
+  const int QT = L.np / 16, gh = warp / QT, qt = warp % QT, h = h0 + gh;
+  if (gh >= L.G || h >= g.heads) return;
+  bf16* sq = head_q(gh);
+  const bf16* sk = sq + L.qk / sizeof(bf16);
+  const bf16* svt = sq + (2 * L.qk) / sizeof(bf16);
+  const float* tab = s_tab + gh * kTab;
+  const int KT8 = L.np / 8, HK = L.hdp / 16, DT = L.hdp / 8;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = qt * 16 + g8, r1 = r0 + 8;
+
+  // S = q k^T, rows r0 / r1, key columns 8 j + 2 t4 (+1)
+  float s[kKT8][4];
+#pragma unroll
+  for (int j = 0; j < kKT8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kDT / 2; ++kk) {
+    if (kk < HK) {
+      uint32_t a[4];
+      a[0] = ld32(sq + r0 * ldh + kk * 16 + 2 * t4);
+      a[1] = ld32(sq + r1 * ldh + kk * 16 + 2 * t4);
+      a[2] = ld32(sq + r0 * ldh + kk * 16 + 8 + 2 * t4);
+      a[3] = ld32(sq + r1 * ldh + kk * 16 + 8 + 2 * t4);
+#pragma unroll
+      for (int j = 0; j < kKT8; ++j) {
+        if (j < KT8) {
+          const bf16* kr = sk + (j * 8 + g8) * ldh + kk * 16 + 2 * t4;
+          mma16816(s[j], a, ld32(kr), ld32(kr + 8));
+        }
+      }
+    }
+  }
+
+  // scale, table bias, shift mask; softmax over the row (the quad's 4 lanes)
+  const int q0 = r0 < n ? r0 : n - 1, q1 = r1 < n ? r1 : n - 1;  // padding rows: any real index
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kKT8; ++j) {
+    if (j < KT8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? q0 : q1, col = j * 8 + 2 * t4 + (e & 1);
+        float v = -INFINITY;
+        if (col < n) {
+          const int idx = (s_ry[row] - s_ry[col] + win - 1) * two + (s_rx[row] - s_rx[col] + win - 1);
+          v = s[j][e] * scale + tab[idx];
+          if (g.shift > 0 && s_reg[row] != s_reg[col]) v += -100.0f;
+        }
+        s[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < kKT8; ++j) {
+    if (j < KT8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ev = expf(s[j][e] - mx[e >> 1]);
+        s[j][e] = ev;
+        sum[e >> 1] += ev;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+  }
+
+  // o = p v: p (rounded to bf16) is the A operand as the S tiles hold it
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kKT8 / 2; ++kk) {
+    if (kk < L.np / 16) {
+      uint32_t a[4];
+      a[0] = pack2(s[2 * kk][0] / sum[0], s[2 * kk][1] / sum[0]);
+      a[1] = pack2(s[2 * kk][2] / sum[1], s[2 * kk][3] / sum[1]);
+      a[2] = pack2(s[2 * kk + 1][0] / sum[0], s[2 * kk + 1][1] / sum[0]);
+      a[3] = pack2(s[2 * kk + 1][2] / sum[1], s[2 * kk + 1][3] / sum[1]);
+#pragma unroll
+      for (int jd = 0; jd < kDT; ++jd) {
+        if (jd < DT) {
+          const bf16* vr = svt + (jd * 8 + g8) * kLDV + kk * 16 + 2 * t4;
+          mma16816(acc[jd], a, ld32(vr), ld32(vr + 8));
+        }
+      }
+    }
+  }
+
+  // o rounded, staged in this warp's own q rows, then a row's hd values
+  // as 16-byte stores in window order
+  __syncwarp();
+#pragma unroll
+  for (int jd = 0; jd < kDT; ++jd) {
+    if (jd < DT) {
+      st32(sq + r0 * ldh + jd * 8 + 2 * t4, acc[jd][0], acc[jd][1]);
+      st32(sq + r1 * ldh + jd * 8 + 2 * t4, acc[jd][2], acc[jd][3]);
+    }
+  }
+  __syncwarp();
+  bf16* dst = o + static_cast<long long>(wglob) * n * C + h * hd;
+  if (vec) {
+    const int D8 = hd / 8;
+    for (int c = lane; c < 16 * D8; c += 32) {
+      const int row = qt * 16 + c / D8, d = (c % D8) * 8;
+      if (row < n)
+        *reinterpret_cast<uint4*>(dst + static_cast<long long>(row) * C + d) =
+            *reinterpret_cast<const uint4*>(sq + row * ldh + d);
+    }
+  } else {
+    for (int c = lane; c < 16 * hd; c += 32) {
+      const int row = qt * 16 + c / hd, d = c % hd;
+      if (row < n) dst[static_cast<long long>(row) * C + d] = sq[row * ldh + d];
+    }
+  }
+}
+
+// f32: one block per (window, head), SIMT; q | k | v rows [n, 3 hd] and the
+// scores [n, n] in shared memory
+__host__ __device__ inline size_t core_f32_smem(int hd) {
+  return (size_t(kTok) * (3 * hd + 1) + size_t(kTok) * (kTok + 1)) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_attn_core_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ table,
+                            float* __restrict__ o, Geo g, float scale, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = g.n, C = g.C, hd = g.hd, win = g.win, nq = 3 * hd, LQ = nq + 1;
+  float* s_qkv = reinterpret_cast<float*>(smem);
+  float* s_s = s_qkv + kTok * LQ;
+  const int wglob = blockIdx.x, h = blockIdx.y;
+  const int nwin = g.nwy * g.nwx, wl = wglob % nwin;
+  const int wy = wl / g.nwx, wx = wl % g.nwx;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const float* src = qkv + static_cast<long long>(wglob) * n * 3 * C + h * hd;
+  if (vec) {  // float4 chunks: row r = 3 t + which holds hd / 4 of them
+    const int run = hd / 4, rows = 3 * n;
+    const int dc = kThreads % run, dr = kThreads / run;
+    int c = tid % run, r = tid / run;
+    while (r < rows) {
+      float4 v[4];
+      int cs[4], rs[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        cs[u] = c;
+        rs[u] = r;
+        const int t = r / 3, which = r - 3 * t;
+        if (r < rows)
+          v[u] = *reinterpret_cast<const float4*>(src + static_cast<long long>(t) * 3 * C +
+                                                  which * C + 4 * c);
+        c += dc;
+        r += dr;
+        if (c >= run) {
+          c -= run;
+          ++r;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (rs[u] >= rows) continue;
+        const int t = rs[u] / 3, which = rs[u] - 3 * t;
+        float* dst = s_qkv + t * LQ + which * hd + 4 * cs[u];
+        dst[0] = v[u].x;
+        dst[1] = v[u].y;
+        dst[2] = v[u].z;
+        dst[3] = v[u].w;
+      }
+    }
+  } else {
+    for (int e = tid; e < n * nq; e += kThreads) {
+      const int t = e / nq, j = e % nq;
+      s_qkv[t * LQ + j] = src[static_cast<long long>(t) * 3 * C + (j / hd) * C + j % hd];
+    }
+  }
+  __syncthreads();
+
+  // scores: (q . k) * scale + B_rel[h] (+ shift mask)
   for (int e = tid; e < n * n; e += kThreads) {
     const int i = e / n, j = e % n;
-    const T* q = s_qkv + i * LQ;
-    const T* kr = s_qkv + j * LQ + hd;
+    const float* q = s_qkv + i * LQ;
+    const float* kr = s_qkv + j * LQ + hd;
     float dot = 0.0f;
-    for (int d = 0; d < hd; ++d) dot += to_f(q[d]) * to_f(kr[d]);
+    for (int d = 0; d < hd; ++d) dot += q[d] * kr[d];
     const int yi = i / win, xi = i % win, yj = j / win, xj = j % win;
     const int idx = (yi - yj + win - 1) * (2 * win - 1) + (xi - xj + win - 1);
     float s = dot * scale + table[idx * g.heads + h];
@@ -278,13 +417,13 @@ window_attn_heads_kernel(const TX* __restrict__ x, const float* __restrict__ ln_
                      region(wx * win + xj, g.Wp, win, g.shift);
       if (ri != rj) s += -100.0f;
     }
-    s_s[i * (kRows + 1) + j] = s;
+    s_s[i * (kTok + 1) + j] = s;
   }
   __syncthreads();
 
-  // softmax in f32, one warp per row; p rounded to T
+  // softmax in f32, one warp per row
   for (int i = warp; i < n; i += kWarps) {
-    float* sr = s_s + i * (kRows + 1);
+    float* sr = s_s + i * (kTok + 1);
     float m = -INFINITY;
     for (int j = lane; j < n; j += 32) m = fmaxf(m, sr[j]);
     for (int d = 16; d; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
@@ -295,188 +434,123 @@ window_attn_heads_kernel(const TX* __restrict__ x, const float* __restrict__ ln_
       sum += ev;
     }
     for (int d = 16; d; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
-    for (int j = lane; j < n; j += 32) sr[j] = to_f(from_f<T>(sr[j] / sum));
+    for (int j = lane; j < n; j += 32) sr[j] = sr[j] / sum;
   }
   __syncthreads();
 
   // o = p v, this head's columns, window order
-  T* orow = o + static_cast<long long>(wglob) * n * C + h * hd;
+  float* orow = o + static_cast<long long>(wglob) * n * C + h * hd;
   for (int e = tid; e < n * hd; e += kThreads) {
     const int i = e / hd, d = e % hd;
-    const float* pr = s_s + i * (kRows + 1);
+    const float* pr = s_s + i * (kTok + 1);
     float acc = 0.0f;
-    for (int j = 0; j < n; ++j) acc += pr[j] * to_f(s_qkv[j * LQ + 2 * hd + d]);
-    orow[static_cast<long long>(i) * C + d] = from_f<T>(acc);
+    for (int j = 0; j < n; ++j) acc += pr[j] * s_qkv[j * LQ + 2 * hd + d];
+    orow[static_cast<long long>(i) * C + d] = acc;
   }
 }
-
-constexpr int kProjLDS = 64 + 4;
-constexpr size_t kProjSmem = 64 * kProjLDS * 4;  // >= both operand tiles of either type
-static_assert(2 * 64 * (kKC + 1) * 4 <= kProjSmem, "f32 tiles fit");
-static_assert(2 * 64 * (kKC + 8) * 2 <= kProjSmem, "bf16 tiles fit");
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-window_attn_proj_kernel(const T* __restrict__ o, const T* __restrict__ wproj,
-                        const float* __restrict__ bproj, T* __restrict__ out, Geo g, int M) {
-  __shared__ __align__(128) unsigned char smem[kProjSmem];
-  constexpr int LDA = lda<T>();
-  T* s_a = reinterpret_cast<T*>(smem);
-  T* s_b = s_a + 64 * LDA;
-  float* s_stage = reinterpret_cast<float*>(smem);
-  const int m0 = blockIdx.x * 64, c0 = blockIdx.y * 64;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int C = g.C;
-
-  float acc_s[4][4];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_w[2];
+__global__ void __launch_bounds__(kThreads, 2)
+proj_gemm_kernel(const T* __restrict__ o, const T* __restrict__ wproj,
+                 const float* __restrict__ bproj, T* __restrict__ out, Geo g, int M, int vec) {
   if constexpr (std::is_same<T, bf16>::value) {
-    wmma::fill_fragment(acc_w[0], 0.0f);
-    wmma::fill_fragment(acc_w[1], 0.0f);
+    extern __shared__ __align__(128) unsigned char smem[];
+    gemm::tile_bf16<false, bf16>(o, nullptr, nullptr, nullptr, 0, wproj, bproj, out, g, M, g.C,
+                                 g.C, vec, smem);
   } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_s[i][j] = 0.0f;
+    gemm::tile_f32<false>(o, nullptr, nullptr, nullptr, 0, wproj, bproj, out, g, M, g.C, g.C);
   }
-
-  for (int k0 = 0; k0 < C; k0 += kKC) {
-    for (int e = tid; e < 64 * kKC; e += kThreads) {
-      const int r = e / kKC, kk = e % kKC, k = k0 + kk;
-      const int m = m0 + r, col = c0 + r;
-      s_a[r * LDA + kk] = (m < M && k < C) ? o[static_cast<long long>(m) * C + k] : from_f<T>(0.0f);
-      s_b[r * LDA + kk] = (col < C && k < C) ? wproj[static_cast<long long>(col) * C + k]
-                                             : from_f<T>(0.0f);
-    }
-    __syncthreads();
-    if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-      for (int kk = 0; kk < kKC; kk += 16) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int f = warp + kWarps * i;
-          const int mt = f & 3, nt = f >> 2;
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, s_a + mt * 16 * LDA + kk, LDA);
-          wmma::load_matrix_sync(fb, s_b + nt * 16 * LDA + kk, LDA);
-          wmma::mma_sync(acc_w[i], fa, fb, acc_w[i]);
-        }
-      }
-    } else {
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(s_a[(ty + 16 * i) * LDA + kk]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = to_f(s_b[(tx + 16 * j) * LDA + kk]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc_s[i][j] += a[i] * bv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int f = warp + kWarps * i;
-      const int mt = f & 3, nt = f >> 2;
-      wmma::store_matrix_sync(s_stage + mt * 16 * kProjLDS + nt * 16, acc_w[i], kProjLDS,
-                              wmma::mem_row_major);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s_stage[(ty + 16 * i) * kProjLDS + tx + 16 * j] = acc_s[i][j];
-  }
-  __syncthreads();
-
-  // epilogue: + bias, round, scatter each real token to [B, H, W, C]
-  const int nwin = g.nwy * g.nwx;
-  for (int e = tid; e < 64 * 64; e += kThreads) {
-    const int r = e >> 6, cc = e & 63;
-    const int m = m0 + r, col = c0 + cc;
-    if (m >= M || col >= C) continue;
-    const int wglob = m / g.n, t = m % g.n;
-    const long long off = token_offset(g, wglob / nwin, wglob % nwin, t);
-    if (off < 0) continue;
-    out[off + col] = from_f<T>(s_stage[r * kProjLDS + cc] + bproj[col]);
-  }
-}
-
-Geo make_geo(int B, int H, int W, int C, int heads, int win, int shift) {
-  Geo g;
-  g.B = B;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.heads = heads;
-  g.hd = C / heads;
-  g.win = win;
-  g.n = win * win;
-  g.shift = shift;
-  g.Hp = (H + win - 1) / win * win;
-  g.Wp = (W + win - 1) / win * win;
-  g.nwy = g.Hp / win;
-  g.nwx = g.Wp / win;
-  return g;
 }
 
 template <typename TX, typename T>
 int launch_heads(const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
-                 const void* bqkv, const void* table, void* o, const Geo& g, float eps,
-                 float scale, cudaStream_t stream) {
-  auto kernel = window_attn_heads_kernel<TX, T>;
-  const size_t smem = heads_smem(3 * g.hd, sizeof(T), lda<T>()).total;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(g.B * g.nwy * g.nwx, g.heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-      static_cast<const float*>(table), static_cast<T*>(o), g, eps, scale);
+                 const void* bqkv, const void* table, void* stats, void* qkv, void* o,
+                 const Geo& g, float eps, float scale, cudaStream_t stream) {
+  int err = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, qkv, g, eps, stream);
+  if (err != 0) return err;
+  const int windows = g.B * g.nwy * g.nwx;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const CoreSmem L = core_smem(g.n, g.hd, g.heads);
+    const int vec = g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(qkv) && aligned16(o);
+    // instances by the tiles they hold: keys <= 32 or 64, head dim <= 32 or 64
+    auto kernel = L.np <= 32 ? (L.hdp <= 32 ? window_attn_core_kernel<4, 4>
+                                            : window_attn_core_kernel<4, 8>)
+                             : (L.hdp <= 32 ? window_attn_core_kernel<8, 4>
+                                            : window_attn_core_kernel<8, 8>);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(windows, (g.heads + L.G - 1) / L.G);
+    kernel<<<grid, kThreads, L.total, stream>>>(static_cast<const bf16*>(qkv),
+                                                static_cast<const float*>(table),
+                                                static_cast<bf16*>(o), g, scale, vec);
+  } else {
+    const size_t smem = core_f32_smem(g.hd);
+    cudaError_t e = cudaFuncSetAttribute(window_attn_core_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(windows, g.heads);
+    const int vec = g.C % 4 == 0 && g.hd % 4 == 0 && aligned16(qkv);
+    window_attn_core_f32_kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(table),
+        static_cast<float*>(o), g, scale, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_proj(const void* o, const void* wproj, const void* bproj, void* out, const Geo& g,
                 cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const int M = g.B * g.nwy * g.nwx * g.n;
-  const dim3 grid((M + 63) / 64, (g.C + 63) / 64);
-  window_attn_proj_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(wproj), static_cast<const float*>(bproj),
-      static_cast<T*>(out), g, M);
+  const int vec = kBf16 && g.C % 8 == 0 && aligned16(o) && aligned16(wproj) && aligned16(out);
+  auto kernel = proj_gemm_kernel<T>;
+  const int bm = kBf16 ? gemm::kBM : gemm::kSBM, bn = kBf16 ? gemm::kBN : gemm::kSBN;
+  const size_t smem = kBf16 ? gemm::kSmem : 0;
+  if (kBf16) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((M + bm - 1) / bm, (g.C + bn - 1) / bn);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(o),
+                                           static_cast<const T*>(wproj),
+                                           static_cast<const float*>(bproj),
+                                           static_cast<T*>(out), g, M, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// LN + qkv + per-head windowed attention. x [B, H, W, C] (f32, or bf16 when
-// the compute type is bf16), ln_g / ln_b [C] f32, wqkv [3C, C] of the compute
-// type, bqkv [3C] f32, table [(2 win - 1)^2, heads] f32, o [B * nW * n, C]
-// of the compute type (window order), all contiguous on the device.
+// LN + qkv + per-head windowed attention: three kernels, one call. x
+// [B, H, W, C] (f32, or bf16 when the compute type is bf16), ln_g / ln_b
+// [C] f32, wqkv [3C, C] of the compute type, bqkv [3C] f32, table
+// [(2 win - 1)^2, heads] f32, o [B * nW * n, C] of the compute type (window
+// order), all contiguous on the device. Scratch the caller allocates: stats
+// [2 * B * H * W] f32, qkv [B * nW * n, 3C] of the compute type.
 // compute_bf16 / x_bf16: 0 = f32, 1 = bf16; scale = head_dim^-1/2, applied
-// to q . k in f32 after the dot. Launches on `stream`; returns the
-// cudaError_t of the launch.
+// to q . k in f32 after the dot. win^2 <= 64, head_dim <= 64. Launches on
+// `stream`; returns the cudaError_t of the first launch that failed.
 extern "C" int window_attn_heads_launch(int compute_bf16, int x_bf16, const void* x,
                                         const void* ln_g, const void* ln_b, const void* wqkv,
-                                        const void* bqkv, const void* table, void* o, int B,
-                                        int H, int W, int C, int heads, int win, int shift,
-                                        float eps, float scale, void* stream) {
+                                        const void* bqkv, const void* table, void* stats,
+                                        void* qkv, void* o, int B, int H, int W, int C,
+                                        int heads, int win, int shift, float eps, float scale,
+                                        void* stream) {
   const Geo g = make_geo(B, H, W, C, heads, win, shift);
+  if (g.n > kTok || g.hd > kMaxHd || (2 * win - 1) * (2 * win - 1) > kTab)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (compute_bf16) {
-    if (x_bf16) return launch_heads<bf16, bf16>(x, ln_g, ln_b, wqkv, bqkv, table, o, g, eps, scale, s);
-    return launch_heads<float, bf16>(x, ln_g, ln_b, wqkv, bqkv, table, o, g, eps, scale, s);
+    if (x_bf16)
+      return launch_heads<bf16, bf16>(x, ln_g, ln_b, wqkv, bqkv, table, stats, qkv, o, g, eps,
+                                      scale, s);
+    return launch_heads<float, bf16>(x, ln_g, ln_b, wqkv, bqkv, table, stats, qkv, o, g, eps,
+                                     scale, s);
   }
   if (x_bf16) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_heads<float, float>(x, ln_g, ln_b, wqkv, bqkv, table, o, g, eps, scale, s);
+  return launch_heads<float, float>(x, ln_g, ln_b, wqkv, bqkv, table, stats, qkv, o, g, eps,
+                                    scale, s);
 }
 
 // Output projection + scatter. o [B * nW * n, C], wproj [C, C] of the

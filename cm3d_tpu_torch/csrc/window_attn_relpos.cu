@@ -29,12 +29,15 @@
 // its matrix unit; on this card qkv of a whole ViT-H grid is 37 MB, 22 us of
 // HBM time beside 45 us of tensor-core time, so the branch is cut where the
 // data is reused differently, three kernels behind one launcher:
-//  1. relpos_ln_stats: mean and rstd of every real token, one warp each.
-//  2. relpos_qkv: one GEMM over all windows' tokens in window order,
-//     [M, C] x [C, 3C]; the A tile is gathered from x and normalised as it
-//     loads (a padding token's row is 0, so its qkv is the bias). bf16:
-//     128 x 128 tiles, K chunks of 32, 8 warps of 2 x 4 wmma 16x16x16
-//     accumulators, 16-byte loads; f32: 64 x 64 SIMT tiles.
+//  1. ln_stats_kernel (window_attn_common.cuh): mean and rstd of every real
+//     token, one warp each.
+//  2. qkv_gemm_kernel (window_attn_common.cuh, shared with Swin's
+//     window_attn.cu, here with shift 0): one GEMM over all windows' tokens
+//     in window order, [M, C] x [C, 3C]; the A tile is gathered from x and
+//     normalised as it loads (a padding token's row is 0, so its qkv is the
+//     bias). bf16: 128 x 128 tiles on mma.sync fed by a 3-stage cp.async
+//     ring;
+//     f32: 64 x 64 SIMT tiles.
 //  3. relpos_attn: one block per (window, head); q, k, v [n, hd] of the head
 //     in shared memory (110 KB in bf16 at hd 80, 190 KB in f32), so the
 //     [196, 196] scores cannot sit beside them: a tile of query rows at a
@@ -46,10 +49,13 @@
 // re-read and re-normalise its window's x and re-stream its slice of Wqkv
 // once per 64 rows: measured at 7.8 ms a call at ViT-H's square grid,
 // against 0.93 ms for this cut.
-// Not yet done: cp.async / TMA double buffering, wgmma, key tiling in 3 so
-// that two blocks share an SM.
+// Not yet done: the attention kernel on mma.sync with the softmax in
+// registers (as window_attn.cu's), key tiling in 3 so that two blocks share
+// an SM.
 
 #include <cmath>
+
+#include <mma.h>
 
 #include "window_attn_common.cuh"
 
@@ -57,6 +63,18 @@ namespace {
 
 using namespace nvcuda;
 using namespace wattn;
+
+// v rounded to T, carried as f32
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
+
+// Row stride (elements) of a wmma operand tile of KC columns: 16 bytes of
+// padding keep the loads aligned and off the same banks; the SIMT f32 path
+// pads by one element.
+template <typename T>
+__host__ __device__ constexpr int tile_ld(int kc) {
+  return std::is_same<T, bf16>::value ? kc + 8 : kc + 1;
+}
 
 constexpr int kMaxTokens = 208;  // win^2 <= 196, padded to 16
 constexpr int kMaxHd = 80;
@@ -67,237 +85,7 @@ template <typename T>
 struct Cfg {  // bf16: tensor-core tiles; f32: SIMT, shared memory is the limit
   static constexpr bool kMma = std::is_same<T, bf16>::value;
   static constexpr int kQT = kMma ? 32 : 16;  // query rows per attention tile
-  // the qkv GEMM's tile
-  static constexpr int kBM = kMma ? 128 : 64;
-  static constexpr int kBN = kMma ? 128 : 64;
-  static constexpr int kKC = kMma ? 32 : 16;
 };
-
-struct Geo {
-  int B, H, W, C, heads, hd, win, n, Hp, Wp, nwy, nwx;
-};
-
-// Source element offset of token t of window wl (in one image), or -1 for a
-// padding token (bottom / right pad of the grid).
-__device__ __forceinline__ long long token_offset(const Geo& g, int b, int wl, int t) {
-  const int r = (wl / g.nwx) * g.win + t / g.win;
-  const int c = (wl % g.nwx) * g.win + t % g.win;
-  if (r >= g.H || c >= g.W) return -1;
-  return ((static_cast<long long>(b) * g.H + r) * g.W + c) * g.C;
-}
-
-// ---- 1. LayerNorm statistics of every real token: stats[tok], stats[T + tok]
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-relpos_ln_stats_kernel(const TX* __restrict__ x, float* __restrict__ stats, int tokens, int C,
-                       float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tok = blockIdx.x * kWarps + warp;
-  if (tok >= tokens) return;
-  const TX* xr = x + static_cast<long long>(tok) * C;
-  float sum = 0.0f;
-  for (int k = lane; k < C; k += 32) sum += to_f(xr[k]);
-  for (int d = 16; d; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
-  const float mu = sum / C;
-  float sq = 0.0f;
-  for (int k = lane; k < C; k += 32) {
-    const float dx = to_f(xr[k]) - mu;
-    sq += dx * dx;
-  }
-  for (int d = 16; d; d >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, d);
-  if (lane == 0) {
-    stats[tok] = mu;
-    stats[tokens + tok] = rsqrtf(sq / C + eps);
-  }
-}
-
-// 8 consecutive values as f32, by 16-byte loads (p 16-byte aligned)
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  __align__(16) bf16 t[8];
-  *reinterpret_cast<uint4*>(t) = *reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(t[i]);
-}
-
-// ---- 2. qkv [M, 3C] = LN(x)[window order] @ Wqkv^T + bqkv
-template <typename TX, typename T>
-__global__ void __launch_bounds__(kThreads)
-relpos_qkv_kernel(const TX* __restrict__ x, const float* __restrict__ stats,
-                  const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-                  const T* __restrict__ wqkv, const float* __restrict__ bqkv,
-                  T* __restrict__ qkv, Geo g, int M, int tokens, int vec) {
-  using CF = Cfg<T>;
-  constexpr int BM = CF::kBM, BN = CF::kBN, KC = CF::kKC;
-  constexpr int LDA = tile_ld<T>(KC);
-  __shared__ __align__(128) unsigned char smem[(BM + BN) * LDA * sizeof(T)];
-  __shared__ long long s_off[BM];
-  __shared__ float s_mu[BM], s_rs[BM];
-  T* s_a = reinterpret_cast<T*>(smem);
-  T* s_b = s_a + BM * LDA;
-  const int C = g.C, N = 3 * g.C;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwin = g.nwy * g.nwx;
-
-  for (int r = tid; r < BM; r += kThreads) {
-    const int m = m0 + r;
-    long long off = -1;
-    float mu = 0.0f, rs = 0.0f;
-    if (m < M) {
-      const int wglob = m / g.n;
-      off = token_offset(g, wglob / nwin, wglob % nwin, m % g.n);
-      if (off >= 0) {
-        const long long tok = off / C;
-        mu = stats[tok];
-        rs = stats[tokens + tok];
-      }
-    }
-    s_off[r] = off;
-    s_mu[r] = mu;
-    s_rs[r] = rs;
-  }
-  __syncthreads();
-
-  const int ty = tid >> 4, tx = tid & 15;  // SIMT (f32) output layout
-  const int wm = warp & 3, wn = warp >> 2;  // wmma: 4 x 2 warps of 32 x 64
-  float acc_s[4][4];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_w[2][4];
-  if constexpr (CF::kMma) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc_w[i][j], 0.0f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc_s[i][j] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < C; k0 += KC) {
-    if (CF::kMma && vec) {
-      if constexpr (CF::kMma) {
-        for (int gi = tid; gi < BM * (KC / 8); gi += kThreads) {
-          const int r = gi / (KC / 8), k = k0 + (gi % (KC / 8)) * 8;
-          __align__(16) bf16 out[8];
-          const long long off = s_off[r];
-          if (off >= 0 && k < C) {
-            float xv[8], gv[8], bv[8];
-            load8(x + off + k, xv);
-            load8(ln_g + k, gv);
-            load8(ln_b + k, bv);
-            const float mu = s_mu[r], rs = s_rs[r];
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-              out[i] = __float2bfloat16(((xv[i] - mu) * rs) * gv[i] + bv[i]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) out[i] = __float2bfloat16(0.0f);
-          }
-          *reinterpret_cast<uint4*>(s_a + r * LDA + (k - k0)) = *reinterpret_cast<uint4*>(out);
-        }
-        for (int gi = tid; gi < BN * (KC / 8); gi += kThreads) {
-          const int j = gi / (KC / 8), k = k0 + (gi % (KC / 8)) * 8, col = n0 + j;
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (col < N && k < C)
-            v = *reinterpret_cast<const uint4*>(wqkv + static_cast<long long>(col) * C + k);
-          *reinterpret_cast<uint4*>(s_b + j * LDA + (k - k0)) = v;
-        }
-      }
-    } else {
-      for (int e = tid; e < BM * KC; e += kThreads) {
-        const int r = e / KC, kk = e % KC, k = k0 + kk;
-        const long long off = s_off[r];
-        float v = 0.0f;
-        if (off >= 0 && k < C) v = ((to_f(x[off + k]) - s_mu[r]) * s_rs[r]) * ln_g[k] + ln_b[k];
-        s_a[r * LDA + kk] = from_f<T>(v);
-      }
-      for (int e = tid; e < BN * KC; e += kThreads) {
-        const int j = e / KC, kk = e % KC, k = k0 + kk, col = n0 + j;
-        s_b[j * LDA + kk] = (col < N && k < C) ? wqkv[static_cast<long long>(col) * C + k]
-                                               : from_f<T>(0.0f);
-      }
-    }
-    __syncthreads();
-    if constexpr (CF::kMma) {
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], s_a + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], s_b + (wn * 64 + j * 16) * LDA + kk, LDA);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc_w[i][j], fa[i], fb[j], acc_w[i][j]);
-      }
-    } else {
-      for (int kk = 0; kk < KC; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(s_a[(ty + 16 * i) * LDA + kk]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = to_f(s_b[(tx + 16 * j) * LDA + kk]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc_s[i][j] += a[i] * bv[j];
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: + bias, round, store
-  if constexpr (CF::kMma) {
-    constexpr int LDW = 20;  // each warp stages one 16 x 16 tile at a time
-    float* scr = reinterpret_cast<float*>(smem) + warp * 16 * LDW;
-    const int row = lane >> 1, cb = (lane & 1) * 8;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::store_matrix_sync(scr, acc_w[i][j], LDW, wmma::mem_row_major);
-        __syncwarp();
-        const int m = m0 + wm * 32 + i * 16 + row;
-        const int col0 = n0 + wn * 64 + j * 16 + cb;
-        if (m < M) {
-          T* dst = qkv + static_cast<long long>(m) * N + col0;
-          if (vec && col0 + 8 <= N) {
-            __align__(16) T out[8];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) out[e] = from_f<T>(scr[row * LDW + cb + e] + bqkv[col0 + e]);
-            *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<uint4*>(out);
-          } else {
-            for (int e = 0; e < 8; ++e)
-              if (col0 + e < N) dst[e] = from_f<T>(scr[row * LDW + cb + e] + bqkv[col0 + e]);
-          }
-        }
-        __syncwarp();
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx + 16 * j;
-        if (m < M && col < N)
-          qkv[static_cast<long long>(m) * N + col] = from_f<T>(acc_s[i][j] + bqkv[col]);
-      }
-    }
-  }
-}
 
 // ---- 3. attention of one (window, head)
 // Shared-memory layout, the same on host and device.
@@ -524,32 +312,19 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, 
            const void* rel_h, const void* rel_w, void* stats, void* qkv, void* o, const Geo& g,
            float eps, float scale, cudaStream_t stream) {
   using CF = Cfg<T>;
-  const int tokens = g.B * g.H * g.W;
-  const int M = g.B * g.nwy * g.nwx * g.n;
-  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  // 1 + 2: the LN statistics and the qkv GEMM shared with window_attn.cu
+  int ierr = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, qkv, g, eps, stream);
+  if (ierr != 0) return ierr;
   // 16-byte loads need rows that start on 16 bytes
-  const int vec = CF::kMma && g.C % 8 == 0 && aligned(x) && aligned(ln_g) && aligned(ln_b) &&
-                  aligned(wqkv) && aligned(qkv);
-  relpos_ln_stats_kernel<TX><<<(tokens + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<float*>(stats), tokens, g.C, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((M + CF::kBM - 1) / CF::kBM, (3 * g.C + CF::kBN - 1) / CF::kBN);
-  relpos_qkv_kernel<TX, T><<<grid_q, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(stats),
-      static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(qkv), g, M,
-      tokens, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = CF::kMma && g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(qkv) && aligned16(o);
   auto kernel = relpos_attn_kernel<T>;
   const size_t smem = smem_layout<T>(g.n, g.hd).total;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_a(g.B * g.nwy * g.nwx, g.heads);
   kernel<<<grid_a, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(rel_h), static_cast<const T*>(rel_w),
-      static_cast<T*>(o), g, scale, vec && g.hd % 8 == 0);
+      static_cast<T*>(o), g, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -572,19 +347,7 @@ extern "C" int window_attn_relpos_heads_launch(int compute_bf16, int x_bf16, con
                                                void* stats, void* qkv, void* o, int B, int H,
                                                int W, int C, int heads, int win, float eps,
                                                float scale, void* stream) {
-  Geo g;
-  g.B = B;
-  g.H = H;
-  g.W = W;
-  g.C = C;
-  g.heads = heads;
-  g.hd = C / heads;
-  g.win = win;
-  g.n = win * win;
-  g.Hp = (H + win - 1) / win * win;
-  g.Wp = (W + win - 1) / win * win;
-  g.nwy = g.Hp / win;
-  g.nwx = g.Wp / win;
+  const Geo g = make_geo(B, H, W, C, heads, win, 0);
   if (g.n > kMaxTokens || g.hd > kMaxHd || 2 * win - 1 > kRel)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -18,11 +18,14 @@ compute dtype, every sum is taken in f32. The TPU's interleaved
 block-diagonal attention over groups of windows is a TPU workaround and
 does not carry over: each window is computed by itself.
 
-The CUDA source (csrc/window_attn.cu) runs it as two launches per Swin
-block, each with its own wrapper, plain version and launch counter:
-`window_attn_heads` (LN + qkv + per-head attention -> o [B*nW*n, C] in
-window order) and `window_attn_proj` (o @ Wproj^T + bproj, scattered back
-to [B, H, W, C]). `window_attn` composes the two.
+The CUDA source (csrc/window_attn.cu) runs it as two launcher calls per
+Swin block, each with its own wrapper, plain version and launch counter:
+`window_attn_heads` (LN statistics, ONE qkv GEMM over all windows into a
+[B*nW*n, 3C] scratch, then tensor-core attention per (window, group of
+heads) -> o [B*nW*n, C] in window order: three kernels queued by one call
+that counts as one launch; plain pieces `window_attn_qkv_plain` and
+`window_attn_core_plain`) and `window_attn_proj` (o @ Wproj^T + bproj,
+scattered back to [B, H, W, C]). `window_attn` composes the two.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
@@ -34,7 +37,7 @@ stage (window 7, head dim 32). SAM's windowed ViT blocks (window 14 = 196
 tokens, head dim 80 in ViT-H, a q-dependent decomposed rel-pos bias instead
 of a table) go through `kernels/window_attn_relpos.py`, whose heads kernel
 (csrc/window_attn_relpos.cu) tiles the query rows; it shares this module's
-projection launch, which has no cap on window or head size.
+qkv GEMM and projection launch, which has no cap on window or head size.
 """
 
 from __future__ import annotations
@@ -113,14 +116,14 @@ def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int,
-                            window: int, shift: int, dtype, eps: float = EPS):
-    """Plain PyTorch version of the first launch: x [B, H, W, C] ->
-    o [B * nW * n, C] of `dtype`, rows in window order (windows row-major
-    over the rolled, padded grid, tokens row-major inside a window)."""
-    _check(x, wqkv, table, heads, window, shift)
+def window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: int,
+                          dtype, eps: float = EPS):
+    """Plain PyTorch version of the first launch's qkv product: x
+    [B, H, W, C] -> qkv [B * nW * n, 3C] of `dtype`, rows in window order
+    (windows row-major over the rolled, padded grid, tokens row-major inside
+    a window); a padding token's row is the bias."""
     b, h, w, c = x.shape
-    hd, n = c // heads, window * window
+    n = window * window
     hp, wp = padded_hw(h, w, window)
     ln = _layer_norm(x, ln_weight, ln_bias, eps)
     # the reference pads AFTER the norm: padding tokens are exact zeros
@@ -130,17 +133,38 @@ def window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: 
     ln = ln.reshape(b, hp // window, window, wp // window, window, c)
     ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
     qkv = _rounded(ln, dtype) @ _rounded(wqkv, dtype).T + bqkv.float()
-    qkv = _rounded(qkv, dtype).reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    return qkv.reshape(-1, 3 * c).to(dtype)
+
+
+def window_attn_core_plain(qkv, table, *, x_shape, heads: int, window: int, shift: int, dtype):
+    """Plain PyTorch version of the first launch's attention: qkv
+    [B * nW * n, 3C] (window order) -> o [B * nW * n, C] of `dtype`."""
+    b, h, w, c = x_shape
+    hd, n = c // heads, window * window
+    hp, wp = padded_hw(h, w, window)
+    qkv = qkv.float().reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # [B*nW, heads, n, hd]
-    idx = torch.as_tensor(rel_pos_index(window), device=x.device).reshape(-1)
+    idx = torch.as_tensor(rel_pos_index(window), device=qkv.device).reshape(-1)
     bias = table.float()[idx].reshape(n, n, heads).permute(2, 0, 1)
     s = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias
     if shift:
-        mask = torch.as_tensor(shift_attn_mask(hp, wp, window, shift), device=x.device)
+        mask = torch.as_tensor(shift_attn_mask(hp, wp, window, shift), device=qkv.device)
         s = (s.reshape(b, -1, heads, n, n) + mask[None, :, None]).reshape(-1, heads, n, n)
     p = _rounded(torch.softmax(s, dim=-1), dtype)
     o = _rounded(p @ v, dtype)
     return o.permute(0, 2, 1, 3).reshape(-1, c).to(dtype)
+
+
+def window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int,
+                            window: int, shift: int, dtype, eps: float = EPS):
+    """Plain PyTorch version of the first launch: x [B, H, W, C] ->
+    o [B * nW * n, C] of `dtype`, rows in window order:
+    `window_attn_core_plain(window_attn_qkv_plain(x))`."""
+    _check(x, wqkv, table, heads, window, shift)
+    qkv = window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, window=window, shift=shift,
+                                dtype=dtype, eps=eps)
+    return window_attn_core_plain(qkv, table, x_shape=tuple(x.shape), heads=heads,
+                                  window=window, shift=shift, dtype=dtype)
 
 
 def window_attn_proj_plain(o, wproj, bproj, *, out_shape, window: int, shift: int, dtype):
@@ -217,12 +241,16 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
     o = torch.empty((b * hp * wp, c), dtype=dtype, device=dev)
     if o.numel() == 0:
         return o
+    # scratch between the three kernels: per-token mean | rstd, and qkv
+    stats = torch.empty((2, b * h * w), dtype=torch.float32, device=dev)
+    qkv = torch.empty((b * hp * wp, 3 * c), dtype=dtype, device=dev)
     args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
             wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev),
             _f32(table, dev))
     err = _lib().window_attn_heads_launch(
         flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
-        o.data_ptr(), b, h, w, c, heads, window, shift, eps, (c // heads) ** -0.5,
+        stats.data_ptr(), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, shift, eps,
+        (c // heads) ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "window_attn_heads")
@@ -333,7 +361,7 @@ def window_attn(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads
 def _lib() -> ctypes.CDLL:
     lib = build.load("window_attn")
     lib.window_attn_heads_launch.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.window_attn_heads_launch.restype = ctypes.c_int
     lib.window_attn_proj_launch.argtypes = (

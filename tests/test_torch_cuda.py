@@ -47,6 +47,7 @@ from cm3d_tpu_torch.kernels.window_attn import (
     window_attn_heads_plain,
     window_attn_plain,
     window_attn_proj,
+    window_attn_proj_plain,
 )
 from cm3d_tpu_torch.kernels.window_attn_relpos import (
     window_attn_relpos,
@@ -144,6 +145,13 @@ def _window_attn_inputs(rng, b, h, w, c, heads, win, x_dtype, device):
     (1, 20, 30, 128, 4, 7, 3, torch.float32, torch.bfloat16),  # Swin-B stage 0 widths
     (1, 21, 35, 256, 8, 7, 0, torch.bfloat16, torch.bfloat16),  # stage 1 widths
     (2, 18, 32, 1024, 32, 7, 3, torch.bfloat16, torch.bfloat16),  # stage 3 at 576x1024
+    # M (padded tokens) no multiple of the GEMM's 128 rows, 3C = 288 no
+    # multiple of its 128 columns: Swin-T's C 96
+    (2, 14, 21, 96, 3, 7, 3, torch.float32, torch.float32),
+    (2, 14, 21, 96, 3, 7, 3, torch.bfloat16, torch.bfloat16),
+    (2, 13, 19, 128, 4, 7, 0, torch.float32, torch.bfloat16),  # f32 x under bf16, C 128
+    (1, 36, 64, 512, 16, 7, 3, torch.bfloat16, torch.bfloat16),  # Swin-B stage 2
+    (4, 5, 8, 96, 3, 5, 0, torch.float32, torch.bfloat16),  # the shrunk window 5
 ])
 def test_window_attn_kernel_matches_plain(cuda, b, h, w, c, heads, win, shift, x_dtype, dtype):
     rng = np.random.default_rng(b * h * w * c + shift)
@@ -162,6 +170,49 @@ def test_window_attn_kernel_matches_plain(cuda, b, h, w, c, heads, win, shift, x
     for g, ref in ((got_o, want_o), (got, want)):
         err = float((g.float() - ref.float()).abs().max())
         assert err <= tol * float(ref.float().abs().max()), (err, tol)
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,win,shift,dtype", [
+    (1, 36, 64, 1280, 16, 14, 0, torch.bfloat16),  # SAM ViT-H's rect grid, n = 196
+    (1, 20, 30, 160, 2, 14, 0, torch.float32),
+    (2, 10, 13, 16, 2, 4, 2, torch.bfloat16),  # C 16
+    (2, 14, 21, 96, 3, 7, 3, torch.bfloat16),
+])
+def test_window_attn_proj_kernel_matches_plain(cuda, b, h, w, c, heads, win, shift, dtype):
+    rng = np.random.default_rng(b * h * w * c + win)
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    o = torch.from_numpy(rng.standard_normal((b * hp * wp, c)).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+    wproj = torch.from_numpy((rng.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)).to(
+        device=cuda, dtype=dtype)
+    bproj = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    kw = dict(out_shape=(b, h, w, c), window=win, shift=shift, dtype=dtype)
+    before = window_attn_proj.launches
+    got = window_attn_proj(o, wproj, bproj, heads=heads, **kw)
+    torch.cuda.synchronize()
+    assert window_attn_proj.launches == before + 1
+    want = window_attn_proj_plain(o, wproj, bproj, **kw)
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()), (err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attn_kernels_give_equal_bits_twice(cuda, dtype):
+    """No atomics in any sum: the same inputs give the same bits."""
+    rng = np.random.default_rng(11)
+    args = _window_attn_inputs(rng, 2, 20, 30, 128, 4, 7, torch.float32, cuda)
+    kw = dict(heads=4, window=7, shift=3, dtype=dtype)
+    first = (window_attn_heads(*args[:5], args[7], **kw), window_attn(*args, **kw))
+    second = (window_attn_heads(*args[:5], args[7], **kw), window_attn(*args, **kw))
+    rel = _relpos_inputs(rng, 1, 20, 30, 128, 2, 14, torch.float32, cuda)
+    rkw = dict(heads=2, window=14, dtype=dtype)
+    first += (window_attn_relpos(*rel, **rkw),)
+    second += (window_attn_relpos(*rel, **rkw),)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_window_attn_wrapper_rejects_bad_input(cuda):

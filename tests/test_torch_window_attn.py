@@ -27,10 +27,12 @@ from cm3d_tpu_torch.kernels.window_attn import (
     shift_attn_mask,
     window_attn,
     window_attn_heads,
+    window_attn_core_plain,
     window_attn_heads_plain,
     window_attn_plain,
     window_attn_proj,
     window_attn_proj_plain,
+    window_attn_qkv_plain,
 )
 
 TOL = 1e-5  # x max|out|
@@ -44,6 +46,18 @@ SHAPES = [
     (1, 9, 15, 16, 2, 3, 1),
     (2, 14, 21, 32, 2, 7, 3),
     (1, 6, 17, 16, 2, 4, 0),
+    (1, 5, 8, 32, 2, 5, 0),  # the window shrunk to 5 (Swin-T's stage 3 map)
+    (1, 9, 16, 96, 3, 7, 3),  # Swin-T widths: C 96, 3 heads of 32
+]
+
+# the shapes the kernels' pieces are pinned at: a padded grid without and
+# with shift, the shrunk window 5, Swin-T widths, C 16 with head dim 8
+PIECE_SHAPES = [
+    (2, 9, 14, 32, 2, 4, 0),
+    (2, 9, 14, 32, 2, 4, 2),
+    (1, 5, 8, 32, 2, 5, 0),
+    (1, 9, 16, 96, 3, 7, 3),
+    (2, 9, 15, 16, 2, 3, 1),
 ]
 
 
@@ -150,3 +164,76 @@ def test_rejects_a_bias_table_of_another_window():
     with pytest.raises(ValueError, match="bias table"):
         window_attn(x, g, b, wqkv, bqkv, wproj, bproj, table, heads=2, window=3, shift=0,
                     dtype=torch.float32)
+
+
+def _heads_plain_in_one(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads, window, shift,
+                        dtype, eps=1e-5):
+    """The first launch's plain version as one function, the form it had
+    before it was cut into the qkv product and the attention."""
+    b, h, w, c = x.shape
+    hd, n = c // heads, window * window
+    hp, wp = -(-h // window) * window, -(-w // window) * window
+    xf = x.float()
+    xc = xf - xf.mean(-1, keepdim=True)
+    ln = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps) * ln_weight.float() \
+        + ln_bias.float()
+    ln = torch.nn.functional.pad(ln, (0, 0, 0, wp - w, 0, hp - h))
+    if shift:
+        ln = torch.roll(ln, (-shift, -shift), (1, 2))
+    ln = ln.reshape(b, hp // window, window, wp // window, window, c)
+    ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    qkv = ln.to(dtype).float() @ wqkv.to(dtype).float().T + bqkv.float()
+    qkv = qkv.to(dtype).float().reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    idx = torch.as_tensor(rel_pos_index(window)).reshape(-1)
+    bias = table.float()[idx].reshape(n, n, heads).permute(2, 0, 1)
+    s = (q @ k.transpose(-1, -2)) * (hd ** -0.5) + bias
+    if shift:
+        mask = torch.as_tensor(shift_attn_mask(hp, wp, window, shift))
+        s = (s.reshape(b, -1, heads, n, n) + mask[None, :, None]).reshape(-1, heads, n, n)
+    p = torch.softmax(s, dim=-1).to(dtype).float()
+    o = (p @ v).to(dtype).float()
+    return o.permute(0, 2, 1, 3).reshape(-1, c).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PIECE_SHAPES)
+def test_plain_pieces_compose_to_the_heads_plain_bit_for_bit(shape, dtype):
+    b, h, w, c, heads, win, shift = shape
+    x, g, bb, wqkv, bqkv, _, _, table = _port_args(_inputs(shape, 6))
+    if dtype == torch.bfloat16:
+        x = x.bfloat16()
+    kw = dict(window=win, shift=shift, dtype=dtype)
+    qkv = window_attn_qkv_plain(x, g, bb, wqkv, bqkv, **kw)
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    assert qkv.dtype == dtype and tuple(qkv.shape) == (b * hp * wp, 3 * c)
+    o = window_attn_core_plain(qkv, table, x_shape=tuple(x.shape), heads=heads, **kw)
+    want = _heads_plain_in_one(x, g, bb, wqkv, bqkv, table, heads=heads, **kw)
+    assert o.dtype == dtype and torch.equal(o, want)
+    assert torch.equal(window_attn_heads_plain(x, g, bb, wqkv, bqkv, table, heads=heads, **kw),
+                       want)
+
+
+def test_qkv_plain_gives_padding_tokens_the_bias():
+    shape = (1, 5, 6, 16, 2, 4, 2)  # padded to 8 x 8
+    _, _, _, _, _, win, shift = shape
+    x, g, bb, wqkv, bqkv, _, _, _ = _port_args(_inputs(shape, 7))
+    qkv = window_attn_qkv_plain(x, g, bb, wqkv, bqkv, window=win, shift=shift,
+                                dtype=torch.float32)
+    # rolled padded grid (r, c) reads x at ((r + 2) % 8, (c + 2) % 8): row 3
+    # of the grid reads source row 5, a padding row, so window 0's token at
+    # (3, 0) is padding
+    assert torch.equal(qkv[3 * win], bqkv)
+    assert not torch.equal(qkv[0], bqkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PIECE_SHAPES)
+def test_cpu_wrappers_launch_nothing_at_the_piece_shapes(shape, dtype):
+    _, _, _, _, heads, win, shift = shape
+    x, g, bb, wqkv, bqkv, wproj, bproj, table = _port_args(_inputs(shape, 8))
+    kw = dict(heads=heads, window=win, shift=shift, dtype=dtype)
+    before = (window_attn_heads.launches, window_attn_proj.launches)
+    out = window_attn(x, g, bb, wqkv, bqkv, wproj, bproj, table, **kw)
+    assert torch.equal(out, window_attn_plain(x, g, bb, wqkv, bqkv, wproj, bproj, table, **kw))
+    assert (window_attn_heads.launches, window_attn_proj.launches) == before
