@@ -6,7 +6,10 @@
 Phases, each of which raises on a failed check (exit code != 0):
 
 1. Card and build: print the card's name and power limit, build every CUDA
-   kernel from csrc/ (one nvcc per source, all at once).
+   kernel from csrc/ (one nvcc per source, all at once); from `cuobjdump
+   -sass` of the built libraries, every bf16 instance of the shared GEMM
+   (qkv_gemm_kernel, proj_gemm_kernel) must hold HGMMA (wgmma) and UTMALDG
+   (TMA loads) and no HMMA (mma.sync).
 2. Kernels: capture each kernel's inputs from a real batch-8 lift step at
    production geometry, then hold the kernel against its plain PyTorch
    version on those inputs — compaction bit-exact at all three stages,
@@ -25,10 +28,13 @@ Phases, each of which raises on a failed check (exit code != 0):
    range), the f32 kernels to the f32 plain version (<= 1e-4 of max|plain|),
    and kernels and bf16 plain version are timed with CUDA events beside the
    bound; the heads launcher's time is split over its three kernels (LN
-   statistics, qkv GEMM, attention; torch.profiler device times), and two
+   pass, qkv GEMM, attention; torch.profiler device times), and two
    yardsticks the port never calls are timed beside them: one
    scaled_dot_product_attention call on the same q / k / v with the bias and
-   shift mask, and F.linear on the window-ordered o.
+   shift mask, and F.linear on the window-ordered o. The bf16 GEMM alone, at
+   both entries: device time, TFLOP/s over the real rows, tiles and waves
+   over the SMs, beside F.linear on the same operands (for qkv on
+   round_bf16(LN(x)) in window order).
 5. Mask stage: bench_mask_stage at production geometry (Detic Swin-B +
    SAM ViT-H, bf16, 6 x 1024x576, 8 frames) with the window-attention
    counts reset just before; every Detic forward must launch each of the two
@@ -46,8 +52,11 @@ Phases, each of which raises on a failed check (exit code != 0):
    kernels (heads, then the shared projection) against the f32 plain
    version on the same bf16-rounded inputs (<= 2^-5 of max|plain|), the f32
    kernels against the f32 plain version (<= 1e-4 of max|plain|); CUDA-event
-   times beside the bound, the launcher's split over its three kernels and
-   the F.linear yardstick as in phase 4. Then one 6-camera ViT-H encode with
+   times beside the bound, the launcher's split over its three kernels, the
+   GEMM and its F.linear yardsticks as in phase 4, and one
+   scaled_dot_product_attention call on the same q / k / v with the
+   decomposed rel-pos bias materialised as its float mask (a yardstick for
+   the attention kernel). Then one 6-camera ViT-H encode with
    the fused blocks and without, same weights: ms per camera and the
    difference of the embeddings.
 8. Fused path: bench_e2e (images -> Detic -> SAM -> planes on the card ->
@@ -115,6 +124,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -332,8 +342,17 @@ def profile_phase(torch, step, n_steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{calls:<4d} {name[:90]}", flush=True)
 
 
-# the kernels a heads launcher call queues, by a part of their names
-LAUNCHER_KERNELS = ("ln_stats_kernel", "qkv_gemm_kernel", "window_attn_core", "relpos_attn_kernel")
+# the kernels a window-attention launcher call queues, by a part of their names
+LAUNCHER_KERNELS = ("ln_stats_kernel", "ln_rows_kernel", "qkv_gemm_kernel", "window_attn_core",
+                    "relpos_attn_kernel", "proj_gemm_kernel")
+GEMM_TILE_M = 128  # the bf16 GEMM's output tile rows (csrc/window_attn_common.cuh)
+
+
+def gemm_tile_n(m: int, n: int, sms: int) -> int:
+    """The bf16 GEMM's tile width at [m, k] x [k, n], as
+    csrc/window_attn_common.cuh tile_width picks it."""
+    tiles256 = -(-m // GEMM_TILE_M) * (n // 256)
+    return 256 if n % 256 == 0 and n >= 3 * 256 and tiles256 >= 2 * sms else 128
 
 
 def launcher_split(torch, fn, reps: int = 5) -> dict:
@@ -363,6 +382,75 @@ def _split_text(split: dict) -> str:
     return " + ".join(f"{k} {v:.4f}" for k, v in split.items()) or "not measured"
 
 
+def gemm_record(torch, x, ln_w, ln_b, wqkv_b, bqkv, o, wproj_b, bproj, *, window: int,
+                shift: int, eps: float, heads_split: dict, proj_split: dict) -> dict:
+    """The bf16 GEMM at one block's shapes: each kernel's device time (from
+    the launchers' profiler splits), its TFLOP/s over the real rows, its
+    tiles and waves over the card's SMs, and one F.linear call on the same
+    operands as a yardstick the port never calls: for qkv on round_bf16(LN(x))
+    in window order (the rows the GEMM reads), for the projection on o."""
+    from cm3d_tpu_torch.kernels.window_attn import window_ln_rows_plain
+
+    bf16 = torch.bfloat16
+    c = x.shape[-1]
+    m, tokens = o.shape[0], x.numel() // c
+    lnx = window_ln_rows_plain(x, ln_w, ln_b, window=window, shift=shift, eps=eps).to(bf16)
+    bq, bp = bqkv.to(bf16), bproj.to(bf16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rec = {}
+    for name, a, w, bias, ms in (("qkv", lnx, wqkv_b, bq, heads_split.get("qkv_gemm_kernel")),
+                                 ("proj", o, wproj_b, bp, proj_split.get("proj_gemm_kernel"))):
+        n = w.shape[0]
+        linear_ms = time_ms(torch, lambda: torch.nn.functional.linear(a, w, bias))
+        tile_n = gemm_tile_n(m, n, sms)
+        tiles = -(-m // GEMM_TILE_M) * -(-n // tile_n)
+        flop = 2 * tokens * c * n
+        nbytes = (m * c + n * c + m * n) * 2
+        rec[name] = {"m": m, "n": n, "k": c, "kernel_ms": ms, "linear_yardstick_ms": linear_ms,
+                     "vs_linear": ms / linear_ms if ms else None,
+                     "tflops_real_rows": flop / ms / 1e9 if ms else None,
+                     "tile": [GEMM_TILE_M, tile_n], "tiles": tiles, "waves": tiles / sms,
+                     "bound_ms": max(flop / PEAK_BF16_OPS_PER_S, nbytes / PEAK_BYTES_PER_S) * 1e3}
+    del lnx
+    return rec
+
+
+def _gemm_text(rec: dict) -> str:
+    def one(name):
+        r = rec[name]
+        if not r["kernel_ms"]:
+            return f"{name} not measured"
+        return (f"{name} [{r['m']}x{r['k']}]x[{r['k']}x{r['n']}] {r['kernel_ms']:.4f} ms "
+                f"({r['tflops_real_rows']:.1f} TFLOP/s, {r['tiles']} tiles of "
+                f"{r['tile'][0]}x{r['tile'][1]} = {r['waves']:.2f} waves, bound "
+                f"{r['bound_ms']:.4f}), F.linear {r['linear_yardstick_ms']:.4f} ms "
+                f"(x{r['vs_linear']:.2f})")
+    return f"{one('qkv')}; {one('proj')}"
+
+
+def sass_facts() -> dict:
+    """From `cuobjdump -sass` of the two window-attention libraries: per
+    GEMM kernel instance (compute type, tile width), its count of HGMMA
+    (wgmma), UTMALDG (TMA loads) and HMMA (mma.sync) instructions."""
+    from cm3d_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = {}
+    for lib in ("window_attn", "window_attn_relpos"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(lib)[0])], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        for block in sass.split("Function : ")[1:]:
+            name = block.split("\n", 1)[0].strip()
+            kind = next((k for k in ("qkv_gemm_kernel", "proj_gemm_kernel") if k in name), None)
+            if kind:
+                dtype = "bf16" if "nv_bfloat16" in name else "f32"
+                width = re.search(r"Li(\d+)E", name)  # the tile width, a template argument
+                key = f"{lib}:{kind}:{dtype}" + (f":{width.group(1)}" if width else "")
+                out[key] = {"HGMMA": block.count("HGMMA"), "UTMALDG": block.count("UTMALDG"),
+                            "HMMA": block.count("HMMA")}
+    return out
+
+
 def sdpa_yardstick_ms(torch, qkv, table, x_shape, heads: int, window: int, shift: int) -> float:
     """The attention of the heads launcher as one
     scaled_dot_product_attention call on the same q / k / v (window order,
@@ -381,6 +469,27 @@ def sdpa_yardstick_ms(torch, qkv, table, x_shape, heads: int, window: int, shift
         sm = torch.as_tensor(shift_attn_mask(hp, wp, window, shift), device=qkv.device)
         mask = (mask[None] + sm[None, :, None]).expand(b, -1, -1, -1, -1).reshape(-1, heads, n, n)
     mask = mask.to(q.dtype).contiguous()
+    return time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=hd ** -0.5))
+
+
+def relpos_sdpa_yardstick_ms(torch, qkv, rel_h, rel_w, heads: int, window: int) -> float:
+    """The attention of the rel-pos heads launcher as one
+    scaled_dot_product_attention call on the same q / k / v (window order,
+    the compute type), the decomposed bias q . rel_h + q . rel_w
+    materialised as its float mask. A yardstick only: the port never calls
+    it."""
+    from cm3d_tpu_torch.kernels.window_attn_relpos import rel_index
+
+    n, c = window * window, qkv.shape[1] // 3
+    hd = c // heads
+    q, k, v = (t.contiguous() for t in qkv.reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    idx_h, idx_w = (torch.as_tensor(i, device=qkv.device).expand(*q.shape[:2], n, n)
+                    for i in rel_index(window))
+    ph = (q @ rel_h.to(q.dtype).T).float()  # [windows, heads, n, 2w-1]
+    pw = (q @ rel_w.to(q.dtype).T).float()
+    mask = (torch.gather(ph, -1, idx_h) + torch.gather(pw, -1, idx_w)).to(q.dtype).contiguous()
+    del ph, pw
     return time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=hd ** -0.5))
 
@@ -421,6 +530,7 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
     `model_dtype` is the compute type the capturing forward ran in (bf16
     unless given); `time_f32` also times the f32 launches."""
     from cm3d_tpu_torch.kernels.window_attn import (
+        EPS,
         window_attn_heads,
         window_attn_heads_plain,
         window_attn_plain,
@@ -484,8 +594,12 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
         qkv = window_attn_qkv_plain(x, g, b, wqkv_b, bqkv, window=win, shift=shift, dtype=bf16)
         sdpa_ms = sdpa_yardstick_ms(torch, qkv, table, tuple(x.shape), heads, win, shift)
         del qkv
-        bp_b = bproj.to(bf16)
-        linear_ms = time_ms(torch, lambda: torch.nn.functional.linear(o, wproj_b, bp_b))
+        # the bf16 GEMM alone, both entries, beside F.linear on the same operands
+        proj_split = launcher_split(torch, lambda: window_attn_proj(
+            o, wproj_b, bproj, out_shape=tuple(x.shape), dtype=bf16, **geo))
+        gemm = gemm_record(torch, x, g, b, wqkv_b, bqkv, o, wproj_b, bproj, window=win,
+                           shift=shift, eps=EPS, heads_split=split, proj_split=proj_split)
+        linear_ms = gemm["proj"]["linear_yardstick_ms"]
         # the work the branch needs, counted on the real tokens: a padding
         # token's output is cropped, and its k / v are the bare biases (its
         # LN output is 0), so neither needs a product. o ([tokens, C] bf16)
@@ -516,6 +630,7 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
         rec["heads"]["split_ms"] = split
         rec["heads"]["sdpa_yardstick_ms"] = sdpa_ms
         rec["proj"]["linear_yardstick_ms"] = linear_ms
+        rec["gemm"] = gemm
         if time_f32:
             # the f32 launches (SIMT, no tensor cores): f32 words, f32 peak
             o32 = window_attn_heads(xf, g, b, wqkv, bqkv, table, dtype=f32, **geo)
@@ -552,6 +667,7 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
               f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
               f"{_split_text(split)}; yardsticks SDPA {sdpa_ms:.4f} ms, F.linear "
               f"{linear_ms:.4f} ms", flush=True)
+        print(f"  bf16 GEMM: {_gemm_text(gemm)}", flush=True)
     return out
 
 
@@ -713,7 +829,7 @@ def relpos_phase(torch, captured):
         window_attn_relpos_plain,
         window_attn_relpos_proj,
     )
-    from cm3d_tpu_torch.kernels.window_attn import window_attn_proj_plain
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_proj_plain, window_attn_qkv
 
     bf16, f32 = torch.bfloat16, torch.float32
     x_sq, (g, b, wqkv, bqkv, wproj, bproj, rel_h, rel_w), kw = captured
@@ -771,8 +887,17 @@ def relpos_phase(torch, captured):
             o, wproj_b, bproj, out_shape=shape, window=win, shift=0, dtype=bf16), reps=5)
         split = launcher_split(torch, lambda: window_attn_relpos_heads(
             x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo))
-        bp_b = bproj.to(bf16)
-        linear_ms = time_ms(torch, lambda: torch.nn.functional.linear(o, wproj_b, bp_b))
+        proj_split = launcher_split(torch, lambda: window_attn_relpos_proj(
+            o, wproj_b, bproj, out_shape=shape, heads=heads, window=win, dtype=bf16))
+        gemm = gemm_record(torch, x, g, b, wqkv_b, bqkv, o, wproj_b, bproj, window=win, shift=0,
+                           eps=eps, heads_split=split, proj_split=proj_split)
+        linear_ms = gemm["proj"]["linear_yardstick_ms"]
+        # yardstick for the attention kernel (never called by the port): one
+        # SDPA call on the same q / k / v with the decomposed rel-pos bias
+        # materialised as its float mask
+        qkv = window_attn_qkv(x, g, b, wqkv_b, bqkv, window=win, shift=0, dtype=bf16, eps=eps)
+        sdpa_ms = relpos_sdpa_yardstick_ms(torch, qkv, rel_h, rel_w, heads, win)
+        del qkv
         # the work the branch needs, counted on the real tokens (a padding
         # token's output is cropped and its k / v are the bare biases): qkv,
         # scores and p v over n keys, the two table products; then proj
@@ -794,14 +919,18 @@ def relpos_phase(torch, captured):
                          "ops_ms": ops_ms, "bytes_ms": bytes_ms,
                          "max_abs_err": errs[part][0], "max_rel_err": errs[part][1]}
         rec["heads"]["split_ms"] = split
+        rec["heads"]["sdpa_yardstick_ms"] = sdpa_ms
         rec["proj"]["linear_yardstick_ms"] = linear_ms
+        rec["gemm"] = gemm
         out.append(rec)
         print(f"rel-pos window attention {name} {list(shape)} h{heads} win {win}: bf16 rel err "
               f"{errs['branch'][1]:.3g} (heads {errs['heads'][1]:.3g}, proj "
               f"{errs['proj'][1]:.3g}), f32 abs err {err32:.3g}; heads {ms_h:.4f} ms + proj "
               f"{ms_p:.4f} ms, plain {plain_h:.4f} + {plain_p:.4f} ms, bound "
               f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
-              f"{_split_text(split)}; yardstick F.linear {linear_ms:.4f} ms", flush=True)
+              f"{_split_text(split)}; yardsticks SDPA {sdpa_ms:.4f} ms, F.linear "
+              f"{linear_ms:.4f} ms", flush=True)
+        print(f"  bf16 GEMM: {_gemm_text(gemm)}", flush=True)
     return out
 
 
@@ -1611,6 +1740,17 @@ def main(argv) -> int:
     for name, log in build.build_logs.items():
         usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"  {name}: {' | '.join(usage)}", flush=True)
+        for ln in log.splitlines():
+            if "warning" in ln.lower():
+                print(f"  {name}: {ln.strip()}", flush=True)
+    # the bf16 GEMM kernels run on wgmma with TMA loads, and no mma.sync
+    sass = sass_facts()
+    for key, counts in sass.items():
+        print(f"  SASS {key}: {counts}", flush=True)
+    for kind in ("qkv_gemm_kernel", "proj_gemm_kernel"):
+        bf = [v for k, v in sass.items() if f":{kind}:bf16" in k]
+        check(bf and all(v["HGMMA"] > 0 and v["UTMALDG"] > 0 and v["HMMA"] == 0 for v in bf),
+              f"the bf16 {kind} runs wgmma (HGMMA) on TMA loads (UTMALDG), no mma.sync: {bf}")
 
     # --- 2. kernels on a real batch-8 step's inputs ---
     cfg = LiftStageConfig()
@@ -1758,6 +1898,12 @@ def main(argv) -> int:
         key = "sdpa_yardstick_ms" if name == "heads" else "linear_yardstick_ms"
         if all(key in r[name] for r in recs):
             out[key] = sum(r[name][key] * (r[mult_key] if mult_key else 1) for r in recs)
+        # the bf16 GEMM that the launcher runs, and F.linear on its operands
+        part = "qkv" if name == "heads" else "proj"
+        if all(r["gemm"][part]["kernel_ms"] for r in recs):
+            for k in ("kernel_ms", "linear_yardstick_ms"):
+                out[f"{part}_gemm_{k}"] = sum(r["gemm"][part][k] * (r[mult_key] if mult_key else 1)
+                                              for r in recs)
         return out
 
     def relpos_entry(name, source):
@@ -1862,6 +2008,7 @@ def main(argv) -> int:
     print("kernels launched on the main path: " + ", ".join(
         f"{k['name']} x{k['launches']}" for k in kernels), flush=True)
     print(json.dumps({"medoid_kn3_entry": {"ms": med["kn3_ms"], "plain_ms": med["kn3_plain_ms"]},
+                      "gemm_sass": sass,
                       "window_attn_shapes": wa, "mask_stage": benches,
                       "mask_cpu_check": cpu_check, "relpos_shapes": rp,
                       "vit_h_encode_ab": encode_ab, "e2e_fused": e2e_fused,

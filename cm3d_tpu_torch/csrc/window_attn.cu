@@ -24,15 +24,16 @@
 //
 // Design. Two launcher calls per block, each its own wrapper and counter:
 //  1. window_attn_heads_launch queues three kernels:
-//     a. ln_stats_kernel (window_attn_common.cuh): mean and rstd of every
-//        real token, once, in image order (the shift does not touch them).
+//     a. bf16: ln_rows_kernel (window_attn_common.cuh): round_bf16(LN(x))
+//        in window order through the shift-aware token_offset (a padding
+//        token's row is 0, so its qkv is the bias), into o. f32:
+//        ln_stats_kernel, mean and rstd of every real token.
 //     b. qkv_gemm_kernel (window_attn_common.cuh): ONE GEMM over all
 //        windows' tokens in window order, [M = B Hp Wp, C] x [C, 3C] + bqkv
-//        into the scratch qkv [M, 3C] of T. The A tile is gathered through
-//        the shift-aware token_offset and normalised as it loads (a padding
-//        token's row is 0, so its qkv is the bias); bf16 on mma.sync
-//        tensor-core tiles of 128 x 128 fed by a 3-stage cp.async ring. The same GEMM
-//        serves SAM's rel-pos blocks (window_attn_relpos.cu, shift 0).
+//        into the scratch qkv [M, 3C] of T; bf16 on wgmma with TMA operand
+//        tiles, a persistent warp-specialised kernel (f32: SIMT tiles that
+//        gather and normalise x as they load). The same GEMM serves SAM's
+//        rel-pos blocks (window_attn_relpos.cu, shift 0).
 //     c. window_attn_core_kernel: one block per (window, group of heads),
 //        one warp per (head, 16 query rows): q, k and v^T of the group in
 //        shared memory from 16-byte loads of qkv; S = q k^T on mma.sync
@@ -48,16 +49,17 @@
 //     head (16x at Swin-B's stage 2), on scalar loads, with SIMT scores:
 //     54.9 ms per Detic forward at 89x its bound.
 //  2. window_attn_proj_launch: proj_gemm_kernel, the same GEMM with A = o
-//     (both operands by cp.async) whose epilogue adds the bias, rounds and
+//     (bf16: both operands by TMA) whose epilogue adds the bias, rounds and
 //     writes each real token's slice of the tile to its place in
 //     [B, H, W, C] (one token_offset per row, 16-byte stores); padding
 //     tokens are dropped there. No cap on n or C; SAM uses it with shift 0.
 // The pad, roll and crop live in the addressing; the qkv round trip costs
-// 6 M C bytes of HBM a block (54 MB at Swin-B's stage 2, about 0.03 ms).
-// What bounds it now (9.3 ms per Detic forward against a 0.62 ms bound):
-// the qkv GEMM at about 140 TFLOP/s on mma.sync (no wgmma, no TMA), half of
-// the time, and the attention blocks' load latency (few blocks an SM, one
-// barrier between the loads and the products).
+// 6 M C bytes of HBM a block (54 MB at Swin-B's stage 2, about 0.03 ms),
+// the bf16 LN rows 4 M C more.
+// What bounded it before the GEMM moved onto wgmma (9.3 ms per Detic forward
+// against a 0.62 ms bound): the qkv GEMM at about 140 TFLOP/s on mma.sync,
+// half of the time, and the attention blocks' load latency (few blocks an
+// SM, one barrier between the loads and the products).
 
 #include <cmath>
 
@@ -71,6 +73,18 @@ constexpr int kTok = 64;        // tokens a window holds (win^2 <= 64), padded t
 constexpr int kMaxHd = 64;      // head dim
 constexpr int kTab = 225;       // entries of a table column, (2 win - 1)^2 for win <= 8
 constexpr int kLDV = kTok + 8;  // row stride of v^T (keys)
+
+// d += a b, m16n8k16, bf16 in, f32 sums. a: rows g / g + 8, columns 2 t (+1)
+// / 2 t + 8 (+1); b: columns g, rows 2 t (+1) / 2 t + 8 (+1); d: rows g / g + 8,
+// columns 2 t (+1), where g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // mma.sync operands of the attention: two bf16 as one 32-bit register, lower address low
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -449,14 +463,16 @@ window_attn_core_f32_kernel(const float* __restrict__ qkv, const float* __restri
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-proj_gemm_kernel(const T* __restrict__ o, const T* __restrict__ wproj,
-                 const float* __restrict__ bproj, T* __restrict__ out, Geo g, int M, int vec) {
+// The projection: out[row_offset(m)] = o[m] @ Wproj^T + bproj, padding
+// rows dropped. bf16: o and Wproj as the tensor maps ta / tw.
+template <typename T, int BN = 128>
+__global__ void __launch_bounds__(GemmLaunch<T>::kBlock, GemmLaunch<T>::kMinBlocks)
+proj_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+                 const T* __restrict__ o, const T* __restrict__ wproj,
+                 const float* __restrict__ bproj, T* __restrict__ out, Geo g, int M) {
   if constexpr (std::is_same<T, bf16>::value) {
     extern __shared__ __align__(128) unsigned char smem[];
-    gemm::tile_bf16<false, bf16>(o, nullptr, nullptr, nullptr, 0, wproj, bproj, out, g, M, g.C,
-                                 g.C, vec, smem);
+    gemm::gemm_bf16<true, BN>(&ta, &tw, bproj, out, g, M, g.C, g.C, smem);
   } else {
     gemm::tile_f32<false>(o, nullptr, nullptr, nullptr, 0, wproj, bproj, out, g, M, g.C, g.C);
   }
@@ -466,7 +482,8 @@ template <typename TX, typename T>
 int launch_heads(const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
                  const void* bqkv, const void* table, void* stats, void* qkv, void* o,
                  const Geo& g, float eps, float scale, cudaStream_t stream) {
-  int err = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, qkv, g, eps, stream);
+  // bf16: the LN rows go to o, which the attention overwrites once the GEMM has read them
+  int err = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, o, qkv, g, eps, stream);
   if (err != 0) return err;
   const int windows = g.B * g.nwy * g.nwx;
   if constexpr (std::is_same<T, bf16>::value) {
@@ -498,25 +515,36 @@ int launch_heads(const void* x, const void* ln_g, const void* ln_b, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int launch_proj_bf16(const gemm::Plan& p, const void* bproj, void* out, const Geo& g, int M,
+                     cudaStream_t stream) {
+  auto kernel = proj_gemm_kernel<bf16, BN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             int(gemm::Tile<BN>::kSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<p.grid, gemm::kWgThreads, gemm::Tile<BN>::kSmem, stream>>>(
+      p.ta, p.tw, nullptr, nullptr, static_cast<const float*>(bproj), static_cast<bf16*>(out), g,
+      M);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_proj(const void* o, const void* wproj, const void* bproj, void* out, const Geo& g,
                 cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const int M = g.B * g.nwy * g.nwx * g.n;
-  const int vec = kBf16 && g.C % 8 == 0 && aligned16(o) && aligned16(wproj) && aligned16(out);
-  auto kernel = proj_gemm_kernel<T>;
-  const int bm = kBf16 ? gemm::kBM : gemm::kSBM, bn = kBf16 ? gemm::kBN : gemm::kSBN;
-  const size_t smem = kBf16 ? gemm::kSmem : 0;
-  if (kBf16) {
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (g.C % 8 != 0 || !aligned16(o) || !aligned16(wproj) || !aligned16(out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const gemm::Plan p = gemm::plan_bf16(o, wproj, M, g.C, g.C);
+    if (p.err != 0) return p.err;
+    return p.bn == 256 ? launch_proj_bf16<256>(p, bproj, out, g, M, stream)
+                       : launch_proj_bf16<128>(p, bproj, out, g, M, stream);
+  } else {
+    const dim3 grid((M + gemm::kSBM - 1) / gemm::kSBM, (g.C + gemm::kSBN - 1) / gemm::kSBN);
+    proj_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
+        CUtensorMap{}, CUtensorMap{}, static_cast<const T*>(o), static_cast<const T*>(wproj),
+        static_cast<const float*>(bproj), static_cast<T*>(out), g, M);
   }
-  const dim3 grid((M + bm - 1) / bm, (g.C + bn - 1) / bn);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(o),
-                                           static_cast<const T*>(wproj),
-                                           static_cast<const float*>(bproj),
-                                           static_cast<T*>(out), g, M, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -526,8 +554,9 @@ int launch_proj(const void* o, const void* wproj, const void* bproj, void* out, 
 // [B, H, W, C] (f32, or bf16 when the compute type is bf16), ln_g / ln_b
 // [C] f32, wqkv [3C, C] of the compute type, bqkv [3C] f32, table
 // [(2 win - 1)^2, heads] f32, o [B * nW * n, C] of the compute type (window
-// order), all contiguous on the device. Scratch the caller allocates: stats
-// [2 * B * H * W] f32, qkv [B * nW * n, 3C] of the compute type.
+// order), all contiguous on the device (bf16: 16-byte aligned, C % 8 == 0,
+// C <= 2048). Scratch the caller allocates: stats [2 * B * H * W] f32 (f32
+// only), qkv [B * nW * n, 3C] of the compute type.
 // compute_bf16 / x_bf16: 0 = f32, 1 = bf16; scale = head_dim^-1/2, applied
 // to q . k in f32 after the dot. win^2 <= 64, head_dim <= 64. Launches on
 // `stream`; returns the cudaError_t of the first launch that failed.
@@ -551,6 +580,26 @@ extern "C" int window_attn_heads_launch(int compute_bf16, int x_bf16, const void
   if (x_bf16) return static_cast<int>(cudaErrorInvalidValue);
   return launch_heads<float, float>(x, ln_g, ln_b, wqkv, bqkv, table, stats, qkv, o, g, eps,
                                     scale, s);
+}
+
+// The heads launcher's qkv product alone (LN, then the GEMM): qkv
+// [B * nW * n, 3C] of the compute type in window order. Scratch: stats
+// [2 * B * H * W] f32 (f32) or lnx [B * nW * n, C] bf16 (bf16). For tests
+// and measurement; the main path runs it inside window_attn_heads_launch.
+extern "C" int window_attn_qkv_launch(int compute_bf16, int x_bf16, const void* x,
+                                      const void* ln_g, const void* ln_b, const void* wqkv,
+                                      const void* bqkv, void* stats, void* lnx, void* qkv, int B,
+                                      int H, int W, int C, int win, int shift, float eps,
+                                      void* stream) {
+  const Geo g = make_geo(B, H, W, C, 1, win, shift);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compute_bf16) {
+    if (x_bf16)
+      return launch_ln_qkv<bf16, bf16>(x, ln_g, ln_b, wqkv, bqkv, stats, lnx, qkv, g, eps, s);
+    return launch_ln_qkv<float, bf16>(x, ln_g, ln_b, wqkv, bqkv, stats, lnx, qkv, g, eps, s);
+  }
+  if (x_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ln_qkv<float, float>(x, ln_g, ln_b, wqkv, bqkv, stats, lnx, qkv, g, eps, s);
 }
 
 // Output projection + scatter. o [B * nW * n, C], wproj [C, C] of the

@@ -29,15 +29,14 @@
 // its matrix unit; on this card qkv of a whole ViT-H grid is 37 MB, 22 us of
 // HBM time beside 45 us of tensor-core time, so the branch is cut where the
 // data is reused differently, three kernels behind one launcher:
-//  1. ln_stats_kernel (window_attn_common.cuh): mean and rstd of every real
-//     token, one warp each.
+//  1. bf16: ln_rows_kernel (window_attn_common.cuh): round_bf16(LN(x)) in
+//     window order into o (a padding token's row is 0, so its qkv is the
+//     bias); f32: ln_stats_kernel, mean and rstd of every real token.
 //  2. qkv_gemm_kernel (window_attn_common.cuh, shared with Swin's
 //     window_attn.cu, here with shift 0): one GEMM over all windows' tokens
-//     in window order, [M, C] x [C, 3C]; the A tile is gathered from x and
-//     normalised as it loads (a padding token's row is 0, so its qkv is the
-//     bias). bf16: 128 x 128 tiles on mma.sync fed by a 3-stage cp.async
-//     ring;
-//     f32: 64 x 64 SIMT tiles.
+//     in window order, [M, C] x [C, 3C]. bf16: a persistent wgmma kernel
+//     fed by TMA; f32: 128 x 64 SIMT tiles that gather and normalise x as
+//     they load.
 //  3. relpos_attn: one block per (window, head); q, k, v [n, hd] of the head
 //     in shared memory (110 KB in bf16 at hd 80, 190 KB in f32), so the
 //     [196, 196] scores cannot sit beside them: a tile of query rows at a
@@ -313,7 +312,8 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, 
            float eps, float scale, cudaStream_t stream) {
   using CF = Cfg<T>;
   // 1 + 2: the LN statistics and the qkv GEMM shared with window_attn.cu
-  int ierr = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, qkv, g, eps, stream);
+  // bf16: the LN rows go to o, which the attention overwrites once the GEMM has read them
+  int ierr = launch_ln_qkv<TX, T>(x, ln_g, ln_b, wqkv, bqkv, stats, o, qkv, g, eps, stream);
   if (ierr != 0) return ierr;
   // 16-byte loads need rows that start on 16 bytes
   const int vec = CF::kMma && g.C % 8 == 0 && g.hd % 8 == 0 && aligned16(qkv) && aligned16(o);
@@ -334,12 +334,12 @@ int launch(const void* x, const void* ln_g, const void* ln_b, const void* wqkv, 
 // x [B, H, W, C] (f32, or bf16 when the compute type is bf16), ln_g / ln_b
 // [C] f32, wqkv [3C, C] of the compute type, bqkv [3C] f32, rel_h / rel_w
 // [2 win - 1, C / heads] of the compute type, o [B * nW * n, C] of the
-// compute type (window order), all contiguous on the device. Scratch the
-// caller allocates: stats [2 * B * H * W] f32, qkv [B * nW * n, 3C] of the
-// compute type. compute_bf16 / x_bf16: 0 = f32, 1 = bf16; scale =
-// head_dim^-1/2, applied to q . k in f32 after the dot. win <= 14,
-// head_dim <= 80. Launches on `stream`; returns the cudaError_t of the
-// first launch that failed.
+// compute type (window order), all contiguous on the device (bf16: 16-byte
+// aligned, C % 8 == 0, C <= 2048). Scratch the caller allocates: stats
+// [2 * B * H * W] f32 (f32 only), qkv [B * nW * n, 3C] of the compute type.
+// compute_bf16 / x_bf16: 0 = f32, 1 = bf16; scale = head_dim^-1/2, applied
+// to q . k in f32 after the dot. win <= 14, head_dim <= 80. Launches on
+// `stream`; returns the cudaError_t of the first launch that failed.
 extern "C" int window_attn_relpos_heads_launch(int compute_bf16, int x_bf16, const void* x,
                                                const void* ln_g, const void* ln_b,
                                                const void* wqkv, const void* bqkv,

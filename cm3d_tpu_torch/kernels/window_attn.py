@@ -20,12 +20,15 @@ does not carry over: each window is computed by itself.
 
 The CUDA source (csrc/window_attn.cu) runs it as two launcher calls per
 Swin block, each with its own wrapper, plain version and launch counter:
-`window_attn_heads` (LN statistics, ONE qkv GEMM over all windows into a
+`window_attn_heads` (the LN pass, ONE qkv GEMM over all windows into a
 [B*nW*n, 3C] scratch, then tensor-core attention per (window, group of
 heads) -> o [B*nW*n, C] in window order: three kernels queued by one call
 that counts as one launch; plain pieces `window_attn_qkv_plain` and
 `window_attn_core_plain`) and `window_attn_proj` (o @ Wproj^T + bproj,
-scattered back to [B, H, W, C]). `window_attn` composes the two.
+scattered back to [B, H, W, C]). `window_attn` composes the two. The bf16
+GEMM behind both (wgmma on TMA tiles, sm_90a) takes C % 8 == 0 and 16-byte
+aligned tensors; `window_attn_qkv` runs the qkv product alone, off the main
+path, for tests and measurement.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
@@ -53,6 +56,7 @@ from cm3d_tpu_torch.kernels import build
 EPS = 1e-5  # torch Swin LayerNorm default
 MAX_TOKENS = 64  # window^2 the kernel holds per block
 MAX_HEAD_DIM = 64
+MAX_BF16_CHANNELS = 2048  # csrc/window_attn_common.cuh kMaxLnC
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,14 +120,11 @@ def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: int,
-                          dtype, eps: float = EPS):
-    """Plain PyTorch version of the first launch's qkv product: x
-    [B, H, W, C] -> qkv [B * nW * n, 3C] of `dtype`, rows in window order
-    (windows row-major over the rolled, padded grid, tokens row-major inside
-    a window); a padding token's row is the bias."""
+def window_ln_rows_plain(x, ln_weight, ln_bias, *, window: int, shift: int, eps: float = EPS):
+    """LN(x) in f32 as the qkv product's rows: [B * nW * n, C] in window
+    order (windows row-major over the rolled, padded grid, tokens row-major
+    inside a window); a padding token's row is 0."""
     b, h, w, c = x.shape
-    n = window * window
     hp, wp = padded_hw(h, w, window)
     ln = _layer_norm(x, ln_weight, ln_bias, eps)
     # the reference pads AFTER the norm: padding tokens are exact zeros
@@ -131,9 +132,17 @@ def window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shi
     if shift:
         ln = torch.roll(ln, (-shift, -shift), (1, 2))
     ln = ln.reshape(b, hp // window, window, wp // window, window, c)
-    ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    return ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, c)
+
+
+def window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: int,
+                          dtype, eps: float = EPS):
+    """Plain PyTorch version of the first launch's qkv product: x
+    [B, H, W, C] -> qkv [B * nW * n, 3C] of `dtype`, rows in window order
+    (see `window_ln_rows_plain`); a padding token's row is the bias."""
+    ln = window_ln_rows_plain(x, ln_weight, ln_bias, window=window, shift=shift, eps=eps)
     qkv = _rounded(ln, dtype) @ _rounded(wqkv, dtype).T + bqkv.float()
-    return qkv.reshape(-1, 3 * c).to(dtype)
+    return qkv.to(dtype)
 
 
 def window_attn_core_plain(qkv, table, *, x_shape, heads: int, window: int, shift: int, dtype):
@@ -221,6 +230,20 @@ def _check_cuda_x(x: torch.Tensor, dtype, heads: int, window: int,
         raise ValueError(f"window_attn: {b * hp * wp} padded tokens do not fit in int32")
 
 
+def check_bf16_gemm(c: int, *tensors, ln: bool = False) -> None:
+    """The bf16 GEMM reads its operands by TMA and writes 16-byte stores:
+    rows of a multiple of 16 bytes (C % 8 == 0, which every bf16 caller of
+    the port has) and 16-byte aligned tensors. `ln`: the LayerNorm pass in
+    front of the qkv product also holds a row in registers."""
+    if c % 8:
+        raise ValueError(f"window_attn: the bf16 kernels need channels % 8 == 0, got {c}")
+    if ln and c > MAX_BF16_CHANNELS:
+        raise ValueError(f"window_attn: the bf16 LayerNorm pass holds at most "
+                         f"{MAX_BF16_CHANNELS} channels, got {c}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("window_attn: the bf16 kernels need 16-byte aligned tensors")
+
+
 def _f32(t: torch.Tensor, device) -> torch.Tensor:
     return t.detach().to(device=device, dtype=torch.float32).contiguous()
 
@@ -241,15 +264,18 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
     o = torch.empty((b * hp * wp, c), dtype=dtype, device=dev)
     if o.numel() == 0:
         return o
-    # scratch between the three kernels: per-token mean | rstd, and qkv
-    stats = torch.empty((2, b * h * w), dtype=torch.float32, device=dev)
+    # scratch between the three kernels: qkv, and (f32) per-token mean |
+    # rstd; bf16 writes its LN rows into o, which the attention overwrites
+    stats = ln_stats_scratch(x, dtype)
     qkv = torch.empty((b * hp * wp, 3 * c), dtype=dtype, device=dev)
     args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
             wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev),
             _f32(table, dev))
+    if dtype == torch.bfloat16:
+        check_bf16_gemm(c, x, *args[:3], ln=True)
     err = _lib().window_attn_heads_launch(
         flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
-        stats.data_ptr(), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, shift, eps,
+        ptr(stats), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, shift, eps,
         (c // heads) ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -259,6 +285,61 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
 
 
 window_attn_heads.launches = 0
+
+
+def ln_stats_scratch(x: torch.Tensor, dtype):
+    """The f32 launches' per-token mean | rstd scratch [2, B * H * W]; the
+    bf16 launches need none (None)."""
+    if dtype == torch.bfloat16:
+        return None
+    b, h, w, _ = x.shape
+    return torch.empty((2, b * h * w), dtype=torch.float32, device=x.device)
+
+
+def ptr(t):
+    """t's device pointer for a launcher, or None (NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def window_attn_qkv(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: int, dtype,
+                    eps: float = EPS) -> torch.Tensor:
+    """The heads launcher's qkv product alone (its LN pass and GEMM): x
+    [B, H, W, C] -> qkv [B * nW * n, 3C] of `dtype` in window order (see
+    `window_attn_qkv_plain`). Off the main path, which runs these kernels
+    inside `window_attn_heads`: for tests and measurement."""
+    if x.device.type == "cpu":
+        return window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, window=window,
+                                     shift=shift, dtype=dtype, eps=eps)
+    flag = _cuda_dtype_flag(dtype)
+    c = x.shape[-1]
+    if x.ndim != 4 or tuple(wqkv.shape) != (3 * c, c):
+        raise ValueError(f"window_attn_qkv: x [B, H, W, C] and wqkv [3C, C], got "
+                         f"{tuple(x.shape)} and {tuple(wqkv.shape)}")
+    # no cap on the window or the head size here: only the attention has one
+    _check_cuda_x(x, dtype, 1, window, max_tokens=window * window, max_head_dim=c)
+    b, h, w, _ = x.shape
+    hp, wp = padded_hw(h, w, window)
+    dev = x.device
+    qkv = torch.empty((b * hp * wp, 3 * c), dtype=dtype, device=dev)
+    if qkv.numel() == 0:
+        return qkv
+    stats = ln_stats_scratch(x, dtype)
+    lnx = torch.empty((b * hp * wp, c), dtype=dtype, device=dev) if stats is None else None
+    args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
+            wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev))
+    if dtype == torch.bfloat16:
+        check_bf16_gemm(c, x, *args[:3], ln=True)
+    err = _lib().window_attn_qkv_launch(
+        flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
+        ptr(stats), ptr(lnx), qkv.data_ptr(), b, h, w, c, window, shift, eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "window_attn_qkv")
+    window_attn_qkv.launches += 1
+    return qkv
+
+
+window_attn_qkv.launches = 0
 
 
 def _proj(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype,
@@ -284,6 +365,8 @@ def _proj(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype
         return out
     wp_t = wproj.detach().to(device=dev, dtype=dtype).contiguous()
     bp_t = _f32(bproj, dev)
+    if dtype == torch.bfloat16:
+        check_bf16_gemm(c, o, wp_t)
     err = _lib().window_attn_proj_launch(
         flag, o.data_ptr(), wp_t.data_ptr(), bp_t.data_ptr(), out.data_ptr(),
         b, h, w, c, heads, window, shift, torch.cuda.current_stream(dev).cuda_stream,
@@ -364,6 +447,10 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
         + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.window_attn_heads_launch.restype = ctypes.c_int
+    lib.window_attn_qkv_launch.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_void_p])
+    lib.window_attn_qkv_launch.restype = ctypes.c_int
     lib.window_attn_proj_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.window_attn_proj_launch.restype = ctypes.c_int

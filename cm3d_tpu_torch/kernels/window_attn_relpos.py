@@ -23,8 +23,8 @@ one-hot expansion products do not carry over: each window is its own n x n
 problem and the bias is an indexed read of q @ rel^T.
 
 Two launcher calls per block, each with its wrapper, plain version and
-launch counter: `window_attn_relpos_heads` (csrc/window_attn_relpos.cu: LN
-statistics, the qkv GEMM over all windows and the per-(window, head)
+launch counter: `window_attn_relpos_heads` (csrc/window_attn_relpos.cu: the
+LN pass, the qkv GEMM over all windows and the per-(window, head)
 attention, three kernels queued by one call that counts as one launch ->
 o [B*nW*n, C] in window order; windows of at most 196 tokens, heads of at
 most 80 channels) and `window_attn_relpos_proj` (the projection kernel of
@@ -49,12 +49,15 @@ from cm3d_tpu_torch.kernels.window_attn import (
     _check_cuda_x,
     _cuda_dtype_flag,
     _f32,
-    _layer_norm,
     _proj,
     _rounded,
+    check_bf16_gemm,
+    ln_stats_scratch,
     needs_graph,
     padded_hw,
+    ptr,
     window_attn_proj_plain,
+    window_ln_rows_plain,
 )
 
 EPS = 1e-6  # SAM's encoder LayerNorm
@@ -93,14 +96,9 @@ def window_attn_relpos_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel
     o [B * nW * n, C] of `dtype`, rows in window order (windows row-major
     over the padded grid, tokens row-major inside a window)."""
     _check(x, wqkv, rel_h, rel_w, heads, window)
-    b, h, w, c = x.shape
+    c = x.shape[-1]
     hd, n = c // heads, window * window
-    hp, wp = padded_hw(h, w, window)
-    ln = _layer_norm(x, ln_weight, ln_bias, eps)
-    # the reference pads AFTER the norm: padding tokens are exact zeros
-    ln = torch.nn.functional.pad(ln, (0, 0, 0, wp - w, 0, hp - h))
-    ln = ln.reshape(b, hp // window, window, wp // window, window, c)
-    ln = ln.permute(0, 1, 3, 2, 4, 5).reshape(-1, n, c)
+    ln = window_ln_rows_plain(x, ln_weight, ln_bias, window=window, shift=0, eps=eps)
     qkv = _rounded(ln, dtype) @ _rounded(wqkv, dtype).T + bqkv.float()
     qkv = _rounded(qkv, dtype).reshape(-1, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]  # [B*nW, heads, n, hd]
@@ -140,16 +138,19 @@ def window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, *,
     o = torch.empty((b * hp * wp, c), dtype=dtype, device=dev)
     if o.numel() == 0:
         return o
-    # scratch between the three kernels: per-token mean | rstd, and qkv
-    stats = torch.empty((2, b * h * w), dtype=torch.float32, device=dev)
+    # scratch between the three kernels: qkv, and (f32) per-token mean |
+    # rstd; bf16 writes its LN rows into o, which the attention overwrites
+    stats = ln_stats_scratch(x, dtype)
     qkv = torch.empty((b * hp * wp, 3 * c), dtype=dtype, device=dev)
     args = (_f32(ln_weight, dev), _f32(ln_bias, dev),
             wqkv.detach().to(device=dev, dtype=dtype).contiguous(), _f32(bqkv, dev),
             rel_h.detach().to(device=dev, dtype=dtype).contiguous(),
             rel_w.detach().to(device=dev, dtype=dtype).contiguous())
+    if dtype == torch.bfloat16:
+        check_bf16_gemm(c, x, *args[:3], ln=True)
     err = _lib().window_attn_relpos_heads_launch(
         flag, int(x.dtype == torch.bfloat16), x.data_ptr(), *(a.data_ptr() for a in args),
-        stats.data_ptr(), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, eps,
+        ptr(stats), qkv.data_ptr(), o.data_ptr(), b, h, w, c, heads, window, eps,
         (c // heads) ** -0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )

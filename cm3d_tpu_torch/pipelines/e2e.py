@@ -32,6 +32,7 @@ import torch
 from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+from cm3d_tpu_torch.pipelines.cli_flags import add_unported_flags, refuse_unported
 from cm3d_tpu_torch.pipelines.masks import MaskModels, start_frame_masks, write_frame_artifacts
 from cm3d_tpu_torch.utils.device import resolve_device
 from cm3d_tpu_torch.utils.fetch import TreeFetch
@@ -300,28 +301,11 @@ def merge_submissions(paths: List[str], out_path: str) -> dict:
     return merged
 
 
-# flags of the JAX CLI whose feature is not ported yet -> its ROADMAP item
-_UNPORTED_FLAGS = {
-    "detic_ckpt": "A6 (checkpoint loading)",
-    "sam_ckpt": "A6 (checkpoint loading)",
-    "clip_ckpt": "A6 (CLIP text encoder + checkpoint loading)",
-    "bpe_path": "A6 (CLIP text encoder + checkpoint loading)",
-    "quant_int8": "A12 (int8 w8a8)",
-    "quant_static": "A12 (int8 w8a8)",
-    "gdino_ckpt": "A13 (GroundingDINO)",
-    "gdino_vocab": "A13 (GroundingDINO)",
-    "gdino_bf16": "A13 (GroundingDINO)",
-    "camera_mesh": "A14 (multi-chip)",
-    "host_shard": "A14 (multi-chip)",
-}
-
-
 def main(argv=None):
     """CLI: the fused nuScenes pipeline on the port (CUDA unless --device
     says otherwise)."""
     p = argparse.ArgumentParser(
         description="CM3D fused images->masks->boxes pipeline (PyTorch port)")
-    p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
     p.add_argument("--dataroot", required=True)
     p.add_argument("--version", default="v1.0-mini")
     p.add_argument("--scenes", required=True, help="comma-separated names")
@@ -341,29 +325,9 @@ def main(argv=None):
                    help="cameras per SAM-encode step (must divide the ring size)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
     # accepted so that a JAX command line fails with a pointer, not a usage error
-    p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"])
-    p.add_argument("--detector", default="detic", choices=("detic", "gdino"))
-    for flag in ("detic_ckpt", "sam_ckpt", "clip_ckpt", "bpe_path", "gdino_ckpt",
-                 "gdino_vocab"):
-        p.add_argument(f"--{flag}", default="")
-    for flag in ("quant_int8", "quant_static", "gdino_bf16", "host_shard"):
-        p.add_argument(f"--{flag}", action="store_true")
-    p.add_argument("--camera_mesh", type=int, default=0)
+    add_unported_flags(p)
     args = p.parse_args(argv)
-
-    for flag, item in _UNPORTED_FLAGS.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.detector != "detic":
-        raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
-    if args.sam_size != "vit_h":
-        raise NotImplementedError(
-            "--sam_size selects a released checkpoint's encoder; checkpoint loading is "
-            "not ported yet (ROADMAP A6) and --fake_weights builds one fixed tiny model")
-    if args.dataset != "nuscenes":
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported yet "
-            f"(ROADMAP {'A8' if args.dataset == 'waymo' else 'A9'})")
+    refuse_unported(args)
     if not args.fake_weights:
         p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
 

@@ -34,6 +34,7 @@ import torch
 from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
+from cm3d_tpu_torch.pipelines.cli_flags import add_unported_flags, refuse_unported
 from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
@@ -485,7 +486,6 @@ def main(argv=None):
     """CLI: the nuScenes 2D mask stage on the port (CUDA unless --device
     says otherwise)."""
     p = argparse.ArgumentParser(description="CM3D 2D mask generation stage (PyTorch port)")
-    p.add_argument("--dataset", default="nuscenes", choices=["nuscenes"])
     p.add_argument("--dataroot", required=True, help="nuScenes root")
     p.add_argument("--version", default="v1.0-mini")
     p.add_argument("--out_dir", required=True)
@@ -502,7 +502,10 @@ def main(argv=None):
     p.add_argument("--encode_chunk", type=int, default=1,
                    help="cameras per SAM-encode step (must divide the ring size)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
+    # accepted so that a JAX command line fails with a pointer, not a usage error
+    add_unported_flags(p)
     args = p.parse_args(argv)
+    refuse_unported(args)
     if not args.fake_weights:
         p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
 

@@ -18,7 +18,10 @@ two tolerances. The segment kernels agree with their plain scatter versions to
 rtol 1e-5 / atol 1e-5 in the sums (addition order), exactly in maxima, empty
 cells, the sink and the gather backward, and give equal bits twice in a row.
 Window attention under autograd returns the plain branch's gradients (its
-backward IS the plain branch, recomputed on the card).
+backward IS the plain branch, recomputed on the card). The bf16 GEMM (wgmma,
+TMA) behind the qkv product and the projection is held alone to the f32
+plain version on bf16-rounded inputs at 2^-5 of the largest magnitude, and
+gives equal bits twice.
 """
 
 import json
@@ -48,6 +51,8 @@ from cm3d_tpu_torch.kernels.window_attn import (
     window_attn_plain,
     window_attn_proj,
     window_attn_proj_plain,
+    window_attn_qkv,
+    window_attn_qkv_plain,
 )
 from cm3d_tpu_torch.kernels.window_attn_relpos import (
     window_attn_relpos,
@@ -229,6 +234,100 @@ def test_window_attn_wrapper_rejects_bad_input(cuda):
         window_attn(args[0].transpose(1, 2), *args[1:], dtype=torch.float32, **kw)
     with pytest.raises(ValueError, match="not divisible"):
         window_attn(*args, dtype=torch.float32, heads=3, window=4, shift=0)
+
+
+BF16_TOL = 2.0 ** -5  # bf16 kernel vs f32 plain on bf16-rounded inputs, x max|plain|
+
+
+def _bf16_close(got, ref):
+    err = float((got.float() - ref).abs().max())
+    assert err <= BF16_TOL * float(ref.abs().max()), err
+
+
+# M (padded tokens) is no multiple of the GEMM's 128 rows in any of these
+@pytest.mark.parametrize("b,h,w,c,win,shift,x_dtype", [
+    (2, 14, 21, 96, 7, 3, torch.float32),  # K 96, N 288: Swin-T's stage 0, shifted
+    (1, 10, 13, 96, 7, 3, torch.bfloat16),  # shift 3 over a padded grid, bf16 x
+    (4, 5, 8, 96, 5, 0, torch.float32),  # the shrunk window of 5
+    (1, 20, 30, 128, 7, 3, torch.bfloat16),  # Swin-B stage 0 width
+    (1, 36, 64, 1280, 14, 0, torch.float32),  # ViT-H's rect grid: K 1280, N 3840
+])
+def test_bf16_qkv_gemm_matches_plain(cuda, b, h, w, c, win, shift, x_dtype):
+    rng = np.random.default_rng(b * h * w * c + shift)
+    x, g, bln, wqkv, bqkv = _window_attn_inputs(rng, b, h, w, c, 1, win, x_dtype, cuda)[:5]
+    wqkv = wqkv.bfloat16()
+    kw = dict(window=win, shift=shift)
+    before = window_attn_qkv.launches
+    got = window_attn_qkv(x, g, bln, wqkv, bqkv, dtype=torch.bfloat16, **kw)
+    again = window_attn_qkv(x, g, bln, wqkv, bqkv, dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert window_attn_qkv.launches == before + 2
+    ref = window_attn_qkv_plain(x.float(), g, bln, wqkv.float(), bqkv, dtype=torch.float32, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.equal(got, again)
+    _bf16_close(got, ref)
+
+
+@pytest.mark.parametrize("b,h,w,c,win,shift", [
+    (2, 14, 21, 96, 7, 3),  # K = N = 96, shifted
+    (1, 10, 13, 96, 7, 3),  # shift 3: the scatter drops the padding rows
+    (4, 5, 8, 96, 5, 0),  # the shrunk window of 5
+    (1, 20, 30, 256, 7, 3),
+    (1, 36, 64, 1280, 14, 0),  # ViT-H's rect grid
+])
+def test_bf16_proj_gemm_matches_plain(cuda, b, h, w, c, win, shift):
+    rng = np.random.default_rng(b * h * w * c + win + shift)
+    hp, wp = -(-h // win) * win, -(-w // win) * win
+    o = torch.from_numpy(rng.standard_normal((b * hp * wp, c)).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    wproj = torch.from_numpy((rng.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)).to(
+        device=cuda, dtype=torch.bfloat16)
+    bproj = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    kw = dict(out_shape=(b, h, w, c), window=win, shift=shift)
+    got = window_attn_proj(o, wproj, bproj, heads=1, dtype=torch.bfloat16, **kw)
+    again = window_attn_proj(o, wproj, bproj, heads=1, dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    ref = window_attn_proj_plain(o.float(), wproj.float(), bproj, dtype=torch.float32, **kw)
+    assert got.shape == (b, h, w, c) and torch.equal(got, again)
+    _bf16_close(got, ref)
+
+
+def test_bf16_block_through_autograd_on_card(cuda):
+    """One bf16 Swin block through window_attn's autograd.Function: the
+    forward (the two launches) agrees with the plain branch and gives equal
+    bits twice; the gradients are the plain branch's."""
+    rng = np.random.default_rng(7)
+    args = _window_attn_inputs(rng, 2, 10, 13, 96, 3, 7, torch.float32, cuda)
+    kw = dict(heads=3, window=7, shift=3, dtype=torch.bfloat16)
+    outs, grads = [], []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = window_attn(*leaves, **kw)
+        out.float().sum().backward()
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    ref_in = [t.clone().requires_grad_() for t in args]
+    ref = window_attn_plain(*ref_in, **kw)
+    ref.float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    full = window_attn_plain(*(t.float() for t in args[:3]), args[3].bfloat16().float(), args[4],
+                             args[5].bfloat16().float(), *args[6:], heads=3, window=7, shift=3,
+                             dtype=torch.float32)
+    _bf16_close(outs[0], full)
+    for g, r in zip(grads[0], ref_in):
+        torch.testing.assert_close(g, r.grad, rtol=0, atol=0)
+
+
+def test_bf16_wrappers_reject_what_tma_cannot_read(cuda):
+    rng = np.random.default_rng(0)
+    args = _window_attn_inputs(rng, 1, 8, 8, 20, 2, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="% 8"):
+        window_attn(*args, heads=2, window=4, shift=0, dtype=torch.bfloat16)
+    args = _window_attn_inputs(rng, 1, 8, 8, 16, 2, 4, torch.float32, cuda)
+    x = torch.empty(8 * 8 * 16 + 1, device=cuda)[1:].view(1, 8, 8, 16).copy_(args[0])  # 4 B off
+    with pytest.raises(ValueError, match="aligned"):
+        window_attn(x, *args[1:], heads=2, window=4, shift=0, dtype=torch.bfloat16)
 
 
 def _relpos_inputs(rng, b, h, w, c, heads, win, x_dtype, device):

@@ -119,6 +119,25 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
         masks.main([a for a in argv if a != "--fake_weights"])
 
 
+@pytest.mark.parametrize("extra,item", [
+    (["--detic_ckpt", "x.pth"], "A6"), (["--sam_ckpt", "x.pth"], "A6"),
+    (["--clip_ckpt", "c.pt"], "A6"), (["--bpe_path", "b.txt.gz"], "A6"),
+    (["--sam_size", "vit_l"], "A6"), (["--quant_int8"], "A12"), (["--quant_static"], "A12"),
+    (["--use_zoedepth"], "A13"), (["--zoe_ckpt", "z.pt"], "A13"), (["--detector", "gdino"], "A13"),
+    (["--gdino_ckpt", "g.pth"], "A13"), (["--gdino_vocab", "v.txt"], "A13"),
+    (["--gdino_bf16"], "A13"), (["--camera_mesh", "2"], "A14"), (["--host_shard"], "A14"),
+    (["--dataset", "waymo"], "A8"), (["--dataset", "kitti"], "A9"),
+])
+def test_masks_cli_names_the_roadmap_item_of_a_jax_flag(tmp_path, extra, item):
+    """The JAX CLI's flags are accepted and refused with the ROADMAP item
+    that ports them, not with argparse's usage error (exit 2); the refusal
+    comes before any dataroot is read."""
+    argv = ["--dataroot", str(tmp_path / "none"), "--out_dir", str(tmp_path / "out"),
+            "--fake_weights", "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match=item):
+        masks.main(argv + extra)
+
+
 def test_vocabulary_and_config_match_jax():
     assert vocab.CUSTOM_VOCABULARY_NUSCENES == jax_vocab.CUSTOM_VOCABULARY_NUSCENES
     assert vocab.CUSTOM_VOCABULARY_WAYMO == jax_vocab.CUSTOM_VOCABULARY_WAYMO
