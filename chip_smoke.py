@@ -14,8 +14,9 @@ Phases, each of which raises on a failed check (exit code != 0):
    production geometry, then hold the kernel against its plain PyTorch
    version on those inputs — compaction bit-exact at all three stages,
    medoid sums to rtol=1e-5 with equal argmins wherever the two smallest
-   sums differ by more than 1e-5 relative — and time kernel, plain version
-   and (medoid) torch.cdist with CUDA events.
+   sums differ by more than 1e-5 relative, and equal bits from a second
+   call — and time kernel, plain version and (medoid) torch.cdist with CUDA
+   events.
 3. Main path: bench_lift at batch 8 with every launch count reset just
    before; each step must launch the compaction kernel 3 times and the
    medoid kernel once. One more step is checked for sane outputs and
@@ -28,7 +29,8 @@ Phases, each of which raises on a failed check (exit code != 0):
    range), the f32 kernels to the f32 plain version (<= 1e-4 of max|plain|),
    and kernels and bf16 plain version are timed with CUDA events beside the
    bound; the heads launcher's time is split over its three kernels (LN
-   pass, qkv GEMM, attention; torch.profiler device times), and two
+   pass, qkv GEMM, attention; torch.profiler device times), the attention
+   kernel beside its own bound (qkv read once, o written once), and two
    yardsticks the port never calls are timed beside them: one
    scaled_dot_product_attention call on the same q / k / v with the bias and
    shift mask, and F.linear on the window-ordered o. The bf16 GEMM alone, at
@@ -53,7 +55,8 @@ Phases, each of which raises on a failed check (exit code != 0):
    version on the same bf16-rounded inputs (<= 2^-5 of max|plain|), the f32
    kernels against the f32 plain version (<= 1e-4 of max|plain|); CUDA-event
    times beside the bound, the launcher's split over its three kernels, the
-   GEMM and its F.linear yardsticks as in phase 4, and one
+   attention kernel beside its own bound, the GEMM and its F.linear
+   yardsticks as in phase 4, and one
    scaled_dot_product_attention call on the same q / k / v with the
    decomposed rel-pos bias materialised as its float mask (a yardstick for
    the attention kernel). Then one 6-camera ViT-H encode with
@@ -144,8 +147,9 @@ SAM_WINDOWED_BLOCKS = 28  # ViT-H: 32 blocks, 4 of them global
 ENCODE_AB_TOL = 2.0 ** -4
 BOX_ATOL = 1e-3  # mask-path CPU check: box corners, image px
 LOGIT_EPS = 1e-3  # mask-path CPU check: bits this close to 0 may flip
-# f32 operations per (i, j) pair of the medoid sums: 3 sub, 3 mul, 2 add,
-# sqrt, the valid multiply, the accumulate
+# f32 operations per unordered pair {i, j} of valid points of the medoid
+# sums (d(i, j) and d(j, i) are the same bits, so the function needs each
+# once): 3 sub, 3 mul, 2 add, sqrt, and an add into each of the two sums
 MEDOID_OPS_PER_PAIR = 11
 STAGES = ("camera", "union", "mask")
 N_CAMERAS = 6  # nuScenes ring
@@ -256,8 +260,10 @@ def medoid_phase(torch, rows, valid):
     got = medoid_distance_sums_rows(rows, valid)
     want = medoid_distance_sums_rows_plain(rows, valid)
     got_kn3 = medoid_distance_sums(rows.transpose(1, 2).contiguous(), valid)
+    again = medoid_distance_sums_rows(rows, valid)
     torch.cuda.synchronize()
     check(torch.equal(got_kn3, got), "[R, K, 3] layout wrapper equals the D-major kernel")
+    check(torch.equal(again, got), "medoid sums: a second call gives the same bits")
     g, w = got[valid], want[valid]
     max_err = float((g - w).abs().max()) if g.numel() else 0.0
     rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) if g.numel() else 0.0
@@ -274,6 +280,7 @@ def medoid_phase(torch, rows, valid):
     check(bool((idx_equal | near_tie | ~has).all()),
           "medoid argmin equal wherever the two smallest sums differ by > 1e-5 rel")
     pairs = int((counts.to(torch.int64) ** 2).sum())
+    unordered = (pairs - int(counts.sum())) // 2
     points = rows.detach().transpose(1, 2).contiguous()
     # the [R, K, 3] entry (TPU kernel medoid_pallas.py:89): a transpose, then
     # the same kernel; off the main path
@@ -290,10 +297,11 @@ def medoid_phase(torch, rows, valid):
         points[i:i + chunk], points[i:i + chunk],
         compute_mode="donot_use_mm_for_euclid_dist").sum(-1)
         for i in range(0, r, chunk)], reps=1)
-    ops_ms = pairs * MEDOID_OPS_PER_PAIR / PEAK_F32_OPS_PER_S * 1e3
+    ops_ms = unordered * MEDOID_OPS_PER_PAIR / PEAK_F32_OPS_PER_S * 1e3
     bytes_ms = (r * k * (3 * 4 + 1 + 4)) / PEAK_BYTES_PER_S * 1e3
     out = {
-        "rows": r, "k": k, "pairs": pairs, "near_tie_rows": int(near_tie.sum()),
+        "rows": r, "k": k, "pairs": pairs, "unordered_pairs": unordered,
+        "near_tie_rows": int(near_tie.sum()),
         "rows_with_points": int(has.sum()), "max_abs_err": max_err, "max_rel_err": rel,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "kn3_ms": kn3_ms, "kn3_plain_ms": kn3_plain_ms,
@@ -449,6 +457,25 @@ def sass_facts() -> dict:
                 out[key] = {"HGMMA": block.count("HGMMA"), "UTMALDG": block.count("UTMALDG"),
                             "HMMA": block.count("HMMA")}
     return out
+
+
+def attn_kernel_record(ms, sdpa_ms: float, *, tokens: int, rows: int, c: int, n: int,
+                       two: int = 0) -> dict:
+    """The attention kernel of a heads launcher alone, `ms` from the
+    launcher's split: its bound is q k^T and p v over n keys (and, for
+    SAM, the two table products over 2 win - 1 entries) a real token, against
+    qkv [rows, 3C] read once and o [rows, C] written once, in bf16."""
+    ops_ms = tokens * (4 * n * c + 4 * two * c) / PEAK_BF16_OPS_PER_S * 1e3
+    bytes_ms = rows * 4 * c * 2 / PEAK_BYTES_PER_S * 1e3
+    return {"ms": ms, "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "sdpa_yardstick_ms": sdpa_ms}
+
+
+def _attn_text(a: dict) -> str:
+    ms = f"{a['ms']:.4f} ms" if a["ms"] else "not measured"
+    return (f"attention kernel {ms} (bound {a['bound_ms']:.4f} by {a['bound_by']}), "
+            f"SDPA {a['sdpa_yardstick_ms']:.4f} ms")
 
 
 def sdpa_yardstick_ms(torch, qkv, table, x_shape, heads: int, window: int, shift: int) -> float:
@@ -629,6 +656,8 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
                          "max_abs_err": errs[name][0], "max_rel_err": errs[name][1]}
         rec["heads"]["split_ms"] = split
         rec["heads"]["sdpa_yardstick_ms"] = sdpa_ms
+        rec["heads"]["attn"] = attn_kernel_record(split.get("window_attn_core"), sdpa_ms,
+                                                  tokens=tokens, rows=o.shape[0], c=c, n=n)
         rec["proj"]["linear_yardstick_ms"] = linear_ms
         rec["gemm"] = gemm
         if time_f32:
@@ -667,6 +696,7 @@ def window_attn_phase(torch, captured, model_dtype=None, time_f32: bool = False)
               f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
               f"{_split_text(split)}; yardsticks SDPA {sdpa_ms:.4f} ms, F.linear "
               f"{linear_ms:.4f} ms", flush=True)
+        print(f"  {_attn_text(rec['heads']['attn'])}", flush=True)
         print(f"  bf16 GEMM: {_gemm_text(gemm)}", flush=True)
     return out
 
@@ -920,6 +950,9 @@ def relpos_phase(torch, captured):
                          "max_abs_err": errs[part][0], "max_rel_err": errs[part][1]}
         rec["heads"]["split_ms"] = split
         rec["heads"]["sdpa_yardstick_ms"] = sdpa_ms
+        rec["heads"]["attn"] = attn_kernel_record(split.get("relpos_attn_kernel"), sdpa_ms,
+                                                  tokens=tokens, rows=o.shape[0], c=c, n=n,
+                                                  two=two)
         rec["proj"]["linear_yardstick_ms"] = linear_ms
         rec["gemm"] = gemm
         out.append(rec)
@@ -930,6 +963,7 @@ def relpos_phase(torch, captured):
               f"{rec['heads']['bound_ms']:.4f} + {rec['proj']['bound_ms']:.4f} ms; heads split "
               f"{_split_text(split)}; yardsticks SDPA {sdpa_ms:.4f} ms, F.linear "
               f"{linear_ms:.4f} ms", flush=True)
+        print(f"  {_attn_text(rec['heads']['attn'])}", flush=True)
         print(f"  bf16 GEMM: {_gemm_text(gemm)}", flush=True)
     return out
 
@@ -1895,6 +1929,11 @@ def main(argv) -> int:
                 for k, v in r[name]["split_ms"].items():
                     split[k] = split.get(k, 0.0) + v * (r[mult_key] if mult_key else 1)
             out["split_ms"] = split
+            # the attention kernel alone beside its own bound
+            for k in ("ms", "bound_ms"):
+                if all(r[name]["attn"][k] for r in recs):
+                    out[f"attn_kernel_{k}"] = sum(r[name]["attn"][k] * (r[mult_key] if mult_key
+                                                                        else 1) for r in recs)
         key = "sdpa_yardstick_ms" if name == "heads" else "linear_yardstick_ms"
         if all(key in r[name] for r in recs):
             out[key] = sum(r[name][key] * (r[mult_key] if mult_key else 1) for r in recs)
@@ -1987,6 +2026,7 @@ def main(argv) -> int:
             **{key: med[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
             "pairs": med["pairs"],
+            "unordered_pairs": med["unordered_pairs"],
             "near_tie_rows": med["near_tie_rows"],
         },
         window_attn_entry("heads"),

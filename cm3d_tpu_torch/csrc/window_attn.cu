@@ -74,30 +74,6 @@ constexpr int kMaxHd = 64;      // head dim
 constexpr int kTab = 225;       // entries of a table column, (2 win - 1)^2 for win <= 8
 constexpr int kLDV = kTok + 8;  // row stride of v^T (keys)
 
-// d += a b, m16n8k16, bf16 in, f32 sums. a: rows g / g + 8, columns 2 t (+1)
-// / 2 t + 8 (+1); b: columns g, rows 2 t (+1) / 2 t + 8 (+1); d: rows g / g + 8,
-// columns 2 t (+1), where g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// mma.sync operands of the attention: two bf16 as one 32-bit register, lower address low
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ void st32(bf16* p, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
-
 // Shared-memory layout of the bf16 attention kernel, the same on host and device
 struct CoreSmem {
   int np;      // tokens padded to 16

@@ -6,19 +6,23 @@ wrapper + plain version.
 Replaces the TPU kernels `cm3d_tpu/kernels/medoid_pallas.py
 medoid_distance_sums_rows_pallas` (D-major [R, 3, K] input) and
 `medoid_distance_sums_pallas` ([R, K, 3] input, a layout wrapper over the
-same kernel here too). The CUDA kernel (csrc/medoid.cu) is bound by f32
-operations on the H100; its source note says what the design does about
-that. Each distance uses exact per-dimension f32 differences — never
-`torch.cdist`, whose matmul mode cancels catastrophically at global-frame
-coordinates.
+same kernel here too). The CUDA kernels (csrc/medoid.cu, four behind one
+launcher call) are bound by f32 operations on the H100 and compute each
+unordered pair once over 128-point tile pairs, with partial sums in a
+scratch reduced in a fixed order (the same bits on every call); the source
+note says more. Each distance uses exact per-dimension f32 differences —
+never `torch.cdist`, whose matmul mode cancels catastrophically at
+global-frame coordinates.
 
 Precondition (as on the TPU): each row's valid points come FIRST; the kernel
-only sums over the first count_r = valid[r].sum() points. Rows at invalid i
-hold unspecified sums; mask them before an argmin.
+only sums over the first count_r = valid[r].sum() points. Sums at invalid i
+differ between the kernel (0) and the plain version; mask them before an
+argmin.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises. `medoid_distance_sums_rows.launches` counts kernel launches
-(both entry points launch through it).
+kernels or raises. `medoid_distance_sums_rows.launches` counts launcher
+calls (both entry points launch through it; one a call unless the rows'
+partial sums exceed `SCRATCH_BYTES`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,14 @@ from cm3d_tpu_torch.kernels import build
 
 # pairwise block of the plain version: ~2^26 f32 per [R, chunk, K] temporary
 _PLAIN_BLOCK = 1 << 26
+TILE = 128  # points a tile of the kernels (csrc/medoid.cu kTile)
+SCRATCH_BYTES = 1 << 28  # the partial sums one launcher call may hold
+
+
+def rows_per_launch(k: int) -> int:
+    """Rows one launcher call takes, so that its partial sums
+    [rows, ceil(K / TILE), K] f32 stay within SCRATCH_BYTES (at least one)."""
+    return max(1, SCRATCH_BYTES // (-(-k // TILE) * k * 4))
 
 
 def medoid_distance_sums_rows_plain(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -74,14 +86,21 @@ def medoid_distance_sums_rows(rows: torch.Tensor, valid: torch.Tensor) -> torch.
         return out
     rows = rows.contiguous()
     valid = valid.contiguous()
-    counts = valid.sum(dim=1, dtype=torch.int32)
     lib = _lib()
-    err = lib.medoid_sums_launch(
-        rows.data_ptr(), valid.data_ptr(), counts.data_ptr(), out.data_ptr(), r, k,
-        torch.cuda.current_stream(rows.device).cuda_stream,
-    )
-    build.check(err, "medoid_distance_sums_rows")
-    medoid_distance_sums_rows.launches += 1
+    step = min(r, rows_per_launch(k))
+    # scratch: the rows' counts of valid points, the tile pairs' prefix over
+    # the rows, and the partial sums
+    counts = torch.empty(step, dtype=torch.int32, device=rows.device)
+    off = torch.empty(step + 1, dtype=torch.int32, device=rows.device)
+    part = torch.empty((step, -(-k // TILE), k), dtype=torch.float32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    for r0 in range(0, r, step):
+        n = min(step, r - r0)
+        err = lib.medoid_sums_launch(
+            rows[r0].data_ptr(), valid[r0].data_ptr(), counts.data_ptr(), off.data_ptr(),
+            part.data_ptr(), out[r0].data_ptr(), n, k, stream)
+        build.check(err, "medoid_distance_sums_rows")
+        medoid_distance_sums_rows.launches += 1
     return out
 
 
@@ -95,6 +114,6 @@ def medoid_distance_sums(points: torch.Tensor, valid: torch.Tensor) -> torch.Ten
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("medoid")
-    lib.medoid_sums_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.medoid_sums_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.medoid_sums_launch.restype = ctypes.c_int
     return lib

@@ -8,7 +8,7 @@ port's dependencies:
 
 Compaction must be bit-exact on raw 32-bit words; medoid sums agree to
 rtol=1e-5 on valid rows (each pairwise distance rounds alike, only the
-summation order differs). Window attention (both launches) agrees with its
+summation order differs) and give equal bits on a second call. Window attention (both launches) agrees with its
 plain version to 1e-4 of the output's largest magnitude in f32 (only the
 summation order and exp/rsqrt rounding differ) and to 2^-5 of it in bf16,
 four bf16 ulps at the top of the range: the two sides round qkv, p, o and
@@ -101,6 +101,9 @@ def test_compact_kernel_matches_plain(cuda, r, s, d, limit, p):
 @pytest.mark.parametrize("k,counts,offset", [
     (512, [512, 300, 37, 1, 0], 0.0),
     (2048, [2048, 1999, 256, 255, 257], 1000.0),  # global-frame coordinates
+    # either side of the kernels' 128-point tile edges, a full K = 2048 row
+    (2048, [127, 128, 129, 383, 384, 385, 1663, 2047, 2048], 500.0),
+    (300, [300, 129, 2, 0], 0.0),  # K off the tile
 ])
 def test_medoid_kernel_matches_plain(cuda, k, counts, offset):
     rng = np.random.default_rng(k)
@@ -117,6 +120,40 @@ def test_medoid_kernel_matches_plain(cuda, k, counts, offset):
     assert torch.equal(got_kn3, got)
     want = medoid_distance_sums_rows_plain(rows, valid_d)
     torch.testing.assert_close(got[valid_d], want[valid_d], rtol=1e-5, atol=0.0)
+
+
+def _medoid_inputs(k, counts, offset, device):
+    rng = np.random.default_rng(len(counts) * k)
+    pts = (rng.uniform(-30, 30, (len(counts), k, 3)) + offset).astype(np.float32)
+    valid = np.arange(k)[None, :] < np.asarray(counts)[:, None]
+    return (torch.from_numpy(pts).to(device).transpose(1, 2).contiguous(),
+            torch.from_numpy(valid).to(device))
+
+
+def test_medoid_kernel_gives_equal_bits_twice(cuda):
+    """No f32 atomics: two calls on the same input give the same bits, at
+    the lift's batch-8 shape (1024 rows of 2048 points)."""
+    counts = np.random.default_rng(1).integers(0, 2049, 1024)
+    rows, valid = _medoid_inputs(2048, counts, 800.0, cuda)
+    first = medoid_distance_sums_rows(rows, valid)
+    second = medoid_distance_sums_rows(rows, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_medoid_kernel_splits_rows_over_launches(cuda, monkeypatch):
+    """Rows whose partial sums exceed SCRATCH_BYTES go over several launcher
+    calls, each counted, with the bits of one call."""
+    import cm3d_tpu_torch.kernels.medoid as medoid
+
+    rows, valid = _medoid_inputs(512, [512, 300, 129, 0, 1, 257, 128], 0.0, cuda)
+    whole = medoid_distance_sums_rows(rows, valid)
+    monkeypatch.setattr(medoid, "SCRATCH_BYTES", 2 * 4 * 512 * 4)  # two rows a call
+    before = medoid_distance_sums_rows.launches
+    split = medoid_distance_sums_rows(rows, valid)
+    torch.cuda.synchronize()
+    assert medoid_distance_sums_rows.launches == before + 4
+    assert torch.equal(split, whole)
 
 
 def test_cuda_wrappers_reject_bad_input(cuda):
@@ -347,6 +384,12 @@ def _relpos_inputs(rng, b, h, w, c, heads, win, x_dtype, device):
     (1, 10, 17, 40, 2, 7, torch.float32, torch.bfloat16),  # head dim 20 pads to 32
     (1, 20, 30, 128, 2, 14, torch.bfloat16, torch.bfloat16),  # ViT-L / B head dim 64
     (1, 36, 64, 1280, 16, 14, torch.float32, torch.bfloat16),  # ViT-H rect grid
+    (1, 64, 64, 1280, 16, 14, torch.bfloat16, torch.bfloat16),  # ViT-H square grid
+    # key counts that the 64-key chunk does not divide: 81 tokens (96
+    # padded: a 32-key chunk), 144 (a 16-key chunk) at head dim 48
+    (1, 20, 20, 64, 2, 9, torch.bfloat16, torch.bfloat16),
+    (1, 24, 30, 96, 2, 12, torch.bfloat16, torch.bfloat16),
+    (1, 15, 22, 80, 2, 5, torch.bfloat16, torch.bfloat16),  # head dim 40 pads to 48
 ])
 def test_window_attn_relpos_kernel_matches_plain(cuda, b, h, w, c, heads, win, x_dtype, dtype):
     rng = np.random.default_rng(b * h * w * c + win)

@@ -11,6 +11,8 @@ tests/test_torch_cuda.py holds each CUDA kernel against its plain version
 on the card.
 """
 
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -29,8 +31,11 @@ from cm3d_tpu.ops.pushback import push_centroid as jax_push_centroid
 
 from cm3d_tpu_torch.kernels.compact import compact_rows
 from cm3d_tpu_torch.kernels.medoid import (
+    SCRATCH_BYTES,
+    TILE,
     medoid_distance_sums,
     medoid_distance_sums_rows,
+    rows_per_launch,
 )
 from cm3d_tpu_torch.ops import bitmask
 from cm3d_tpu_torch.ops.lanes import nearest_lane
@@ -165,6 +170,71 @@ def test_medoid_index_matches_exact_argmin_without_near_ties():
         assert got[i] == int(np.argmin(ref))
         checked += 1
     assert checked >= 4
+
+
+def test_medoid_rows_per_launch_bounds_the_scratch():
+    """One launcher call takes a whole batch-8 lift step (1024 rows of 2048
+    points); the partial sums [rows, ceil(K / TILE), K] f32 of a call stay
+    within SCRATCH_BYTES, and a call takes at least one row."""
+    assert rows_per_launch(2048) >= 1024
+    for k in (1, 127, 128, 300, 2048, 100_000, 1 << 20):
+        n = rows_per_launch(k)
+        assert n >= 1
+        assert n == 1 or n * -(-k // TILE) * k * 4 <= SCRATCH_BYTES
+        assert (n + 1) * -(-k // TILE) * k * 4 > SCRATCH_BYTES
+
+
+def _tile_pair(q):
+    """csrc/medoid.cu's numbering of a row's tile pairs: q = b (b + 1) / 2 + a, a <= b."""
+    b = int((math.sqrt(8.0 * q + 1.0) - 1.0) * 0.5)
+    while b * (b + 1) // 2 > q:
+        b -= 1
+    while (b + 1) * (b + 2) // 2 <= q:
+        b += 1
+    return q - b * (b + 1) // 2, b
+
+
+@pytest.mark.parametrize("k,counts", [
+    (300, [300, 129, 128, 127, 1, 0]),  # tile edges, K off the tile
+    (1024, [1024, 1000, 640, 257]),
+])
+def test_medoid_tile_pair_schedule_sums_each_pair_once(k, counts):
+    """The kernel's schedule, replayed in numpy f32: the tile pairs (a, b),
+    a <= b, of a row cover every pair of tiles once; an off-diagonal pair
+    adds each distance to a row sum of tile a and a column sum of tile b
+    (partial sums part[b, i] and part[a, j]), a diagonal pair takes the pairs
+    j > i of its tile and adds a point's two sums (part[a, i]); summed over
+    the tiles in order they give the plain version's sums (rtol 1e-5), and
+    every unordered pair of distinct points is computed once."""
+    pts, valid = _medoid_case(len(counts), k, counts, 30.0, 800.0, seed=k)
+    rows = np.ascontiguousarray(pts.transpose(0, 2, 1))
+    want = medoid_distance_sums_rows(torch.from_numpy(rows), torch.from_numpy(valid)).numpy()
+    for r, c in enumerate(counts):
+        nt = -(-c // TILE)
+        pairs = [_tile_pair(q) for q in range(nt * (nt + 1) // 2)]
+        assert pairs == [(a, b) for b in range(nt) for a in range(b + 1)]
+        p = pts[r, :c]
+        part = np.zeros((nt, c), np.float32)
+        seen = np.zeros((c, c), np.int64)
+        for a, b in pairs:
+            ia, jb = slice(a * TILE, (a + 1) * TILE), slice(b * TILE, (b + 1) * TILE)
+            diff = p[ia, None, :] - p[None, jb, :]
+            d = np.sqrt((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+                        + diff[..., 2] * diff[..., 2])
+            if a == b:  # j > i only
+                d = np.triu(d, 1)
+                seen[ia, jb] += np.triu(np.ones_like(d, np.int64), 1)
+                part[a, ia] = d.sum(1, dtype=np.float32) + d.sum(0, dtype=np.float32)
+            else:
+                seen[ia, jb] += 1
+                part[b, ia] = d.sum(1, dtype=np.float32)
+                part[a, jb] = d.sum(0, dtype=np.float32)
+        distinct = ~np.eye(c, dtype=bool)
+        assert (seen + seen.T)[distinct].tolist() == [1] * int(distinct.sum())
+        got = np.zeros(c, np.float32)
+        for t in range(nt):
+            got += part[t]
+        np.testing.assert_allclose(got, want[r, :c], rtol=1e-5)
 
 
 # ------------------------------------------------------------ device ops
