@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (cm3d_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times   # timings only, see kernel_times
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -15,8 +16,11 @@ Phases, each of which raises on a failed check (exit code != 0):
    version on those inputs — compaction bit-exact at all three stages,
    medoid sums to rtol=1e-5 with equal argmins wherever the two smallest
    sums differ by more than 1e-5 relative, and equal bits from a second
-   call — and time kernel, plain version and (medoid) torch.cdist with CUDA
-   events.
+   call of each — and time kernel, plain version and (medoid) torch.cdist
+   with CUDA events; each compaction stage's device span (device_span_ms:
+   a spin kernel holds the card while the host queues the calls), its
+   kernels' durations (kernels_ms, torch.profiler) and their split over
+   count and scatter, and the share of value sectors holding a kept source.
 3. Main path: bench_lift at batch 8 with every launch count reset just
    before; each step must launch the compaction kernel 3 times and the
    medoid kernel once. One more step is checked for sane outputs and
@@ -76,13 +80,17 @@ Phases, each of which raises on a failed check (exit code != 0):
    of the batch-8 lift-splat pooling, the latter twice: with the identity
    extrinsics of bench_fusion_train (the main path's inputs: a few cells hold
    runs of hundreds of elements) and with a ring of six outward cameras (most
-   elements in range). segment_sum_max and segment_sum against their plain
-   scatter versions (sums rtol 1e-5 / atol 1e-5; maxima, empty-cell -inf / 0
-   and the sink exact), the backward against autograd of the plain version
-   (exact: it is a gather), each run twice with bit-equal outputs; CUDA-event
-   times of kernel, plain version and the one-call library form
-   (scatter_add_, plus scatter_reduce_ for the maximum; torch.gather for the
-   backward) beside the byte bound.
+   elements in range); the callers pass n_cells = h*w, so their sink id h*w
+   matches no column. segment_sum_max and segment_sum against their plain
+   scatter versions (sums rtol 1e-5 / atol 1e-5 and within k 2^-24 sum|v| of
+   the f64 sums; maxima, empty-cell -inf / 0 exact), the backward against
+   autograd of the plain version (exact: it is a gather; sink elements 0),
+   each run twice with bit-equal outputs; CUDA-event times of kernel, plain
+   version and the one-call library form (scatter_add_, plus
+   scatter_reduce_ for the maximum; torch.gather for the backward), the
+   forward's device span and kernel duration, beside two byte bounds: the
+   work the function has (the id and values of each element with a real id,
+   the outputs) and every id and value read (the sink's included).
 11. Window attention at Swin-T's shapes: one f32 forward of the BEVFusion
    Swin-T camera on a batch-8 ring of 6 x 144 x 256 images records the
    wrapper's inputs at its 7 (stage, shift) shapes (12 blocks; stage 3 runs
@@ -154,12 +162,15 @@ MEDOID_OPS_PER_PAIR = 11
 STAGES = ("camera", "union", "mask")
 N_CAMERAS = 6  # nuScenes ring
 REPS = 20
+SPIN_CYCLES = 5_000_000  # device_span_ms's first spin, about 2.5-3 ms
+SPIN_TRIES = 5
 SWIN_T_BLOCKS = 12  # Swin-T depths (2, 2, 6, 2)
 TRAIN_BATCH = 8
 TRAIN_IMAGE_HW = (144, 256)
 TRAIN_LOSS_RTOL = 1e-3  # training card vs CPU: loss of each of 3 steps
 TRAIN_GRAD_TOL = 1e-3  # first-step gradients, x the tensor's largest |gradient|
 DETERMINISTIC_FLAG = "--deterministic-phases"  # the child process of phase 14
+KERNEL_TIMES_FLAG = "--kernel-times"  # kernel_times alone
 DETERMINISTIC_WORKSPACE = ":4096:8"  # what deterministic cuBLAS asks for
 
 
@@ -189,6 +200,33 @@ def time_ms(torch, fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_span_ms(torch, fn, reps: int = REPS) -> float:
+    """Mean device span of fn over `reps` back-to-back calls (CUDA events
+    from the first call's first kernel to the last call's end, the gaps
+    between a call's kernels included), after one warm-up call. A spin
+    kernel holds the card while the host queues every call, so the host's
+    time between calls does not count; the spin doubles until the start
+    event is still pending when the last call has been queued."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"check failed: a spin of {cycles // 2} cycles ended before the host had "
+                       f"queued {reps} calls")
 
 
 def capture_kernel_inputs(torch, step, frames):
@@ -225,28 +263,51 @@ def compaction_phase(torch, compactions):
     for name, (sel, values, limit) in zip(STAGES, compactions):
         r, d, s = values.shape
         got = compact_rows(sel, values, limit)
+        again = compact_rows(sel, values, limit)
         want = compact_rows_plain(sel, values, limit)
         torch.cuda.synchronize()
         exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
         diff = (got.view(torch.int32).to(torch.int64) - want.view(torch.int32).to(torch.int64))
         max_err = float(diff.abs().max()) if diff.numel() else 0.0
         check(exact, f"compaction {name} stage bit-exact vs plain")
+        check(torch.equal(again.view(torch.int32), got.view(torch.int32)),
+              f"compaction {name} stage: a second call gives the same bits")
         kept = int(sel.sum(1).clamp(max=limit).sum())
         # bytes the function must move: the selection mask, the kept
         # sources' D words, and the [R, D, L] output
         n_bytes = r * s + kept * d * 4 + r * d * limit * 4
         ms = time_ms(torch, lambda: compact_rows(sel, values, limit))
+        span_ms = device_span_ms(torch, lambda: compact_rows(sel, values, limit))
         plain_ms = time_ms(torch, lambda: compact_rows_plain(sel, values, limit))
         stages.append({
             "stage": name, "rows": r, "sources": s, "words": d, "limit": limit,
             "selected": int(sel.sum()), "kept": kept, "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms,
+            "sectors_read": sectors_read(torch, sel, limit),
+            "ms": ms, "device_span_ms": span_ms, "plain_ms": plain_ms,
             "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
         })
-        print(f"compaction {name}: R={r} S={s} D={d} L={limit} bit-exact "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-              f"bound {stages[-1]['bound_ms']:.4f} ms", flush=True)
+        print(f"compaction {name}: R={r} S={s} D={d} L={limit} kept {kept} bit-exact, "
+              f"equal bits twice; kernel {ms:.4f} ms, device span {span_ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms bound {stages[-1]['bound_ms']:.4f} ms; value sectors "
+              f"holding a kept source {stages[-1]['sectors_read']:.4f}", flush=True)
+    # the kernels' durations after every stage's events: once torch.profiler
+    # has run in a process, each launch costs the host more
+    for stage, (sel, values, limit) in zip(stages, compactions):
+        prof = profiled_kernels(torch, lambda: compact_rows(sel, values, limit))
+        stage["kernels_ms"] = kernels_ms(prof)
+        stage["split_ms"] = by_launcher_kernel(prof)
+        print(f"compaction {stage['stage']}: kernels {_ms_text(stage['kernels_ms'])} = "
+              f"{_split_text(stage['split_ms'])}", flush=True)
     return stages
+
+
+def sectors_read(torch, sel, limit: int) -> float:
+    """The share of the values' 32-byte sectors (8 sources of a word) that
+    hold a kept source: what the scatter reads, beside the kept words that
+    the bound counts."""
+    kept = sel & (torch.cumsum(sel.to(torch.int32), 1) <= limit)
+    r, s = kept.shape
+    return float(kept[:, : s // 8 * 8].reshape(r, -1, 8).any(-1).float().mean())
 
 
 def medoid_phase(torch, rows, valid):
@@ -350,9 +411,11 @@ def profile_phase(torch, step, n_steps: int = 3) -> None:
         print(f"  {ms:8.4f} ms  x{calls:<4d} {name[:90]}", flush=True)
 
 
-# the kernels a window-attention launcher call queues, by a part of their names
+# the kernels a launcher call queues, by a part of their names: window
+# attention, then the compaction's two
 LAUNCHER_KERNELS = ("ln_stats_kernel", "ln_rows_kernel", "qkv_gemm_kernel", "window_attn_core",
-                    "relpos_attn_kernel", "proj_gemm_kernel")
+                    "relpos_attn_kernel", "proj_gemm_kernel", "compact_count_kernel",
+                    "compact_scatter_kernel")
 GEMM_TILE_M = 128  # the bf16 GEMM's output tile rows (csrc/window_attn_common.cuh)
 
 
@@ -363,11 +426,11 @@ def gemm_tile_n(m: int, n: int, sms: int) -> int:
     return 256 if n % 256 == 0 and n >= 3 * 256 and tiles256 >= 2 * sms else 128
 
 
-def launcher_split(torch, fn, reps: int = 5) -> dict:
-    """Device ms a launch of each kernel that a launcher call `fn()` queues
-    (torch.profiler over `reps` calls after a warm-up), by LAUNCHER_KERNELS
-    name: the mean over the launches the profiler recorded, which late in a
-    long process are not always all of them. Empty when it records none."""
+def profiled_kernels(torch, fn, reps: int = 5) -> dict:
+    """{kernel name: (device ms, launches)} of the kernels that `reps` calls
+    of fn queue (torch.profiler, after a warm-up call), over the launches
+    the profiler recorded, which late in a long process are not always all
+    of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,13 +440,36 @@ def launcher_split(torch, fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def kernels_ms(prof: dict) -> float | None:
+    """A call's kernel time on the device, launch gaps left out: the sum of
+    each kernel's mean duration (a call launches each kernel once). None
+    when the profiler recorded no kernel."""
+    return sum(ms / n for ms, n in prof.values()) if prof else None
+
+
+def by_launcher_kernel(prof: dict) -> dict:
+    """Mean device ms a launch of each LAUNCHER_KERNELS kernel in prof."""
     total, count = {}, {}
-    for e in prof.key_averages():
-        part = next((k for k in LAUNCHER_KERNELS if k in e.key), None)
-        if e.device_type == DeviceType.CUDA and part:
-            total[part] = total.get(part, 0.0) + e.device_time_total / 1e3
-            count[part] = count.get(part, 0) + e.count
-    return {k: total[k] / count[k] for k in total if count[k]}
+    for key, (ms, n) in prof.items():
+        part = next((k for k in LAUNCHER_KERNELS if k in key), None)
+        if part:
+            total[part] = total.get(part, 0.0) + ms
+            count[part] = count.get(part, 0) + n
+    return {k: total[k] / count[k] for k in total}
+
+
+def launcher_split(torch, fn, reps: int = 5) -> dict:
+    """Device ms a launch of each kernel that a launcher call `fn()` queues,
+    by LAUNCHER_KERNELS name. Empty when the profiler records none."""
+    return by_launcher_kernel(profiled_kernels(torch, fn, reps))
+
+
+def _ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def _split_text(split: dict) -> str:
@@ -1230,22 +1316,33 @@ def segment_phase(torch, pill, splats):
             1, idx, maxvals, "amax", include_self=True)
         return s_, m_
 
+    # two bounds: every id and value read (the sink's included), and the
+    # work the function has: the id, values and maximum of each element with
+    # a real id (a sink's are never read), the outputs
     n_bytes = cell.numel() * 4 + values.numel() * 4 + maxvals.numel() * 4 \
         + sums.numel() * 4 + maxs.numel() * 4
+    work_bytes = stats["in_range"] * (d + 2) * 4 + sums.numel() * 4 + maxs.numel() * 4
     rec = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, **stats,
            "max_abs_err": float((sums - want_s).abs().max()),
            "ms": time_ms(torch, lambda: segment_sum_max(cell, values, maxvals, n_cells)),
            "plain_ms": time_ms(torch, lambda: segment_sum_max_plain(cell, values, maxvals,
                                                                     n_cells)),
            "library_ms": time_ms(torch, library_pair),
-           "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": n_bytes}
+           "device_span_ms": device_span_ms(torch, lambda: segment_sum_max(cell, values,
+                                                                          maxvals, n_cells)),
+           "kernels_ms": kernels_ms(profiled_kernels(
+               torch, lambda: segment_sum_max(cell, values, maxvals, n_cells))),
+           "bound_ms": work_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": work_bytes,
+           "bound_all_values_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "all_values_bytes": n_bytes}
     out["segment_sum_max"] = rec
     print(f"segment_sum_max (pillarize): R={r} N={n} D={d} cells={n_cells} in range "
           f"{stats['in_range']} cells hit {stats['cells_hit']} longest run "
           f"{stats['longest_run']}; max abs err {rec['max_abs_err']:.3g}, maxima exact, replay "
-          f"bit-equal; kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} ms scatter_add_ + "
-          f"scatter_reduce_ {rec['library_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms",
-          flush=True)
+          f"bit-equal; kernel {rec['ms']:.4f} ms, device span {rec['device_span_ms']:.4f} ms, "
+          f"kernels {_ms_text(rec['kernels_ms'])}; plain "
+          f"{rec['plain_ms']:.4f} ms scatter_add_ + scatter_reduce_ {rec['library_ms']:.4f} ms "
+          f"bound {rec['bound_ms']:.4f} ms by the work, {rec['bound_all_values_ms']:.4f} ms "
+          f"reading every value", flush=True)
 
     # --- sum only, forward and backward, the splat call ---
     for name, (cell, values, n_cells) in splats.items():
@@ -1257,14 +1354,13 @@ def segment_phase(torch, pill, splats):
         want = segment_sum_plain(cell, values, n_cells)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"segment_sum ({name}) twice: bit-equal")
-        # the splat's sink is the last column, which holds every ray that
-        # left the grid (most of them) and is cut off by the caller: the
-        # columns the path keeps are held to rtol 1e-5 / atol 1e-5, and every
-        # column, the sink's long sum included, to the error an f32 sum of k
-        # terms can have in any order, k 2^-24 sum|v|, of the sum taken in f64
-        kept = slice(0, n_cells - 1)
-        err = float((got[..., kept] - want[..., kept]).abs().max())
-        check(torch.allclose(got[..., kept], want[..., kept], **tol), f"segment_sum ({name}) "
+        check(stats["in_range"] < cell.numel(), f"segment_sum ({name}): the splat has sink ids")
+        # every column is held to rtol 1e-5 / atol 1e-5 of the plain version,
+        # and to the error an f32 sum of k terms can have in any order,
+        # k 2^-24 sum|v|, of the sum taken in f64 (the sink id h*w is no
+        # column: the caller passes n_cells = h*w)
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, **tol), f"segment_sum ({name}) "
               f"within rtol 1e-5 / atol 1e-5 of plain (worst {err:.3g})")
         exact = segment_sum_plain(cell, values.double(), n_cells)
         mass = segment_sum_plain(cell, values.abs().double(), n_cells)
@@ -1297,13 +1393,20 @@ def segment_phase(torch, pill, splats):
         idx3 = cell.clamp(max=n_cells).long()[:, None, :].expand(r, d, n)
         gz = torch.cat([ct, ct.new_zeros((r, d, 1))], dim=2)
         n_bytes = cell.numel() * 4 + values.numel() * 4 + got.numel() * 4
+        work_bytes = stats["in_range"] * (d + 1) * 4 + got.numel() * 4
         fwd = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, **stats,
                "max_abs_err": err,
                "ms": time_ms(torch, lambda: segment_sum(cell, values, n_cells)),
                "plain_ms": time_ms(torch, lambda: segment_sum_plain(cell, values, n_cells)),
                "library_ms": time_ms(torch, lambda: torch.zeros(
                    (r, d, n_cells + 1), device=cell.device).scatter_add_(2, idx3, values)),
-               "bound_ms": n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": n_bytes}
+               "device_span_ms": device_span_ms(torch,
+                                                lambda: segment_sum(cell, values, n_cells)),
+               "kernels_ms": kernels_ms(profiled_kernels(
+                   torch, lambda: segment_sum(cell, values, n_cells))),
+               "bound_ms": work_bytes / PEAK_BYTES_PER_S * 1e3, "bytes": work_bytes,
+               "bound_all_values_ms": n_bytes / PEAK_BYTES_PER_S * 1e3,
+               "all_values_bytes": n_bytes}
         bwd = {"rows": r, "n": n, "channels": d, "n_cells": n_cells, "max_abs_err": 0.0,
                "ms": time_ms(torch, lambda: segment_sum_bwd(cell, ct)),
                "plain_ms": time_ms(torch, lambda: segment_sum_bwd_plain(cell, ct)),
@@ -1314,10 +1417,56 @@ def segment_phase(torch, pill, splats):
         print(f"segment_sum (splat, {name} extrinsics): R={r} N={n} D={d} cells={n_cells} in "
               f"range {stats['in_range']} cells hit {stats['cells_hit']} longest run "
               f"{stats['longest_run']}; max abs err {err:.3g}, backward exact, replay "
-              f"bit-equal; forward kernel {fwd['ms']:.4f} ms plain {fwd['plain_ms']:.4f} ms "
-              f"scatter_add_ {fwd['library_ms']:.4f} ms; backward kernel {bwd['ms']:.4f} ms "
-              f"plain {bwd['plain_ms']:.4f} ms torch.gather {bwd['library_ms']:.4f} ms; bound "
-              f"{fwd['bound_ms']:.4f} ms each way", flush=True)
+              f"bit-equal; forward kernel {fwd['ms']:.4f} ms, device span "
+              f"{fwd['device_span_ms']:.4f} ms, kernels {_ms_text(fwd['kernels_ms'])}; plain "
+              f"{fwd['plain_ms']:.4f} ms scatter_add_ {fwd['library_ms']:.4f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms by the work, {fwd['bound_all_values_ms']:.4f} ms "
+              f"reading every value; backward kernel {bwd['ms']:.4f} ms plain "
+              f"{bwd['plain_ms']:.4f} ms torch.gather {bwd['library_ms']:.4f} ms bound "
+              f"{bwd['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def kernel_times(torch) -> dict:
+    """Timings alone, no checks, of the package beside this script: the three
+    compactions of a batch-8 lift step (phase 2's inputs) and the segment
+    forward of a batch-8 fusion forward (phase 10's: pillarize, the splat at
+    identity and at ring extrinsics), each captured from the package's own
+    callers. Per call: CUDA-event ms of back-to-back wrapper calls and the
+    device span, all before torch.profiler first runs in the process (after
+    it, every launch costs the host more), then the kernels' durations; for
+    the compactions also the share of value sectors holding a kept source.
+    Two trees compare on one card when this script is copied into the other
+    tree's checkout and run there and here in turns, in one call."""
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+    from cm3d_tpu_torch.kernels import build
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.segment import segment_sum, segment_sum_max
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+
+    build.build_all()
+    dev = torch.device("cuda")
+    cfg = LiftStageConfig()
+    rng = np.random.default_rng(0)
+    host = stack_keyframes([make_keyframe(SyntheticConfig(), cfg, rng) for _ in range(8)])
+    step = make_keyframe_step_fn(cfg, device=dev)
+    compactions, _ = capture_kernel_inputs(torch, step, to_device(host.frames, dev))
+    pill, splats = capture_segment_inputs(torch)
+    calls = {f"compact_rows/{name}": (lambda a=args: compact_rows(*a))
+             for name, args in zip(STAGES, compactions)}
+    calls["segment_sum_max/pillarize"] = lambda: segment_sum_max(*pill)
+    for name, args in splats.items():
+        calls[f"segment_sum/{name}"] = lambda a=args: segment_sum(*a)
+    out = {"cwd": os.getcwd(), "card": card_line()}
+    for name, fn in calls.items():
+        out[name] = {"ms": time_ms(torch, fn), "device_span_ms": device_span_ms(torch, fn)}
+    for name, (sel, _, limit) in zip(STAGES, compactions):
+        out[f"compact_rows/{name}"]["sectors_read"] = sectors_read(torch, sel, limit)
+    for name, fn in calls.items():
+        out[name]["kernels_ms"] = kernels_ms(profiled_kernels(torch, fn))
+        print(name, out[name], flush=True)
     return out
 
 
@@ -1745,6 +1894,9 @@ def main(argv) -> int:
     if argv == [DETERMINISTIC_FLAG]:
         print(json.dumps(deterministic_phases(torch)), flush=True)
         return 0
+    if argv == [KERNEL_TIMES_FLAG]:
+        print(json.dumps(kernel_times(torch)), flush=True)
+        return 0
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
         IMG_W,
@@ -1975,6 +2127,8 @@ def main(argv) -> int:
             "replaces": replaces,
             "launches": launches,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+            **{k: rec[k] for k in ("bound_all_values_ms", "device_span_ms", "kernels_ms")
+               if k in rec},
             "bound_by": "bytes",
             "per": f"one batch-{TRAIN_BATCH} training step: R={rec['rows']} N={rec['n']} "
                    f"D={rec['channels']} cells={rec['n_cells']}, f32",
@@ -2015,6 +2169,11 @@ def main(argv) -> int:
             "bound_ms": sum(s["bound_ms"] for s in stages),
             "bound_by": "bytes",
             "library_ms": None,
+            # the kernels' time on the device alone, beside the events' time
+            # of back-to-back wrapper calls, which holds the host
+            "device_span_ms": sum(s["device_span_ms"] for s in stages),
+            "kernels_ms": None if any(s["kernels_ms"] is None for s in stages)
+            else sum(s["kernels_ms"] for s in stages),
             "stages": stages,
         },
         {

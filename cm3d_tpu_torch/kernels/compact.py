@@ -7,15 +7,18 @@ Replaces the TPU kernel `cm3d_tpu/kernels/compact_pallas.py
 compact_rows_pallas`. The CUDA kernel (csrc/compact.cu) moves raw 32-bit
 words, so any 4-byte payload (f32 coordinates, int32 ids, mask words) comes
 out bit-exact. It is bound by memory bytes on the H100; the source note in
-csrc/compact.cu says what the design does about that.
+csrc/compact.cu says what the design does about that: each row is cut into
+tiles (`plan_tiles`), and a call queues two kernels, a count over the tiles
+and a scatter that takes its tile's first slot from the counts.
 
 Dispatch: a CPU tensor runs `compact_rows_plain`; a CUDA tensor launches
-the kernel or raises. `compact_rows.launches` counts kernel launches.
+the kernels or raises. `compact_rows.launches` counts launcher calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +35,17 @@ def compact_rows_plain(sel: torch.Tensor, values: torch.Tensor, limit: int) -> t
     out = torch.zeros((r, d, limit + 1), dtype=values.dtype, device=values.device)
     out.scatter_(2, dest[:, None, :].expand(r, d, s), values)
     return out[:, :, :limit].contiguous()
+
+
+TILE = 4096  # sources a tile: the fastest of 1024 / 2048 / 4096 at all three lift stages
+MAX_TILES = 1024  # tiles a row at most: each scatter block adds up its row's counts
+
+
+def plan_tiles(sources: int) -> tuple[int, int]:
+    """(tile, tiles a row) of a call: tiles of TILE sources, widened (in
+    multiples of 16) until a row has at most MAX_TILES."""
+    tile = max(TILE, 16 * -(-sources // (16 * MAX_TILES)))
+    return tile, max(1, -(-sources // tile))
 
 
 def _check(sel: torch.Tensor, values: torch.Tensor, limit: int) -> None:
@@ -67,10 +81,11 @@ def compact_rows(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.T
         return out
     sel = sel.contiguous()
     words = values.contiguous().view(torch.int32)
-    lib = _lib()
-    err = lib.compact_rows_launch(
-        sel.data_ptr(), words.data_ptr(), out.data_ptr(), r, s, d, limit,
-        torch.cuda.current_stream(values.device).cuda_stream,
+    tile, n_tiles = plan_tiles(s)
+    counts = torch.empty((r, n_tiles), dtype=torch.int32, device=values.device)
+    err = _lib().compact_rows_launch(
+        sel.data_ptr(), words.data_ptr(), out.data_ptr(), counts.data_ptr(), r, s, d, limit,
+        tile, torch.cuda.current_stream(values.device).cuda_stream,
     )
     build.check(err, "compact_rows")
     compact_rows.launches += 1
@@ -80,8 +95,10 @@ def compact_rows(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.T
 compact_rows.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("compact")
-    lib.compact_rows_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.compact_rows_launch.argtypes = [ptr] * 4 + [i] * 5 + [ptr]
     lib.compact_rows_launch.restype = ctypes.c_int
     return lib

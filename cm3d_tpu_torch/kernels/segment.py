@@ -11,12 +11,15 @@ first; ids >= n_cells are a sink that sorts last and matches no output
 column), `values` is zero and `maxvals` -inf at elements to ignore, empty
 cells give exactly 0 and -inf. The batch is the kernel's rows.
 
-The CUDA kernels (csrc/segment.cu) sum each cell's contiguous run in an
-order that depends on the ids alone (a short run in index order by one
-thread, a long one by its block in a fixed tree), so a run replays bit for
-bit; they use no float atomics. They are bound by memory bytes on the
-H100. The plain versions are scatter reductions, used on the CPU and as the
-yardstick the kernels are held to; nothing on the card's path calls them.
+The CUDA forward (csrc/segment.cu) is one kernel over tiles of 256 cells
+and chunks of 8 channels: a block finds its cells' elements with two
+searches, a thread sums its cell's run when it is short, a warp when it is
+long, and empty cells get 0 and -inf. Every sum's order depends on the ids
+alone, so a call replays bit for bit; there are no float atomics, and the
+values of elements with sink ids are never read. The kernels are bound by
+memory bytes on the H100. The plain versions are scatter reductions, used
+on the CPU and as the yardstick the kernels are held to; nothing on the
+card's path calls them.
 
 `segment_sum` is differentiable in `values`: the transpose of a sum over
 fixed cells is the gather dvalues[r, :, i] = g[r, :, cell[r, i]] (0 at sink
@@ -30,6 +33,7 @@ the hot path. Each wrapper's `.launches` counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -208,6 +212,7 @@ def segment_sum(cell: torch.Tensor, values: torch.Tensor, n_cells: int) -> torch
 segment_sum.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("segment")
     ptr, i = ctypes.c_void_p, ctypes.c_int

@@ -154,7 +154,7 @@ def splat_to_bev(feats: torch.Tensor, depth_probs: torch.Tensor, intrinsics: tor
                             cam_to_ego[None], pillar_cfg, cfg)[0]
     bsz, _, hf, wf, f = feats.shape
     h, w = pillar_cfg.grid_hw
-    n_cells = h * w + 1
+    n_cells = h * w  # the sink id h*w matches no column and is never summed
     with torch.no_grad():
         cell = splat_cells(intrinsics, cam_to_ego, hf, wf, pillar_cfg, cfg)
         cell_s, perm = torch.sort(cell, dim=1, stable=True)
@@ -163,8 +163,8 @@ def splat_to_bev(feats: torch.Tensor, depth_probs: torch.Tensor, intrinsics: tor
     contrib = (feats[..., None, :] * depth_probs[..., None]).reshape(bsz, -1, f)
     # one row gather, then channels-major for the kernel
     vals = apply_permutation(contrib, perm, inv_perm).transpose(1, 2)
-    sums = segment_sum(cell_s, vals.float(), n_cells)  # [B, F, n_cells]
-    return sums[:, :, : h * w].transpose(1, 2).reshape(bsz, h, w, f)
+    sums = segment_sum(cell_s, vals.float(), n_cells)  # [B, F, h*w]
+    return sums.transpose(1, 2).reshape(bsz, h, w, f)
 
 
 def _upsample_nearest(x: torch.Tensor, f: int) -> torch.Tensor:

@@ -100,8 +100,9 @@ def pillarize(points: torch.Tensor, valid: torch.Tensor, cfg: PillarConfig) -> t
 
     ix, iy, in_range = cell_ids(x, y, z, cfg)
     in_range = in_range & valid
-    cell = torch.where(in_range, ix * w + iy, h * w)  # sink = h*w
-    n_cells = h * w + 1
+    # the sink id h*w is >= n_cells: it matches no column and is never summed
+    cell = torch.where(in_range, ix * w + iy, h * w)
+    n_cells = h * w
 
     cx = (ix.float() + 0.5) * cfg.resolution + cfg.x_min
     cy = (iy.float() + 0.5) * cfg.resolution + cfg.y_min
@@ -123,5 +124,5 @@ def pillarize(points: torch.Tensor, valid: torch.Tensor, cfg: PillarConfig) -> t
     mean_feats = sums[:, :4] / count.clamp(min=1.0)[:, None, :]
     max_z = maxs.clamp(min=cfg.z_min)
     feats = torch.cat([mean_feats, max_z[:, None], torch.log1p(count)[:, None]], dim=1)
-    feats = feats[:, :, : h * w].permute(0, 2, 1)
+    feats = feats.permute(0, 2, 1)
     return feats.reshape(-1, h, w, cfg.num_features)

@@ -98,6 +98,87 @@ def test_compact_kernel_matches_plain(cuda, r, s, d, limit, p):
                        compact_rows_plain(sel_d, vals, limit).view(torch.int32))
 
 
+def _compact_twice(cuda, sel, d, limit, seed=0):
+    """Two calls of the kernel on random words: bit-equal to the plain
+    version and to each other, one counted launch each."""
+    rng = np.random.default_rng(seed)
+    r, s = sel.shape
+    words = rng.integers(-(2**31), 2**31 - 1, (r, d, s), dtype=np.int64).astype(np.int32)
+    sel_d, words_d = torch.from_numpy(sel).to(cuda), torch.from_numpy(words).to(cuda)
+    before = compact_rows.launches
+    got = compact_rows(sel_d, words_d, limit)
+    again = compact_rows(sel_d, words_d, limit)
+    torch.cuda.synchronize()
+    assert compact_rows.launches == before + 2
+    assert torch.equal(got, compact_rows_plain(sel_d, words_d, limit))
+    assert torch.equal(again, got)
+
+
+def _edge_rows(rng, s, limit):
+    """Rows that meet the kernel's edges: empty, full (truncated inside the
+    first tile when limit is), dense, sparse, exactly `limit` kept, and one
+    contiguous block."""
+    sel = np.zeros((6, s), bool)
+    sel[1] = True
+    sel[2] = rng.random(s) < 0.5
+    sel[3] = rng.random(s) < 0.05
+    sel[4, rng.permutation(s)[:min(limit, s)]] = True
+    sel[5, s // 3: 2 * s // 3] = True
+    return sel
+
+
+@pytest.mark.parametrize("tile,s", [
+    (1024, 1023), (1024, 1024), (1024, 1025),  # S at a tile size -1, 0, +1
+    (4096, 4095), (4096, 4097),  # one scatter pass a tile, and a second
+    (8192, 8191), (8192, 16385),  # two passes a tile
+    (16, 33), (1040, 3000),  # the smallest tile; a tile no power of two
+])
+@pytest.mark.parametrize("where", ["none", "first_tile", "second_tile"])
+def test_compact_kernel_at_tile_edges(cuda, monkeypatch, tile, s, where):
+    """Every tile plan the launcher takes, with the limit past the count, in
+    the first tile and in the second."""
+    import cm3d_tpu_torch.kernels.compact as compact
+
+    monkeypatch.setattr(compact, "plan_tiles",
+                        lambda sources: (tile, max(1, -(-sources // tile))))
+    limit = {"none": s, "first_tile": tile // 2 + 3, "second_tile": tile + 5}[where]
+    rng = np.random.default_rng(tile + s)
+    _compact_twice(cuda, _edge_rows(rng, s, limit), 3, limit, seed=s)
+
+
+def test_compact_kernel_on_empty_rows_and_unaligned_selection(cuda):
+    # a call whose rows are all empty: every slot 0
+    sel = torch.zeros((7, 5000), dtype=torch.bool, device=cuda)
+    words = torch.arange(7 * 2 * 5000, dtype=torch.int32, device=cuda).reshape(7, 2, 5000)
+    out = compact_rows(sel, words, 4000)
+    assert bool((out == 0).all())
+    # a selection that starts one byte into its buffer reads byte by byte
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.random(1 + 4 * 8192) < 0.3).to(cuda)
+    sel = flat[1:].view(4, 8192)
+    assert sel.data_ptr() % 16 == 1 and sel.is_contiguous()
+    words = torch.from_numpy(rng.integers(0, 2**31 - 1, (4, 2, 8192)).astype(np.int32)).to(cuda)
+    assert torch.equal(compact_rows(sel, words, 3000), compact_rows_plain(sel, words, 3000))
+
+
+@pytest.mark.parametrize("r,s,d,limit,density", [
+    (48, 131072, 5, 32768, 0.35),  # camera stage of a batch-8 lift step
+    (48, 32768, 8, 8192, 0.25),  # union stage
+    (1024, 8192, 4, 2048, 0.02),  # mask stage
+])
+def test_compact_kernel_at_production_shapes(cuda, r, s, d, limit, density):
+    """The lift step's three calls through the wrapper's own tile plan, on
+    seeded selections: a block of the row (a camera's field of view, a
+    mask's points) at the given density, some rows past the limit."""
+    rng = np.random.default_rng(r + s)
+    sel = np.zeros((r, s), bool)
+    for i in range(r):
+        width = int(s * min(1.0, 2 * density * rng.uniform(0.5, 1.5)))
+        lo = rng.integers(0, s - width + 1)
+        sel[i, lo:lo + width] = rng.random(width) < 0.5
+    _compact_twice(cuda, sel, d, limit, seed=r)
+
+
 @pytest.mark.parametrize("k,counts,offset", [
     (512, [512, 300, 37, 1, 0], 0.0),
     (2048, [2048, 1999, 256, 255, 257], 1000.0),  # global-frame coordinates
@@ -626,6 +707,13 @@ def _segment_inputs(seed, r, n, d, n_cells, device):
 ])
 def test_segment_kernels_match_plain(cuda, r, n, d, n_cells):
     cell, values, maxvals = _segment_inputs(r * n + d, r, n, d, n_cells, cuda)
+    _check_segment_kernels(cuda, cell, values, maxvals, n_cells)
+
+
+def _check_segment_kernels(cuda, cell, values, maxvals, n_cells):
+    """Both forward variants and the backward against the plain versions,
+    one counted launch a call, the same bits on a second call."""
+    r, d, n = values.shape
     before = (segment_sum_max.launches, segment_sum.launches, segment_sum_bwd.launches)
     sums, maxs = segment_sum_max(cell, values, maxvals, n_cells)
     only = segment_sum(cell, values, n_cells)
@@ -634,7 +722,7 @@ def test_segment_kernels_match_plain(cuda, r, n, d, n_cells):
     want_s, want_m = segment_sum_max_plain(cell, values, maxvals, n_cells)
     # against the sums taken in f64: an f32 sum of k terms in any order is
     # within k * 2^-24 * sum|v| of it (1e-5 of the sum for the short runs of
-    # real data; the fixture also holds a run as long as its row)
+    # real data; the fixtures also hold runs as long as their row)
     exact = segment_sum_plain(cell, values.double(), n_cells)
     mass = segment_sum_plain(cell, values.abs().double(), n_cells)
     count = segment_sum_plain(cell, torch.ones_like(values[:, :1]).double(), n_cells)
@@ -652,6 +740,7 @@ def test_segment_kernels_match_plain(cuda, r, n, d, n_cells):
     # replay: the same bits twice
     again_s, again_m = segment_sum_max(cell, values, maxvals, n_cells)
     assert torch.equal(again_s, sums) and torch.equal(again_m, maxs)
+    assert torch.equal(segment_sum(cell, values, n_cells), only)
     # the backward is the gather, equal to autograd through the plain scatter
     ct = torch.randn(sums.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     a = values.clone().requires_grad_()
@@ -662,6 +751,52 @@ def test_segment_kernels_match_plain(cuda, r, n, d, n_cells):
     assert segment_sum_bwd.launches == before[2] + 1
     assert torch.equal(a.grad, b.grad)
     assert torch.equal(segment_sum_bwd(cell, ct), segment_sum_bwd_plain(cell, ct))
+    return sums, maxs
+
+
+SEGMENT_CELLS, SEGMENT_SERIAL, SEGMENT_IDS_CAP = 256, 16, 4096  # csrc/segment.cu's block
+
+
+def _runs_row(runs, n, sink):
+    """One row of sorted ids from (id, length) runs, padded with `sink`."""
+    row = np.concatenate([np.full(length, c, np.int32) for c, length in runs] or
+                         [np.zeros(0, np.int32)])
+    assert len(row) <= n and np.all(np.diff(row) >= 0)
+    return np.concatenate([row, np.full(n - len(row), sink, np.int32)])
+
+
+@pytest.mark.parametrize("n", [9000, 9001])
+@pytest.mark.parametrize("d", [5, 32])  # pillarize's channels, the splat's
+def test_segment_kernels_at_block_edges(cuda, n, d):
+    """Rows laid out against the forward's blocks, n_cells = h*w with the
+    callers' sink id h*w: runs of a thread's longest and a warp's shortest
+    length, runs either side of a 256-cell block's edge, a run as long as
+    the row, a block whose cells hold more ids than it stages in shared
+    memory, a row of sink ids only, one with none, one whose last cells
+    stay empty."""
+    h = w = 24
+    n_cells, sink = h * w, h * w
+    t, cap = SEGMENT_SERIAL, SEGMENT_IDS_CAP
+    b = SEGMENT_CELLS
+    edges = [(0, 3), (2, 1), (5, t), (6, t + 1), (10, 2), (b - 2, 5), (b - 1, t), (b, t + 1),
+             (b + 1, 1), (300, 300), (2 * b - 1, 4), (2 * b, 2 * t + 1), (n_cells - 1, 2)]
+    rows = [
+        _runs_row(edges, n, sink),
+        _runs_row([(0, n)], n, sink),  # one run as long as the row, of cell 0
+        _runs_row([], n, sink),  # the sink only
+        _runs_row([(c, n // n_cells + (c < n % n_cells)) for c in range(n_cells)], n, sink),
+        _runs_row([(c, 40) for c in range(5, 100)], n, sink),  # cells 100.. stay empty
+        _runs_row([(c, 20) for c in range(b, 2 * b)], n, sink),  # 5120 ids in one block
+    ]
+    assert 20 * b > cap
+    cell = torch.from_numpy(np.stack(rows)).to(cuda)
+    assert int((cell[3] < n_cells).sum()) == n  # the row without a sink id
+    rng = np.random.default_rng(n + d)
+    values = torch.from_numpy(rng.normal(size=(len(rows), d, n)).astype(np.float32)).to(cuda)
+    maxvals = torch.from_numpy(rng.normal(size=(len(rows), n)).astype(np.float32)).to(cuda)
+    sums, maxs = _check_segment_kernels(cuda, cell, values, maxvals, n_cells)
+    assert bool((sums[2] == 0).all()) and bool((maxs[2] == float("-inf")).all())
+    assert bool((maxs[4, 100:] == float("-inf")).all()) and bool((maxs[4, 5:100] > -1e30).all())
 
 
 def test_segment_wrappers_reject_bad_input_on_card(cuda):

@@ -29,7 +29,8 @@ from cm3d_tpu.ops.lift import _compact_topk
 from cm3d_tpu.ops.nms import circle_nms_keep as jax_circle_nms_keep
 from cm3d_tpu.ops.pushback import push_centroid as jax_push_centroid
 
-from cm3d_tpu_torch.kernels.compact import compact_rows
+from cm3d_tpu_torch.kernels.compact import TILE as COMPACT_TILE
+from cm3d_tpu_torch.kernels.compact import MAX_TILES, compact_rows, plan_tiles
 from cm3d_tpu_torch.kernels.medoid import (
     SCRATCH_BYTES,
     TILE,
@@ -110,6 +111,24 @@ def test_cpu_wrappers_count_no_launch():
     compact_rows(torch.from_numpy(sel), torch.from_numpy(values), limit)
     medoid_distance_sums_rows(torch.zeros(2, 3, 8), torch.ones(2, 8, dtype=torch.bool))
     assert (compact_rows.launches, medoid_distance_sums_rows.launches) == before
+
+
+@pytest.mark.parametrize("sources", [
+    131072, 32768, 8192,  # the lift step's three calls
+    1, 0, 1025, 16, 2**24 + 3,
+])
+def test_compact_tile_plan_covers_every_source_once(sources):
+    """The scatter kernel's tiles [k * tile, min((k + 1) * tile, S)) of the
+    plan cover each source of a row once, each tile holds a source (one
+    tile for an empty row), the 16-byte loads stay aligned, and a row has at
+    most MAX_TILES tiles, of COMPACT_TILE sources wherever that is enough."""
+    tile, n = plan_tiles(sources)
+    assert tile % 16 == 0 and 1 <= n <= MAX_TILES
+    assert tile == COMPACT_TILE or sources > COMPACT_TILE * MAX_TILES
+    starts = np.arange(n, dtype=np.int64) * tile
+    ends = np.minimum(starts + tile, sources)
+    assert starts[0] == 0 and ends[-1] == sources
+    assert np.all(starts[1:] == ends[:-1]) and (sources == 0 or np.all(ends > starts))
 
 
 # ------------------------------------------------------------------- medoid

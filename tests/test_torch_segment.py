@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from cm3d_tpu.kernels.segment_pallas import segment_sum_max_pallas, segment_sum_pallas
+from cm3d_tpu.train import bevfusion as jbev
 from cm3d_tpu.train import voxelize as jvox
+from cm3d_tpu.train.centerpoint import CenterPointConfig as JCenterPointConfig
 from cm3d_tpu_torch.kernels.segment import (
     segment_sum,
     segment_sum_bwd,
@@ -28,7 +30,9 @@ from cm3d_tpu_torch.kernels.segment import (
     segment_sum_max_plain,
     segment_sum_plain,
 )
+from cm3d_tpu_torch.train import bevfusion as tbev
 from cm3d_tpu_torch.train import voxelize as tvox
+from cm3d_tpu_torch.train.centerpoint import CenterPointConfig
 
 SUM_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -185,3 +189,85 @@ def test_pillar_config_defaults_match():
     j, t = jvox.PillarConfig(), tvox.PillarConfig()
     assert j.grid_hw == t.grid_hw == (128, 128)
     assert j.num_features == t.num_features == 6
+
+
+def _spy(monkeypatch, module, name, seen):
+    """Record (cell, n_cells) of each call of module.name, then run it."""
+    real = getattr(module, name)
+
+    def spy(cell, *args):
+        seen.append((cell.clone(), args[-1]))
+        return real(cell, *args)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+@pytest.mark.parametrize("mode", [False, "interpret"])
+def test_pillarize_passes_the_grid_as_n_cells(monkeypatch, mode):
+    """pillarize hands the kernel n_cells = h*w: its out-of-grid and invalid
+    points carry the id h*w, a sink past every column, and are never
+    summed; the features still equal the JAX package's."""
+    monkeypatch.setattr(jvox, "_USE_PALLAS_SEGMENT", mode)
+    seen = []
+    _spy(monkeypatch, tvox, "segment_sum_max", seen)
+    geo = dict(x_min=-6.4, x_max=6.4, y_min=-4.0, y_max=4.0, resolution=0.8)
+    jcfg, tcfg = jvox.PillarConfig(**geo), tvox.PillarConfig(**geo)
+    h, w = tcfg.grid_hw
+    pts, valid = _cloud(4, 2, 3000, jcfg)
+    got = tvox.pillarize(torch.from_numpy(pts), torch.from_numpy(valid), tcfg)
+    want = jax.vmap(lambda p, v: jvox.pillarize(p, v, jcfg))(jnp.asarray(pts), jnp.asarray(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SUM_TOL)
+    ((cell, n_cells),) = seen
+    assert n_cells == h * w
+    sink = cell >= n_cells
+    assert bool(sink.any()) and bool((cell[sink] == h * w).all())
+    assert bool((cell[~sink] >= 0).all())
+    assert bool((cell[:, 1:] >= cell[:, :-1]).all())
+
+
+@pytest.mark.parametrize("mode", [False, "interpret"])
+def test_splat_to_bev_passes_the_grid_as_n_cells(monkeypatch, mode):
+    """splat_to_bev hands the kernel n_cells = h*w, rays that leave the grid
+    at the id h*w; the pooled map and its gradient still equal the JAX
+    package's, and the backward gives the sink's elements 0."""
+    monkeypatch.setattr(jvox, "_USE_PALLAS_SEGMENT", mode)
+    seen = []
+    _spy(monkeypatch, tbev, "segment_sum", seen)
+    geo = dict(x_min=-8.0, x_max=8.0, y_min=-8.0, y_max=8.0, resolution=1.0, z_min=-3.0,
+               z_max=3.0)
+    kw = dict(cam_channels=4, depth_bins=4, d_min=1.0, d_max=7.0, cam_trunk=(4, 8))
+    jcfg = jbev.BevFusionConfig(centerpoint=JCenterPointConfig(num_classes=3), **kw)
+    tcfg = tbev.BevFusionConfig(centerpoint=CenterPointConfig(num_classes=3), **kw)
+    jpill, tpill = jvox.PillarConfig(**geo), tvox.PillarConfig(**geo)
+    h, w = tpill.grid_hw
+    rng = np.random.default_rng(8)
+    b, c, hf, wf = 2, 2, 6, 8
+    feats = rng.normal(size=(b, c, hf, wf, 4)).astype(np.float32)
+    dp = rng.random((b, c, hf, wf, 4)).astype(np.float32)
+    dp /= dp.sum(-1, keepdims=True)
+    ih, iw = hf * tcfg.img_stride, wf * tcfg.img_stride
+    intr = np.tile(np.array([[12.0, 0, iw / 2], [0, 12.0, ih / 2], [0, 0, 1]], np.float32),
+                   (b, c, 1, 1))
+    e0 = [[0, 0, 1, 0.5], [-1, 0, 0, 0.0], [0, -1, 0, 0.2], [0, 0, 0, 1]]  # along +x ego
+    e1 = [[-1, 0, 0, 0.0], [0, 0, -1, -0.5], [0, -1, 0, 0.2], [0, 0, 0, 1]]  # along -y ego
+    ext = np.tile(np.array([e0, e1], np.float32), (b, 1, 1, 1))
+    ct = rng.normal(size=(b, h, w, 4)).astype(np.float32)
+
+    def jloss(f):
+        out = jax.vmap(lambda f_, d_, k_, e_: jbev.splat_to_bev(f_, d_, k_, e_, jpill, jcfg))(
+            f, jnp.asarray(dp), jnp.asarray(intr), jnp.asarray(ext))
+        return jnp.sum(out * ct), out
+
+    (_, want), want_g = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(feats))
+    tf = torch.from_numpy(feats).requires_grad_()
+    got = tbev.splat_to_bev(tf, torch.from_numpy(dp), torch.from_numpy(intr),
+                            torch.from_numpy(ext), tpill, tcfg)
+    (got * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **SUM_TOL)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-6)
+    ((cell, n_cells),) = seen
+    assert n_cells == h * w
+    sink = cell >= n_cells
+    assert bool(sink.any()) and bool((~sink).any()) and bool((cell[sink] == h * w).all())
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(b, 4, n_cells)).astype(np.float32))
+    assert bool((segment_sum_bwd(cell, g).transpose(1, 2)[sink] == 0).all())
