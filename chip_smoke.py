@@ -121,7 +121,31 @@ Phases, each of which raises on a failed check (exit code != 0):
    replay: 4 steps straight against 2 + save + load + 2 on the card, with
    augmentation, EMA, clip and cosine schedule: bit-equal parameters, batch
    statistics, optimizer moments and EMA.
-15. One JSON line per kernel summary, then the card's name and power limit,
+
+Phases 15 and 16 run after phase 9, before the training phases.
+15. Released weights: full-width Detic Swin-B, SAM ViT-H and CLIP B/32
+   from seeded random weights, written as released files (detectron2's
+   layout with fc1 in (c, y, x) order, SAM's keys, CLIP's under Detic's
+   `text_encoder.` prefix, a gzip BPE file) and loaded by build_real_models
+   on the card (load seconds printed): Detic's outputs and SAM's planes on
+   a 6 x 1024x576 ring bit-equal to the same modules in memory through
+   _batched_model_fns; the CLIP classifier against the CPU within 1e-4;
+   one keyframe of run_mask_stage, 24 + 24 window-attention launches.
+16. Waymo: 8 frame-lite frames at real geometry fabricated here (a
+   64 x 2650 range image ray-cast on the card with a rolling-shutter pose
+   image, 5 cameras 3 x 1920x1280 + 2 x 1920x886 as JPEGs, 128 masks a
+   keyframe): the frontend on the card against the CPU (points within
+   2e-3 m, the rest equal; the 131072-point cap binds); B1 / B2 on a
+   batch-8 Waymo step's inputs against their plain versions; the step
+   counted (3 + 1 launches) and timed (ms a step, keyframes/s); 2 keyframes
+   against the CPU lift (counts, keep sets equal, medoids but for near
+   ties); run_lift_waymo counted; run_e2e_waymo on the tiny random-weight
+   models; then one thumbnailed ring (3 x 1024x683 + 2 x 1024x473, canvas
+   704 x 1024) through the full-width bf16 Detic Swin-B, B3's heads and
+   projection held to their plain versions at each of its 8 (stage, shift)
+   shapes as in phase 4, 24 + 24 launches a forward; and run_e2e_waymo at
+   full width (Swin-B + ViT-H), counted and timed.
+17. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -1880,6 +1904,549 @@ def deterministic_phases_in_child() -> dict:
     return json.loads(lines[-1])
 
 
+# --- 15. released-checkpoint loading ------------------------------------------
+
+CLIP_CPU_TOL = 1e-4  # CLIP classifier on the card (f32, TF32 off) vs the CPU
+WAYMO_RI_HW = (64, 2650)  # the TOP lidar's range image
+# front, front-left, front-right (1920 x 1280); side-left, side-right (1920 x 886)
+WAYMO_CAMERAS = ((0.0, 1920, 1280), (0.785, 1920, 1280), (-0.785, 1920, 1280),
+                 (1.571, 1920, 886), (-1.571, 1920, 886))
+WAYMO_MASKS = 128  # masks a keyframe (WAYMO_LIFT.max_masks)
+WAYMO_FRAMES = 8  # one batch-8 lift step
+POINTS_ATOL = 2e-3  # range-image points, card vs CPU, metres (global-frame f32)
+
+
+def _word_merges(words):
+    """A toy BPE table that spells each word of `words` as one token (no
+    released merges file is in the repository)."""
+    merges = []
+    for word in words:
+        for tok in re.findall(r"[a-z]+", word.lower()):
+            parts = list(tok[:-1]) + [tok[-1] + "</w>"]
+            while len(parts) > 1:
+                pair = (parts[0], parts[1])
+                if pair not in merges:
+                    merges.append(pair)
+                parts = [parts[0] + parts[1]] + parts[2:]
+    return merges
+
+
+def released_weights_phase(torch) -> dict:
+    """Full-width Detic Swin-B, SAM ViT-H and CLIP B/32 from seeded random
+    weights, written as released files (detectron2 names with fc1 in
+    (c, y, x) order under "model", SAM's keys, CLIP's under Detic's
+    `text_encoder.` prefix, a gzip BPE file), loaded by build_real_models
+    on the card, against the same modules in memory through
+    _batched_model_fns: Detic's outputs and SAM's planes bit-equal; the CLIP
+    classifier against the CPU within CLIP_CPU_TOL; one keyframe of
+    run_mask_stage on the loaded models, counted."""
+    import gzip
+    import tempfile
+
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W
+    from cm3d_tpu_torch.config import MaskStageConfig
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.models.clip_text import (
+        CLIP_TEXT_B32, ClipTextEncoder, SimpleTokenizer, embed_vocabulary, init_clip_weights)
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
+    from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
+    from cm3d_tpu_torch.ops.bitmask import num_words
+    from cm3d_tpu_torch.pipelines.masks import (
+        _batched_model_fns, build_real_models, run_mask_stage)
+    from cm3d_tpu_torch.utils.device import strict_f32_scope
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    dev = torch.device("cuda")
+    detic_cfg = dataclasses.replace(DETIC_SWINB, dtype="bfloat16",
+                                    swin=dataclasses.replace(DETIC_SWINB.swin, dtype="bfloat16"))
+    with torch.device(dev):
+        gen = torch.Generator(device=dev)
+        detic = init_weights(Detic(detic_cfg), gen.manual_seed(20))
+        sam = init_weights(Sam(dataclasses.replace(SAM_VIT_H, dtype="bfloat16")),
+                           gen.manual_seed(21))
+        clip = init_clip_weights(ClipTextEncoder(CLIP_TEXT_B32), gen.manual_seed(22))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        c, p = detic_cfg.fpn_dim, detic_cfg.pooler_size
+        dsd = {k: v.detach().cpu() for k, v in detic.state_dict().items()}
+        for k in range(detic_cfg.num_cascade_stages):
+            key = f"roi_heads.box_head.{k}.fc1.weight"
+            w = dsd[key]
+            dsd[key] = w.reshape(w.shape[0], p, p, c).permute(0, 3, 1, 2).reshape(w.shape)
+        # a buffer of the released Swin that nothing reads
+        dsd["backbone.bottom_up.layers.0.blocks.0.attn.relative_position_index"] = \
+            torch.zeros(49, 49, dtype=torch.int64)
+        paths = {n: os.path.join(tmp, n) for n in ("detic.pth", "sam.pth", "clip.pt",
+                                                   "bpe.txt.gz")}
+        torch.save({"model": dsd, "iteration": 0}, paths["detic.pth"])
+        torch.save({k: v.detach().cpu() for k, v in sam.state_dict().items()}, paths["sam.pth"])
+        torch.save({f"text_encoder.{k}": v.detach().cpu() for k, v in clip.state_dict().items()},
+                   paths["clip.pt"])
+        with gzip.open(paths["bpe.txt.gz"], "wt", encoding="utf-8") as f:
+            f.write("\n".join(["#version: toy"] + [f"{a} {b}" for a, b in _word_merges(VOCAB)]))
+        del dsd
+        out["write_s"] = time.perf_counter() - t0
+        out["file_mb"] = {n: os.path.getsize(q) / 2**20 for n, q in paths.items()}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = build_real_models(paths["detic.pth"], paths["sam.pth"], paths["clip.pt"],
+                                   paths["bpe.txt.gz"], vocabulary=VOCAB, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        tok = SimpleTokenizer.from_file(paths["bpe.txt.gz"])
+    with strict_f32_scope():
+        clf = embed_vocabulary(clip, tok, list(VOCAB))
+    clf_cpu = embed_vocabulary(copy.deepcopy(clip).cpu(), tok, list(VOCAB))
+    out["clip_max_abs_err"] = float(np.abs(clf - clf_cpu).max())
+    check(out["clip_max_abs_err"] <= CLIP_CPU_TOL,
+          f"CLIP classifier card vs CPU within {CLIP_CPU_TOL} ({out['clip_max_abs_err']:.3g})")
+    memory = _batched_model_fns(detic, clf, sam, VOCAB, device=dev)
+
+    rng = np.random.default_rng(5)
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
+    got_det = loaded.detic(loaded.prepare(ring))
+    want_det = memory.detic(memory.prepare(ring))
+    for name, a, b in zip(("boxes", "scores", "classes", "valid"), got_det, want_det):
+        check(torch.equal(a, b), f"released Detic {name} bit-equal to the in-memory modules")
+    out["detections"] = int(got_det[3].sum())
+    # SAM on fixed prompts: 25 boxes a camera
+    prompts = np.zeros((N_CAMERAS, 32, 4), np.float32)
+    xy = rng.uniform(0.0, 0.8, (N_CAMERAS, 25, 2)) * [IMG_W, IMG_H]
+    wh = rng.uniform(0.02, 0.2, (N_CAMERAS, 25, 2)) * [IMG_W, IMG_H]
+    prompts[:, :25] = np.concatenate([xy, xy + wh], -1)
+    n_boxes = np.full(N_CAMERAS, 25, np.int32)
+    cam_hw = [(IMG_H, IMG_W)] * N_CAMERAS
+    planes = []
+    for models in (loaded, memory):
+        frame = models.prepare(ring)
+        planes.append(models.sam_decode_planes(models.sam_encode(frame), prompts, n_boxes,
+                                               cam_hw, (IMG_W, IMG_H), num_words(128), "xy"))
+    check(torch.equal(planes[0], planes[1]), "released SAM planes bit-equal to the in-memory")
+    out["plane_words_set"] = int((planes[0] != 0).sum())
+
+    # one production-geometry keyframe of run_mask_stage on the loaded models
+    window_attn_heads.launches = window_attn_proj.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_mask_stage(loaded, lambda s, f: ring, ["released"], lambda s: 1, tmp,
+                       MaskStageConfig(), verbose=False)
+        torch.cuda.synchronize()
+        out["mask_stage_keyframe_s"] = time.perf_counter() - t0
+    out["launches"] = {"window_attn_heads": window_attn_heads.launches,
+                       "window_attn_proj": window_attn_proj.launches}
+    check(out["launches"]["window_attn_heads"] == SWIN_BLOCKS_PER_FORWARD
+          and out["launches"]["window_attn_proj"] == SWIN_BLOCKS_PER_FORWARD,
+          f"one keyframe on loaded weights: 24 + 24 window-attention launches, "
+          f"got {out['launches']}")
+    print(f"released weights: write {out['write_s']:.2f} s ({out['file_mb']}), "
+          f"build_real_models {out['load_s']:.2f} s; Detic ({out['detections']} detections) "
+          f"and SAM planes bit-equal to the in-memory modules; CLIP classifier card vs CPU "
+          f"max abs err {out['clip_max_abs_err']:.3g}; one run_mask_stage keyframe "
+          f"{out['mask_stage_keyframe_s']:.2f} s, launches {out['launches']}; "
+          f"{out['plane_words_set']} plane words set", flush=True)
+    del loaded, memory, detic, sam, clip, planes
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- 16. the Waymo path ---------------------------------------------------------
+
+def _rotz(yaw):
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float64)
+
+
+def fabricate_waymo(torch, frames_root, mask_dir, n_frames, seed=0):
+    """Frame-lite frames at Waymo's real geometry, in `frames_root/<scene>`,
+    and their mask artifacts in `mask_dir`: a 64 x 2650 range image cast on
+    the card against a ground plane, a far wall and 128 boxes (sky pixels
+    carry no return), with a rolling-shutter pose image (2 m of travel over
+    the sweep, around (3000, -1200, 30) m global); 5 cameras at their real
+    sizes and layout, each a JPEG; 128 masks a keyframe (each box's
+    projection as an ellipse on the 1024 x 683 canvas). Returns the scene
+    name."""
+    import io
+
+    from PIL import Image
+
+    from cm3d_tpu_torch.config import SHAPE_PRIORS_CHATGPT
+    from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
+    from cm3d_tpu_torch.datasets.waymo.frontend import _AXES, WAYMO_IMAGE_RATIO, WAYMO_MASK_WH
+    from cm3d_tpu_torch.ops.range_image import azimuth_grid
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    scene = "segment-smoke"
+    os.makedirs(os.path.join(frames_root, scene), exist_ok=True)
+    store = MaskArtifactStore(mask_dir)
+    h_ri, w_ri = WAYMO_RI_HW
+    incl = np.linspace(0.04, -0.30, h_ri).astype(np.float32)
+    lidar_ext = np.eye(4, dtype=np.float32)
+    lidar_ext[:3, 3] = [1.4, 0.0, 2.2]
+    pose_yaw = 0.7
+    pose = np.eye(4)
+    pose[:3, :3] = _rotz(pose_yaw)
+    pose[:3, 3] = [3000.0, -1200.0, 30.0]
+    heading = np.array([np.cos(pose_yaw), np.sin(pose_yaw), 0.0])
+    axes_swap = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float64)
+    cam_ext, cam_intr, tms = [], [], []
+    for yaw, w, h in WAYMO_CAMERAS:
+        tm = np.eye(4)
+        tm[:3, :3] = _rotz(yaw) @ axes_swap
+        tm[:3, 3] = [1.5, 0.0, 2.0]
+        tms.append(tm)
+        cam_ext.append(tm @ _AXES)
+        cam_intr.append([2000.0, 2000.0, w / 2, h / 2, 0, 0, 0, 0, 0])
+    names = ("car", "truck", "pedestrian", "bicycle")
+    mw, mh = WAYMO_MASK_WH
+    az = azimuth_grid(w_ri, torch.as_tensor(lidar_ext, device=dev))
+    ti = torch.as_tensor(incl, device=dev)
+    dirs = torch.stack([torch.cos(ti)[:, None] * torch.cos(az)[None],
+                        torch.cos(ti)[:, None] * torch.sin(az)[None],
+                        torch.sin(ti)[:, None].expand(h_ri, w_ri)], -1).reshape(-1, 3)
+    origin = torch.as_tensor(lidar_ext[:3, 3], device=dev, dtype=torch.float32)
+    lanes = [pose[:3, 3] + d[None] * np.linspace(-60, 60, 121)[:, None]
+             for d in (heading, _rotz(np.pi / 2) @ heading)]
+    for f in range(n_frames):
+        objects = []
+        for j in range(WAYMO_MASKS):
+            ci = j % len(WAYMO_CAMERAS)
+            yaw = WAYMO_CAMERAS[ci][0] + rng.uniform(-0.35, 0.35)
+            dist = rng.uniform(8.0, 45.0)
+            name = names[j % len(names)]
+            w, l, hgt = SHAPE_PRIORS_CHATGPT[name]
+            objects.append((name, ci, np.array([dist * np.cos(yaw), dist * np.sin(yaw), hgt / 2]),
+                            (w, l, hgt), rng.uniform(-np.pi, np.pi)))
+        # ray cast on the card: background, then the nearest box (slabs)
+        down = dirs[:, 2] < -1e-3
+        rng_bg = torch.where(down, -origin[2] / dirs[:, 2].clamp(max=-1e-3),
+                             torch.full_like(dirs[:, 0], 1e9)).clamp(max=75.0)
+        rng_bg = torch.where(dirs[:, 2] > 0.02, torch.full_like(rng_bg, -1.0), rng_bg)
+        best = torch.full_like(rng_bg, 1e9)
+        for _, _, center, size, yaw in objects:
+            rot = torch.as_tensor(_rotz(-yaw), device=dev, dtype=torch.float32)
+            o = rot @ (origin - torch.as_tensor(center, device=dev, dtype=torch.float32))
+            d = dirs @ rot.T
+            half = torch.as_tensor([size[1] / 2, size[0] / 2, size[2] / 2], device=dev)
+            inv = 1.0 / torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
+            t1, t2 = (-half - o) * inv, (half - o) * inv
+            t_near = torch.minimum(t1, t2).amax(-1)
+            t_far = torch.maximum(t1, t2).amin(-1)
+            hit = (t_near <= t_far) & (t_near > 0)
+            best = torch.where(hit, torch.minimum(best, t_near), best)
+        ri = torch.where(best < 1e8, best, rng_bg).reshape(h_ri, w_ri).cpu().numpy()
+        pose6 = np.zeros((h_ri, w_ri, 6), np.float32)
+        travel = (np.arange(w_ri) / w_ri - 0.5) * 2.0
+        pose6[..., 2] = pose_yaw
+        pose6[..., 3:6] = (pose[:3, 3][None] + travel[:, None] * heading[None])[None]
+
+        masks = np.zeros((WAYMO_MASKS, mw, mh), np.uint8)
+        labels, scores, cams, boxes = [], [], [], []
+        xs, ys = np.arange(mw)[:, None], np.arange(mh)[None, :]
+        for mi, (name, ci, center, size, yaw) in enumerate(objects):
+            corners = np.array([[sx * size[1] / 2, sy * size[0] / 2, sz * size[2] / 2]
+                                for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)])
+            pts = corners @ _rotz(yaw).T + center
+            cam = (pts - tms[ci][:3, 3]) @ tms[ci][:3, :3]  # optical frame
+            cam = cam[cam[:, 2] > 0.5]
+            _, wid, hei = WAYMO_CAMERAS[ci]
+            if len(cam):
+                u = (2000.0 * cam[:, 0] / cam[:, 2] + wid / 2) * WAYMO_IMAGE_RATIO
+                v = (2000.0 * cam[:, 1] / cam[:, 2] + hei / 2) * WAYMO_IMAGE_RATIO
+                u0, u1 = np.clip([u.min(), u.max()], 0, wid * WAYMO_IMAGE_RATIO - 1)
+                v0, v1 = np.clip([v.min(), v.max()], 0, hei * WAYMO_IMAGE_RATIO - 1)
+                if u1 - u0 > 2 and v1 - v0 > 2:
+                    cu, cv, ru, rv = (u0 + u1) / 2, (v0 + v1) / 2, (u1 - u0) / 2, (v1 - v0) / 2
+                    masks[mi] = ((xs - cu) / ru) ** 2 + ((ys - cv) / rv) ** 2 <= 1.0
+            labels.append(name)
+            scores.append(float(rng.uniform(0.3, 1.0)))
+            cams.append(ci)
+            boxes.append([*center, size[0], size[1], size[2], yaw])
+        store.write_frame(scene, f, FrameMasks(labels, scores, cams, masks))
+        jpegs = []
+        for _, wid, hei in WAYMO_CAMERAS:
+            grad = (np.add.outer(np.arange(hei) * 0.1, np.arange(wid) * 0.05) % 200 + 30)
+            im = np.repeat(grad[..., None], 3, -1).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(im).save(buf, format="JPEG", quality=70)
+            jpegs.append(np.frombuffer(buf.getvalue(), np.uint8))
+        obj_jpegs = np.empty(len(jpegs), object)
+        obj_jpegs[:] = jpegs
+        obj_lanes = np.empty(len(lanes), object)
+        obj_lanes[:] = lanes
+        np.savez(os.path.join(frames_root, scene, f"frame_{f:03d}.npz"),
+                 context_name=f"ctx_{scene}", timestamp_micros=np.int64(100_000 * (f + 1)),
+                 pose=pose, range_image=ri.astype(np.float32), range_image_pose=pose6,
+                 inclinations=incl, lidar_extrinsic=lidar_ext,
+                 cam_intrinsic=np.asarray(cam_intr), cam_extrinsic=np.asarray(cam_ext),
+                 cam_images_jpeg=obj_jpegs, lane_polylines=obj_lanes,
+                 labels_box=np.asarray(boxes), labels_type=np.ones(WAYMO_MASKS, np.int32),
+                 labels_num_points=np.full(WAYMO_MASKS, 50, np.int32),
+                 labels_id=np.array([f"o{j}" for j in range(WAYMO_MASKS)]))
+    store.mark_scene_complete(scene, n_frames)
+    return scene
+
+
+def _near_tie_rows(torch, rows, valid):
+    """Rows whose two smallest plain medoid sums lie within 1e-5 relative:
+    where the kernel's summation order may pick the other point."""
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows_plain
+
+    sums = torch.where(valid, medoid_distance_sums_rows_plain(rows, valid),
+                       torch.tensor(float("inf"), device=rows.device))
+    two = torch.topk(sums, 2, dim=1, largest=False).values
+    return (valid.sum(1) > 1) & ((two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs())
+
+
+def waymo_phase(torch) -> dict:
+    """The Waymo path on the card at real geometry (fabricate_waymo):
+    the frontend (range image unprojected on the card) against its CPU run,
+    B1 / B2 held to their plain versions on a batch-8 Waymo step's inputs,
+    the step counted and timed, 2 keyframes against the CPU lift (bit-equal
+    counts, medoid choices but for near ties, keep sets), run_lift_waymo end
+    to end, counted, then run_e2e_waymo on the tiny random-weight models;
+    B3 at full width on the mixed ring (a thumbnailed ring through the bf16
+    Detic Swin-B, every shape against the plain version, window_attn_phase)
+    and run_e2e_waymo at full width, counted and timed."""
+    import tempfile
+
+    from cm3d_tpu_torch.benchmarks import build_production_fake_models
+    from cm3d_tpu_torch.config import WAYMO_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
+    from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend, ring_images
+    from cm3d_tpu_torch.datasets.waymo.proto import decode_objects
+    from cm3d_tpu_torch.kernels.compact import compact_rows, compact_rows_plain
+    from cm3d_tpu_torch.kernels.medoid import (
+        medoid_distance_sums_rows, medoid_distance_sums_rows_plain)
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.models.swin import SWIN_TEST
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.pipelines.e2e import run_e2e_waymo
+    from cm3d_tpu_torch.pipelines.lift_waymo import run_lift_waymo
+    from cm3d_tpu_torch.pipelines.masks import build_fake_models
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_WAYMO
+
+    dev = torch.device("cuda")
+    out = {"config": "WAYMO_LIFT, batch 8, 5 cameras (3 x 1920x1280, 2 x 1920x886), "
+                     "64 x 2650 range image with pose image, 128 masks a keyframe"}
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_root, mask_dir = os.path.join(tmp, "frames"), os.path.join(tmp, "masks")
+        t0 = time.perf_counter()
+        scene = fabricate_waymo(torch, frames_root, mask_dir, WAYMO_FRAMES)
+        out["fabricate_s"] = time.perf_counter() - t0
+
+        # frontend: card against CPU
+        fe = WaymoFrontend(frames_root, MaskArtifactStore(mask_dir), WAYMO_LIFT, device=dev)
+        fe_cpu = WaymoFrontend(frames_root, MaskArtifactStore(mask_dir), WAYMO_LIFT,
+                               device="cpu")
+        t0 = time.perf_counter()
+        built = list(fe.iter_scene(scene))
+        out["frontend_s_per_frame"] = (time.perf_counter() - t0) / len(built)
+        check(len(built) == WAYMO_FRAMES, f"{WAYMO_FRAMES} Waymo keyframes built")
+        err = 0.0
+        for i, path in enumerate(fe_cpu.frame_files(scene)[:2]):
+            kf_cpu, _ = fe_cpu.build_keyframe(scene, i, fe_cpu.load_frame(path))
+            kf = built[i][0]
+            for f in ("point_valid", "mask_bits", "mask_cam", "mask_label", "mask_valid",
+                      "lane_points"):
+                check(np.array_equal(getattr(kf, f), getattr(kf_cpu, f)),
+                      f"Waymo keyframe {f}: card frontend equal to the CPU's")
+            err = max(err, float(np.abs(kf.points - kf_cpu.points).max()))
+        out["points_max_abs_err"] = err
+        check(err <= POINTS_ATOL, f"Waymo points card vs CPU within {POINTS_ATOL} m ({err:.3g})")
+        n_valid = [int(kf.point_valid.sum()) for kf, _ in built]
+        out["points_per_keyframe"] = n_valid
+        check(all(n == WAYMO_LIFT.max_points for n in n_valid),
+              f"the 131072-point cap cuts each range image: {n_valid}")
+
+        # B1 / B2 at Waymo's shapes, against their plain versions
+        host = stack_keyframes([kf for kf, _ in built])
+        frames = to_device(host.frames, dev)
+        step = make_keyframe_step_fn(WAYMO_LIFT, device=dev)
+        compactions, (rows, valid) = capture_kernel_inputs(torch, step, frames)
+        out["compaction_shapes"] = []
+        err = 0.0
+        for name, (sel, values, limit) in zip(STAGES, compactions):
+            got, want = compact_rows(sel, values, limit), compact_rows_plain(sel, values, limit)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"Waymo compaction {name} stage bit-exact vs plain")
+            out["compaction_shapes"].append({"stage": name, "rows": values.shape[0],
+                                             "sources": values.shape[2], "words": values.shape[1],
+                                             "limit": limit, "kept": int(
+                                                 sel.sum(1).clamp(max=limit).sum())})
+        check(out["compaction_shapes"][0]["rows"] == WAYMO_FRAMES * len(WAYMO_CAMERAS),
+              f"the camera stage has {WAYMO_FRAMES * len(WAYMO_CAMERAS)} rows")
+        sums, plain = medoid_distance_sums_rows(rows, valid), medoid_distance_sums_rows_plain(
+            rows, valid)
+        g, w = sums[valid], plain[valid]
+        rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) if g.numel() else 0.0
+        out["medoid"] = {"rows": rows.shape[0], "k": rows.shape[2], "max_rel_err": rel,
+                         "max_abs_err": float((g - w).abs().max()) if g.numel() else 0.0}
+        check(rel <= 1e-5, f"Waymo medoid sums within rtol 1e-5 of plain ({rel:.3g})")
+        near_tie = _near_tie_rows(torch, rows, valid)
+        del compactions, rows, valid
+
+        # the step, counted and timed
+        compact_rows.launches = medoid_distance_sums_rows.launches = 0
+        n_iters = 10
+        step(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_iters):
+            lift, boxes = step(frames)
+        torch.cuda.synchronize()
+        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_iters
+        out["keyframes_per_s"] = WAYMO_FRAMES * 1e3 / out["ms_per_step"]
+        out["launches_per_step"] = {
+            "compact_rows": compact_rows.launches / (n_iters + 1),
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches / (n_iters + 1)}
+        check(out["launches_per_step"] == {"compact_rows": 3, "medoid_distance_sums_rows": 1},
+              f"a Waymo step launches 3 compactions and 1 medoid: {out['launches_per_step']}")
+        out["kept_boxes"] = int(boxes.keep.sum())
+        check(bool(torch.isfinite(lift.centroids).all()) and out["kept_boxes"] > 0,
+              "Waymo step: finite centroids, boxes kept")
+
+        # 2 keyframes against the CPU lift
+        cpu_lift, cpu_boxes = make_keyframe_step_fn(WAYMO_LIFT, device="cpu")(
+            to_device(map_fields(lambda x: x[:2], host.frames), "cpu"))
+        for name, a, b in (("point_counts", lift.point_counts, cpu_lift.point_counts),
+                           ("has_points", lift.has_points, cpu_lift.has_points),
+                           ("truncated", lift.truncated, cpu_lift.truncated),
+                           ("cam_truncated", lift.cam_truncated, cpu_lift.cam_truncated),
+                           ("keep", boxes.keep, cpu_boxes.keep)):
+            check(torch.equal(a[:2].cpu(), b), f"Waymo {name} equal to the CPU path")
+        m = lift.centroids.shape[1]
+        same = (lift.centroids[:2].cpu() == cpu_lift.centroids).all(-1)
+        tie = near_tie.reshape(WAYMO_FRAMES, m)[:2].cpu()
+        check(bool((same | tie).all()), "Waymo medoids equal to the CPU's but for near ties")
+        out["medoids_differing"] = int((~same).sum())
+        out["near_tie_rows"] = int(tie.sum())
+
+        # run_lift_waymo end to end, counted
+        compact_rows.launches = medoid_distance_sums_rows.launches = 0
+        t0 = time.perf_counter()
+        n_obj = run_lift_waymo(frames_root, mask_dir, [scene], os.path.join(tmp, "pred.bin"),
+                               batch_size=WAYMO_FRAMES, verbose=False, device=dev)
+        out["run_lift_waymo_s"] = time.perf_counter() - t0
+        out["run_lift_waymo_launches"] = {
+            "compact_rows": compact_rows.launches,
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches}
+        objs = decode_objects(open(os.path.join(tmp, "pred.bin"), "rb").read())
+        check(n_obj == len(objs) > 0 and out["run_lift_waymo_launches"] == {
+            "compact_rows": 3, "medoid_distance_sums_rows": 1},
+            f"run_lift_waymo: {n_obj} objects, launches {out['run_lift_waymo_launches']}")
+        out["objects"] = n_obj
+
+        # the fused path on the tiny random-weight models: B3 on the mixed ring
+        models = build_fake_models(vocabulary=CUSTOM_VOCABULARY_WAYMO, device=dev)
+        for fn in (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        n = run_e2e_waymo(frames_root, [scene], os.path.join(tmp, "fused.bin"), models,
+                          batch_size=4, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        out["fused_s"] = time.perf_counter() - t0
+        out["fused_keyframes_lifted"] = n
+        out["fused_launches"] = {
+            "compact_rows": compact_rows.launches,
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches,
+            "window_attn_heads": window_attn_heads.launches,
+            "window_attn_proj": window_attn_proj.launches}
+        blocks = sum(SWIN_TEST.depths) * WAYMO_FRAMES
+        steps = -(-n // 4)
+        check(out["fused_launches"]["window_attn_heads"] == blocks
+              and out["fused_launches"]["window_attn_proj"] == blocks
+              and out["fused_launches"]["compact_rows"] == 3 * steps
+              and out["fused_launches"]["medoid_distance_sums_rows"] == steps,
+              f"fused Waymo: {blocks} + {blocks} window-attention launches on the mixed ring, "
+              f"3 + 1 a lift step ({steps} steps): {out['fused_launches']}")
+        del models
+
+        # B3 at full width on the mixed ring: one thumbnailed Waymo ring
+        # through the bf16 Detic Swin-B, every (stage, shift) shape held to
+        # the plain version as phase 4 holds nuScenes'
+        prod = build_production_fake_models("bfloat16", device=dev,
+                                            vocabulary=CUSTOM_VOCABULARY_WAYMO)
+        ring = ring_images(fe.load_frame_by_index(scene, 0))
+        out["ring_hw"] = [list(im.shape[:2]) for im in ring]
+        check(len({hw[0] for hw in out["ring_hw"]}) == 2,
+              f"the Waymo ring mixes two image heights: {out['ring_hw']}")
+        frame = prod.prepare(ring)
+        captured = capture_window_attn_inputs(torch, lambda: prod.detic(frame))
+        canvas_h = -(-max(h for h, _ in out["ring_hw"]) // 32) * 32
+        stage0 = tuple(captured[0][1][0].shape)
+        check(stage0 == (len(ring), canvas_h // 4, 1024 // 4, 128),
+              f"Swin-B's first stage on the Waymo canvas ({canvas_h} x 1024): {stage0}")
+        out["full_width_window_attn"] = [
+            {"channels": r["channels"], "shift": r["shift"], "shape": r["shape"],
+             "blocks_per_forward": r["blocks_per_forward"], "max_rel_err": r["max_rel_err"],
+             "f32_max_abs_err": r["f32_max_abs_err"],
+             **{f"{k}_{f}": r[k][f] for k in ("heads", "proj")
+                for f in ("ms", "plain_ms", "bound_ms")}}
+            for r in window_attn_phase(torch, captured)]
+        del captured
+        window_attn_heads.launches = window_attn_proj.launches = 0
+        prod.detic(frame)
+        torch.cuda.synchronize()
+        out["full_width_detic_launches"] = {"window_attn_heads": window_attn_heads.launches,
+                                            "window_attn_proj": window_attn_proj.launches}
+        check(out["full_width_detic_launches"] == {"window_attn_heads": SWIN_BLOCKS_PER_FORWARD,
+                                                   "window_attn_proj": SWIN_BLOCKS_PER_FORWARD},
+              f"one full-width Detic forward on the Waymo ring: 24 + 24 launches, got "
+              f"{out['full_width_detic_launches']}")
+        del frame
+
+        # the fused Waymo path at full width, counted and timed (first
+        # calls of SAM's encode and decode at these shapes included)
+        for fn in (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_full = run_e2e_waymo(frames_root, [scene], os.path.join(tmp, "full.bin"), prod,
+                               batch_size=4, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        out["full_width_fused_s"] = time.perf_counter() - t0
+        out["full_width_fused_s_per_keyframe"] = out["full_width_fused_s"] / max(n_full, 1)
+        out["full_width_fused_launches"] = {
+            "compact_rows": compact_rows.launches,
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches,
+            "window_attn_heads": window_attn_heads.launches,
+            "window_attn_proj": window_attn_proj.launches}
+        full_objs = decode_objects(open(os.path.join(tmp, "full.bin"), "rb").read())
+        out["full_width_objects"] = len(full_objs)
+        blocks = SWIN_BLOCKS_PER_FORWARD * WAYMO_FRAMES
+        steps = -(-n_full // 4)
+        check(n_full == WAYMO_FRAMES
+              and out["full_width_fused_launches"] == {
+                  "compact_rows": 3 * steps, "medoid_distance_sums_rows": steps,
+                  "window_attn_heads": blocks, "window_attn_proj": blocks},
+              f"full-width fused Waymo: {n_full} keyframes lifted, {blocks} + {blocks} "
+              f"window-attention launches, 3 + 1 a lift step: {out['full_width_fused_launches']}")
+        check(all(np.isfinite([o.box.center_x, o.box.center_y, o.box.center_z, o.box.length,
+                               o.box.width, o.box.height, o.box.heading, o.score]).all()
+                  for o in full_objs), "full-width fused Waymo objects are finite")
+        del prod
+    print(f"waymo: fabricate {out['fabricate_s']:.2f} s, frontend "
+          f"{out['frontend_s_per_frame']:.3f} s a frame, points card vs CPU max abs err "
+          f"{out['points_max_abs_err']:.3g} m; B1 stages {out['compaction_shapes']} bit-exact; "
+          f"B2 {out['medoid']}; step {out['ms_per_step']:.3f} ms "
+          f"({out['keyframes_per_s']:.1f} keyframes/s), launches a step "
+          f"{out['launches_per_step']}; CPU check: {out['medoids_differing']} medoids differ "
+          f"({out['near_tie_rows']} near-tie rows allowed to); run_lift_waymo {out['run_lift_waymo_s']:.2f} s, {out['objects']} "
+          f"objects; fused path {out['fused_s']:.2f} s, {n} keyframes lifted, launches "
+          f"{out['fused_launches']}; full width on the ring {out['ring_hw']}: Detic "
+          f"{out['full_width_detic_launches']}, fused path {out['full_width_fused_s']:.2f} s "
+          f"({out['full_width_fused_s_per_keyframe']:.3f} s a keyframe), {n_full} keyframes, "
+          f"{out['full_width_objects']} objects, launches {out['full_width_fused_launches']}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -2040,6 +2607,10 @@ def main(argv) -> int:
     cpu_check = mask_cpu_check(torch)
     e2e_check = e2e_cpu_check(torch)
 
+    # --- 15. released checkpoints, 16. the Waymo path ---
+    released = released_weights_phase(torch)
+    waymo = waymo_phase(torch)
+
     # --- 10.-14. the training path ---
     seg = segment_phase(torch, *capture_segment_inputs(torch))
     swin_t = swin_t_phase(torch)
@@ -2048,7 +2619,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     deterministic = deterministic_phases_in_child()
 
-    # --- 15. summary ---
+    # --- 17. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -2068,6 +2639,14 @@ def main(argv) -> int:
             "bound_by": "operations" if ops >= per_forward(name, "bytes_ms") else "bytes",
             "library_ms": None,
             "per": "one Detic forward: 24 launches, 6 cameras at 1024x576, bf16",
+            # the same kernels on loaded weights (one keyframe) and on the
+            # Waymo ring (8 keyframes: tiny Detic, then Swin-B)
+            "released_launches": released["launches"][f"window_attn_{name}"],
+            "waymo_fused_launches": waymo["fused_launches"][f"window_attn_{name}"],
+            "waymo_full_width_launches":
+                waymo["full_width_fused_launches"][f"window_attn_{name}"],
+            "waymo_full_width_max_rel_err": max(
+                r["max_rel_err"] for r in waymo["full_width_window_attn"]),
             **_per_forward_extras(wa, name, "blocks_per_forward"),
         }
 
@@ -2175,6 +2754,9 @@ def main(argv) -> int:
             "kernels_ms": None if any(s["kernels_ms"] is None for s in stages)
             else sum(s["kernels_ms"] for s in stages),
             "stages": stages,
+            # the Waymo lift: run_lift_waymo's launches, a step's shapes
+            "waymo_launches": waymo["run_lift_waymo_launches"]["compact_rows"],
+            "waymo_stages": waymo["compaction_shapes"],
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -2187,6 +2769,8 @@ def main(argv) -> int:
             "pairs": med["pairs"],
             "unordered_pairs": med["unordered_pairs"],
             "near_tie_rows": med["near_tie_rows"],
+            "waymo_launches": waymo["run_lift_waymo_launches"]["medoid_distance_sums_rows"],
+            "waymo_max_rel_err": waymo["medoid"]["max_rel_err"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
@@ -2213,7 +2797,8 @@ def main(argv) -> int:
                       "vit_h_encode_ab": encode_ab, "e2e_fused": e2e_fused,
                       "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check,
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
-                      "train_cpu_check": train_check, "deterministic": deterministic}),
+                      "train_cpu_check": train_check, "deterministic": deterministic,
+                      "released_weights": released, "waymo": waymo}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -80,30 +80,32 @@ def bench_lift(batch_size: int = 8, n_iters: int = 10, device=None) -> dict:
 
 
 def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0,
-                                 fused_window_attn: bool = False):
+                                 fused_window_attn: bool = False, vocabulary=None):
     """Full-width Detic Swin-B + SAM ViT-H (square encode) with random
     weights drawn from a torch.Generator seeded with `seed` (the FLOPs of
     converted checkpoints), built on `device` behind the standard batched
     wrappers. `fused_window_attn` runs SAM's 28 windowed blocks through the
-    fused kernels (same weights from the same seed)."""
+    fused kernels (same weights from the same seed). `vocabulary` is the
+    nuScenes one unless given."""
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
     from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
     from cm3d_tpu_torch.pipelines.masks import _batched_model_fns
     from cm3d_tpu_torch.utils.device import resolve_device
-    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES
 
     device = resolve_device(device)
+    vocabulary = vocabulary or CUSTOM_VOCABULARY_NUSCENES
     detic_cfg = dataclasses.replace(
         DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
     sam_cfg = dataclasses.replace(SAM_VIT_H, dtype=dtype, fused_window_attn=fused_window_attn)
     clf = np.random.default_rng(seed).standard_normal(
-        (detic_cfg.embed_dim, len(VOCAB))).astype(np.float32)
+        (detic_cfg.embed_dim, len(vocabulary))).astype(np.float32)
     with torch.device(device):
         gen = torch.Generator(device=device)
         detic = init_weights(Detic(detic_cfg), gen.manual_seed(seed))
         sam = init_weights(Sam(sam_cfg), gen.manual_seed(seed + 1))
-    return _batched_model_fns(detic, clf, sam, VOCAB, device=device)
+    return _batched_model_fns(detic, clf, sam, vocabulary, device=device)
 
 
 def _realistic_load(models, boxes_per_cam: int = 25, seed: int = 0):

@@ -227,3 +227,23 @@ class LiftStageConfig:
     max_points_per_camera: int = 32768  # per-camera frustum compaction depth
     max_points_in_masks: int = 8192  # per-camera any-mask union compaction depth
     max_lane_points: int = 32768  # padded per-scene lane points
+
+
+# Per-dataset presets (data only; as `cm3d_tpu/config.py`).
+NUSCENES_LIFT = LiftStageConfig()  # 3 sweeps, ratio 0.64 (reference defaults)
+WAYMO_LIFT = LiftStageConfig(
+    num_sweeps=1,  # single return, no aggregation (waymo/2d_to_3d.py:484-486)
+    image_ratio=1024.0 / 1920.0,  # :523
+    sqrt_min_dist_load_filter=False,  # no load-time filter on range images
+)
+KITTI_LIFT = LiftStageConfig(
+    num_sweeps=1,
+    image_ratio=0.8366,  # kitti/2d_to_3d.py:1103
+    sqrt_min_dist_load_filter=False,
+)
+
+DATASET_LIFT_PRESETS: Mapping[str, LiftStageConfig] = {
+    "nuscenes": NUSCENES_LIFT,
+    "waymo": WAYMO_LIFT,
+    "kitti": KITTI_LIFT,
+}

@@ -9,22 +9,20 @@ directory (as the JAX package's are) holding one `tree.pt`, written with
 pickled code. Tensors are saved from, and loaded to, the CPU; the caller
 copies them into its live tensors.
 
-Loading RELEASED checkpoints (Detic, SAM, CLIP) is not ported: it waits for
-checkpoint files in the repository (ROADMAP.md A6) and raises naming the
-item.
+`load_released_checkpoint` is the model CLIs' dispatch between such a
+directory (an already-converted state dict, saved with `save_params`) and a
+released torch file (Detic, SAM, CLIP), which goes through its converter in
+`models/convert.py`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 _FILE = "tree.pt"
-RELEASED_ITEM = ("loading released checkpoints is not ported yet (ROADMAP.md A6: "
-                 "models/clip_text.py and the converters of models/checkpoints.py wait "
-                 "for checkpoint files)")
 
 
 def _to_cpu(tree: Any) -> Any:
@@ -77,5 +75,11 @@ def _check_like(tree: Any, like: Any, where: str) -> None:
                              f"{tuple(like.shape)}")
 
 
-def load_released_checkpoint(*args, **kwargs):
-    raise NotImplementedError(RELEASED_ITEM)
+def load_released_checkpoint(path: str, convert_fn: Callable[[str], Any]) -> Any:
+    """Checkpoint dispatch for the model CLIs (the counterpart of
+    `cm3d_tpu/pipelines/masks.py load_converted`): a directory is an
+    already-converted tree (`save_params`), loaded as it is; a file is the
+    released torch checkpoint, converted on the fly by `convert_fn(path)`."""
+    if os.path.isdir(path):
+        return load_params(path)
+    return convert_fn(path)

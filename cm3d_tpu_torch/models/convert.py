@@ -1,24 +1,45 @@
-"""JAX-package Flax parameter trees -> the port's state dicts.
+"""Parameter conversion into the port's modules, from two sources.
 
-The port's modules carry the released torch checkpoints' parameter names,
-exactly the keys `cm3d_tpu/models/convert_detic.py` and
-`cm3d_tpu/models/convert_sam.py` read. Each function here is the inverse
-of that converter, so a Flax tree (nested dicts of numpy arrays) loads into
-the port with `load_state_dict`, and a released checkpoint loads with no
-mapping at all.
+1. JAX-package Flax parameter trees -> the port's state dicts
+   (`*_state_dict_from_flax`). The port's modules carry the released torch
+   checkpoints' parameter names, exactly the keys
+   `cm3d_tpu/models/convert_detic.py` and `cm3d_tpu/models/convert_sam.py`
+   read, so each function here is the inverse of that converter and a
+   Flax tree (nested dicts of numpy arrays) loads with `load_state_dict`.
+   Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv kernel
+   HWIO -> OIHW; Up2x2 kernel [2, 2, O, I] -> ConvTranspose2d weight
+   [I, O, 2, 2]; scalar leaves (`scale{li}`, `cls_bias`) -> shape [1], as
+   in the released checkpoints.
 
-Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv kernel
-HWIO -> OIHW; Up2x2 kernel [2, 2, O, I] -> ConvTranspose2d weight
-[I, O, 2, 2]; scalar leaves (`scale{li}`, `cls_bias`) -> shape [1], as in
-the released checkpoints.
+2. Released torch checkpoints (Detic, SAM, CLIP) -> the same state dicts
+   (`load_torch_state_dict`, `detic_state_dict_from_released`,
+   `clip_state_dict_from_released`, `load_released_state_dict`). The keys
+   already match (a SAM file loads as it is), so a released file needs
+   three things only:
+   - Detic's box-head `fc1.weight` has its input axis permuted from
+     detectron2's (c, y, x) flatten of the pooled ROI features to the
+     port's (y, x, c) (`fc1_from_detectron2`). DELIBERATE DIVERGENCE: the
+     JAX converter (`cm3d_tpu/models/convert_detic.py:110`) only transposes
+     this weight, so a released checkpoint loaded the JAX way feeds fc1
+     features in the wrong order; the port does not copy that omission.
+   - scalars take the port's shape (`centernet_head.scales.{li}.scale`,
+     `cls_score.cls_bias`, which is 0 when absent, as the JAX converter
+     sets it);
+   - CLIP's `text_encoder.` prefix (Detic's wrapper) is stripped.
+   Loading is strict in what the port reads: a missing key or a shape
+   mismatch raises; keys nothing reads (Swin's `relative_position_index` /
+   `attn_mask` buffers, the vision tower of a full CLIP file, optimizer and
+   EMA extras) are reported and ignored.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from cm3d_tpu_torch.models.detic import DETIC_SWINB, DeticConfig
 from cm3d_tpu_torch.models.sam import SAM_VIT_H, SamConfig
@@ -229,3 +250,99 @@ def bevfusion_state_dict_from_flax(params: dict, batch_stats: dict, cfg) -> dict
     _conv(out, "camera.cam_feat", cam["cam_feat"])
     _conv(out, "camera.cam_depth", cam["cam_depth"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Released torch checkpoints
+# ---------------------------------------------------------------------------
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A released checkpoint's tensors (CPU), from a plain state dict or a
+    trainer file holding one under "model" (detectron2's, beside
+    "iteration"). The file is read with `weights_only=True`, so no pickled
+    code runs; a file that needs more raises, naming it. Entries that are
+    not tensors (trainer state) are dropped."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError, AttributeError, TypeError) as e:
+        raise ValueError(
+            f"{path}: not loadable with torch.load(weights_only=True); the port "
+            f"loads tensors only and never unpickles code ({type(e).__name__}: "
+            f"{str(e).splitlines()[0] if str(e) else ''})") from e
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: expected a state dict, got {type(obj).__name__}")
+    if isinstance(obj.get("model"), dict):
+        obj = obj["model"]
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def fc1_from_detectron2(weight: torch.Tensor, channels: int, pooler: int) -> torch.Tensor:
+    """detectron2's box-head fc1 weight [out, C*P*P], input in (c, y, x)
+    order, -> the port's [out, P*P*C] in (y, x, c) order (its box head
+    flattens pooled [P, P, C] features)."""
+    out = weight.shape[0]
+    return (weight.reshape(out, channels, pooler, pooler).permute(0, 2, 3, 1)
+            .reshape(out, pooler * pooler * channels).contiguous())
+
+
+def detic_state_dict_from_released(sd: Dict[str, torch.Tensor],
+                                   cfg: DeticConfig = DETIC_SWINB) -> Dict[str, torch.Tensor]:
+    """A released Detic (detectron2) state dict -> the port's Detic keys:
+    fc1's input axis permuted, an absent `cls_bias` set to 0."""
+    out = dict(sd)
+    for k in range(cfg.num_cascade_stages):
+        key = f"roi_heads.box_head.{k}.fc1.weight"
+        if key in out and out[key].shape[-1] == cfg.fpn_dim * cfg.pooler_size ** 2:
+            out[key] = fc1_from_detectron2(out[key], cfg.fpn_dim, cfg.pooler_size)
+        out.setdefault(f"roi_heads.box_predictor.{k}.cls_score.cls_bias", torch.zeros(1))
+    return out
+
+
+def clip_state_dict_from_released(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A CLIP state dict (full model or text tower, bare keys or under
+    Detic's `text_encoder.` prefix) -> the port's ClipTextEncoder keys."""
+    pref = "text_encoder."
+    out = {k: v for k, v in sd.items() if not k.startswith(pref)}
+    out.update({k[len(pref):]: v for k, v in sd.items() if k.startswith(pref)})
+    return out
+
+
+def _fit(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A one-element tensor takes the port's shape ([] and [1] are one
+    scalar in the released files); anything else is left as it is."""
+    if value.numel() == 1 and like.numel() == 1:
+        return value.reshape(like.shape)
+    return value
+
+
+def released_report(module: nn.Module, sd: Dict[str, torch.Tensor]) -> dict:
+    """What loading `sd` into `module` would do: the keys it reads that `sd`
+    lacks ("missing"), the keys of `sd` nothing reads ("extra"), and shape
+    mismatches ("mismatched")."""
+    want = module.state_dict()
+    common = sorted(set(want) & set(sd))
+    return {
+        "missing": sorted(set(want) - set(sd)),
+        "extra": sorted(set(sd) - set(want)),
+        "mismatched": [
+            f"{k}: got {tuple(sd[k].shape)}, want {tuple(want[k].shape)}"
+            for k in common if _fit(sd[k], want[k]).shape != want[k].shape],
+    }
+
+
+def load_released_state_dict(module: nn.Module, sd: Dict[str, torch.Tensor],
+                             name: str = "checkpoint", verbose: bool = True) -> dict:
+    """Load `sd` into `module` under the JAX package's rule: missing keys
+    and shape mismatches raise (naming `name`), keys nothing reads are
+    reported and ignored. Returns the report (`released_report`)."""
+    rep = released_report(module, sd)
+    if rep["missing"] or rep["mismatched"]:
+        raise ValueError(
+            f"{name}: {len(rep['missing'])} missing keys {rep['missing'][:8]}, "
+            f"{len(rep['mismatched'])} shape mismatches {rep['mismatched'][:8]}")
+    if rep["extra"] and verbose:
+        print(f"{name}: ignored {len(rep['extra'])} keys nothing reads, e.g. "
+              f"{rep['extra'][:5]}")
+    want = module.state_dict()
+    module.load_state_dict({k: _fit(sd[k], want[k]) for k in want})
+    return rep

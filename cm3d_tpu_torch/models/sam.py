@@ -81,6 +81,19 @@ SAM_TEST = SamConfig(img_size=64, encoder_dim=32, encoder_depth=2,
                      encoder_heads=2, encoder_global_attn=(1,), window_size=2,
                      decoder_mlp_dim=64)
 
+# released checkpoint family (sam_vit_{h,l,b}_*.pth share one state-dict
+# layout; each size loads its own pos_embed and rel-pos table shapes)
+SAM_PRESETS = {"vit_h": SAM_VIT_H, "vit_l": SAM_VIT_L, "vit_b": SAM_VIT_B}
+
+
+def sam_config_for(size: str) -> SamConfig:
+    """Preset lookup for --sam_size CLI flags (vit_h | vit_l | vit_b)."""
+    try:
+        return SAM_PRESETS[size]
+    except KeyError:
+        raise ValueError(
+            f"unknown SAM size {size!r}; expected one of {sorted(SAM_PRESETS)}") from None
+
 
 def _check_ported(cfg: SamConfig) -> None:
     if not isinstance(cfg.fused_window_attn, bool):

@@ -6,6 +6,8 @@
 - `nms_2d_classwise`: class-wise axis-aligned 2D box NMS, replacing the
   reference's per-class `torchvision.ops.nms` loop
   (src/nuscenes/gen_2d_masks_detic.py:348-372).
+- `polygon_nms_keep`: rotated-box BEV NMS by intersection over the
+  candidate's own area (the reference's shapely polygon NMS).
 
 Boxes are sorted by score descending with a STABLE sort, so tie-breaking
 is deterministic.
@@ -110,3 +112,38 @@ def nms_2d_classwise(
     overlap = (lab[..., :, None] == lab[..., None, :]) & (iou > iou_threshold)
     keep_sorted = _greedy_keep_fixpoint(overlap, val)
     return torch.zeros_like(valid).scatter(-1, order, keep_sorted)
+
+
+def polygon_nms_keep(
+    boxes_bev: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    nms_threshold: float = 0.4,
+    score_threshold: float = 0.3,
+) -> torch.Tensor:
+    """Greedy rotated-box BEV NMS. boxes_bev: [N, 5] (cx, cy, w, l, yaw).
+    Mirrors `cm3d_tpu/ops/nms.py polygon_nms_keep`.
+
+    The reference ships (but never calls) a shapely polygon-NMS
+    (src/kitti/2d_to_3d.py nms:507-599); this has the SAME criterion: a
+    candidate is suppressed when a kept higher-scored box's intersection
+    covers more than nms_threshold of the CANDIDATE'S OWN area
+    (poly_compare :487-505 — inter/area[candidate], NOT IoU; defaults
+    0.4/0.3 from nms :524-536), and boxes scoring <= score_threshold are
+    dropped up front. The intersection comes from the exact rotated-IoU
+    clipper via inter = iou * (a_i + a_j) / (1 + iou). Tie-break: stable
+    descending score. Returns keep [N] bool.
+    """
+    from cm3d_tpu_torch.geometry.boxes import rotated_iou_bev
+
+    valid = valid & (scores > score_threshold)
+    neg = torch.where(valid, scores, -torch.inf)
+    order = torch.sort(-neg, stable=True).indices
+    b = boxes_bev[order]
+    val = valid[order]
+    area = torch.clamp(b[:, 2] * b[:, 3], min=1e-9)
+    iou = rotated_iou_bev(b, b)
+    inter = iou * (area[:, None] + area[None, :]) / (1.0 + iou)
+    overlap = inter / area[None, :]  # row i suppresses candidate column j
+    keep_sorted = _greedy_keep_fixpoint(overlap > nms_threshold, val)
+    return torch.zeros_like(valid).scatter(0, order, keep_sorted)

@@ -1,6 +1,8 @@
-"""The JAX CLIs' flags whose feature the port has not ported yet.
+"""Flags the masks and e2e CLIs share: the model flags (`--fake_weights`
+or the four released checkpoints; `pipelines/masks.py build_models` reads
+them) and the JAX CLIs' flags whose feature the port has not ported yet.
 
-The masks and e2e CLIs accept them, so that a JAX command line fails with a
+The CLIs accept the unported flags, so that a JAX command line fails with a
 NotImplementedError naming its ROADMAP item instead of argparse's usage
 error (exit 2).
 """
@@ -9,10 +11,6 @@ from __future__ import annotations
 
 # flag -> the ROADMAP item that ports its feature
 UNPORTED_FLAGS = {
-    "detic_ckpt": "A6 (checkpoint loading)",
-    "sam_ckpt": "A6 (checkpoint loading)",
-    "clip_ckpt": "A6 (CLIP text encoder + checkpoint loading)",
-    "bpe_path": "A6 (CLIP text encoder + checkpoint loading)",
     "quant_int8": "A12 (int8 w8a8)",
     "quant_static": "A12 (int8 w8a8)",
     "use_zoedepth": "A13 (ZoeDepth)",
@@ -26,11 +24,24 @@ UNPORTED_FLAGS = {
 _SWITCHES = ("quant_int8", "quant_static", "use_zoedepth", "gdino_bf16", "host_shard")
 
 
+def add_model_flags(p) -> None:
+    """`--fake_weights`, or the released checkpoints and the CLIP BPE file
+    with `--sam_size`, as the JAX CLIs spell them."""
+    p.add_argument("--fake_weights", action="store_true",
+                   help="tiny random-weight models (hermetic smoke run)")
+    p.add_argument("--detic_ckpt", default="",
+                   help="Detic Swin-B checkpoint (.pth), or a directory saved by save_params")
+    p.add_argument("--sam_ckpt", default="", help="SAM checkpoint matching --sam_size")
+    p.add_argument("--clip_ckpt", default="", help="CLIP (text tower) checkpoint")
+    p.add_argument("--bpe_path", default="", help="CLIP's bpe_simple_vocab_16e6.txt.gz")
+    p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"],
+                   help="SAM encoder scale matching --sam_ckpt (vit_h is the reference's)")
+
+
 def add_unported_flags(p) -> None:
-    """Accept the UNPORTED_FLAGS, `--sam_size`, `--detector` and every
-    `--dataset` of the JAX CLIs, as the JAX CLIs spell them."""
+    """Accept the UNPORTED_FLAGS, `--detector` and every `--dataset` of the
+    JAX CLIs, as the JAX CLIs spell them."""
     p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
-    p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"])
     p.add_argument("--detector", default="detic", choices=("detic", "gdino"))
     for flag in UNPORTED_FLAGS:
         if flag in _SWITCHES:
@@ -49,11 +60,5 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
     if args.detector != "detic":
         raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
-    if args.sam_size != "vit_h":
-        raise NotImplementedError(
-            "--sam_size selects a released checkpoint's encoder; checkpoint loading is "
-            "not ported yet (ROADMAP A6) and --fake_weights builds one fixed tiny model")
-    if args.dataset != "nuscenes":
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported yet "
-            f"(ROADMAP {'A8' if args.dataset == 'waymo' else 'A9'})")
+    if args.dataset == "kitti":
+        raise NotImplementedError("--dataset kitti is not ported yet (ROADMAP A9)")

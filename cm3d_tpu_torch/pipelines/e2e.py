@@ -1,5 +1,5 @@
 """Fused pseudo-label pipeline: images -> masks -> 3D boxes in ONE process.
-Mirrors `cm3d_tpu/pipelines/e2e.py` for nuScenes.
+Mirrors `cm3d_tpu/pipelines/e2e.py` for nuScenes and Waymo.
 
 The reference is two CLIs glued by an on-disk artifact store
 (gen_2d_masks_detic.py writes {frame}_data.json + {frame}_masks.pkl,
@@ -16,6 +16,9 @@ two-stage contract (resume, parity testing) is preserved.
 Usage:
   python -m cm3d_tpu_torch.pipelines.e2e --dataroot D --version v1.0-mini \\
       --scenes scene-0061 --out preds.json --fake_weights [--device cpu]
+  python -m cm3d_tpu_torch.pipelines.e2e --dataset waymo --dataroot F \\
+      --scenes segment-... --out pred.bin --detic_ckpt D --sam_ckpt S \\
+      --clip_ckpt C --bpe_path B
 """
 
 from __future__ import annotations
@@ -32,8 +35,10 @@ import torch
 from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
-from cm3d_tpu_torch.pipelines.cli_flags import add_unported_flags, refuse_unported
-from cm3d_tpu_torch.pipelines.masks import MaskModels, start_frame_masks, write_frame_artifacts
+from cm3d_tpu_torch.pipelines.cli_flags import (
+    add_model_flags, add_unported_flags, refuse_unported)
+from cm3d_tpu_torch.pipelines.masks import (
+    MaskModels, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
 from cm3d_tpu_torch.utils.fetch import TreeFetch
 from cm3d_tpu_torch.utils.observability import MaskCounters
@@ -285,6 +290,96 @@ def run_e2e(
     return submission
 
 
+def run_e2e_waymo(
+    frames_root: str,
+    scenes: List[str],
+    out_path: str,
+    models: MaskModels,
+    lift_cfg: Optional[LiftStageConfig] = None,
+    mask_cfg: MaskStageConfig = MaskStageConfig(),
+    thumbnail: int = 1024,
+    mask_dir: Optional[str] = None,
+    batch_size: int = 4,
+    verbose: bool = True,
+    mask_wh: Optional[tuple] = None,
+    device=None,
+) -> int:
+    """Fused Waymo pipeline: raw .tfrecord segments (or frame-lite npz) ->
+    images -> masks -> boxes -> metrics_pb2 Objects .bin, one process.
+    Returns the number of keyframes lifted.
+
+    The reference runs waymo/gen_2d_masks_detic.py then waymo/2d_to_3d.py
+    glued by the artifact store; here the mask stage's device bit-planes
+    drop straight into the Keyframe (same fusion as the nuScenes run_e2e).
+    With mask_wh=None the plane canvas comes from the thumbnailed images
+    (the max over the ring: Waymo's front cameras are taller than its side
+    cameras, but the camera set is fixed, so the canvas is the same every
+    frame); the lift reads the canvas off the planes.
+    """
+    from cm3d_tpu_torch.config import WAYMO_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.waymo.frontend import (
+        WaymoFrontend, boxes_to_waymo_objects, ring_images)
+    from cm3d_tpu_torch.datasets.waymo.proto import encode_objects
+
+    if lift_cfg is None:
+        lift_cfg = WAYMO_LIFT
+    if mask_cfg.max_masks_total != lift_cfg.max_masks:
+        raise ValueError(
+            f"the fused path needs the mask stage's bit-plane capacity "
+            f"(MaskStageConfig.max_masks_total = {mask_cfg.max_masks_total}) to equal the "
+            f"lift's padded mask count (LiftStageConfig.max_masks = {lift_cfg.max_masks})")
+    device = resolve_device(device)
+    lift_cfg = _scale_ratio_for_thumbnail(lift_cfg, thumbnail)
+    store = MaskArtifactStore(mask_dir) if mask_dir else None
+    # every keyframe gets its masks from the decode (`packed`), so the
+    # frontend never reads a store; it needs one all the same
+    frontend = WaymoFrontend(frames_root, store or MaskArtifactStore(frames_root), lift_cfg,
+                             device=device, **({"mask_wh": mask_wh} if mask_wh else {}))
+    step = make_keyframe_step_fn(lift_cfg, device=device)
+    all_objects: list = []
+    t0 = time.perf_counter()
+
+    def frame_source():
+        for scene in scenes:
+            n = frontend.num_frames(scene)
+            for i in range(n):
+                fr = frontend.load_frame_by_index(scene, i)
+                images = ring_images(fr, thumbnail)
+
+                def assemble(handle, scene=scene, i=i, fr=fr, n=n):
+                    # artifact write + completion marking on the main thread
+                    # in frame order (see run_e2e)
+                    if store is not None:
+                        write_frame_artifacts(store, scene, i, handle)
+                        if i == n - 1:
+                            store.mark_scene_complete(scene, n)
+                    if handle["planes"] is None:
+                        return None
+                    packed = (handle["labels"], handle["scores"], handle["cams"],
+                              handle["planes"])
+                    return frontend.build_keyframe(scene, i, fr, packed)
+
+                yield images, assemble
+
+    def on_boxes(meta, boxes):
+        all_objects.extend(boxes_to_waymo_objects(
+            meta, boxes.centers, boxes.sizes, boxes.yaws, boxes.scores, boxes.labels,
+            boxes.keep))
+
+    counters = MaskCounters()
+    n_frames = run_fused(models, step, frame_source(), mask_cfg, on_boxes, batch_size,
+                         counters=counters, mask_wh=mask_wh, device=device)
+    with open(out_path, "wb") as f:
+        f.write(encode_objects(all_objects))
+    if verbose:
+        dt = time.perf_counter() - t0
+        print(f"e2e waymo: {n_frames} keyframes -> {len(all_objects)} objects in "
+              f"{dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} kf/s)")
+        print(counters.report())
+    return n_frames
+
+
 def merge_submissions(paths: List[str], out_path: str) -> dict:
     """Merge submission JSONs over disjoint sample sets (runs split by
     scene) into one. Duplicate sample tokens concatenate."""
@@ -301,9 +396,18 @@ def merge_submissions(paths: List[str], out_path: str) -> dict:
     return merged
 
 
+def merge_host_outputs(paths: List[str], out: str, dataset: str = "nuscenes") -> None:
+    """The JAX package's merge of per-host `--host_shard` outputs; not
+    ported (the port has no multi-host run to merge yet)."""
+    raise NotImplementedError("merge_host_outputs: --host_shard is not ported yet "
+                              "(ROADMAP A14)")
+
+
 def main(argv=None):
-    """CLI: the fused nuScenes pipeline on the port (CUDA unless --device
-    says otherwise)."""
+    """CLI: the fused nuScenes / Waymo pipeline on the port (CUDA unless
+    --device says otherwise)."""
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, CUSTOM_VOCABULARY_WAYMO
+
     p = argparse.ArgumentParser(
         description="CM3D fused images->masks->boxes pipeline (PyTorch port)")
     p.add_argument("--dataroot", required=True)
@@ -316,9 +420,7 @@ def main(argv=None):
     p.add_argument("--run_nms", type=int, default=-1,
                    help="class-wise 2D NMS before SAM prompting: 1 on / 0 off / "
                    "-1 dataset default (on)")
-    p.add_argument("--fake_weights", action="store_true",
-                   help="tiny random-weight models (hermetic smoke run); required "
-                   "until checkpoint loading is ported")
+    add_model_flags(p)
     p.add_argument("--rect_encode", action="store_true",
                    help="SAM rectangle encode (faster; small deviation)")
     p.add_argument("--encode_chunk", type=int, default=1,
@@ -328,19 +430,20 @@ def main(argv=None):
     add_unported_flags(p)
     args = p.parse_args(argv)
     refuse_unported(args)
-    if not args.fake_weights:
-        p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
 
-    from cm3d_tpu_torch.pipelines.masks import build_fake_models
-
-    models = build_fake_models(rect_encode=args.rect_encode, encode_chunk=args.encode_chunk,
-                               device=args.device)
+    # the reference's Waymo vocabulary drops cone/barrier
+    # (waymo/gen_2d_masks_detic.py:66-87), as in the masks CLI
+    waymo = args.dataset == "waymo"
+    models = build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
+                          else CUSTOM_VOCABULARY_NUSCENES, args.device)
     run_nms = True if args.run_nms < 0 else bool(args.run_nms)
-    run_e2e(
-        args.dataroot, args.version, args.scenes.split(","), args.out, models,
-        mask_cfg=MaskStageConfig(run_nms=run_nms), thumbnail=args.thumbnail,
-        mask_dir=args.mask_dir or None, device=args.device,
-    )
+    common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms), thumbnail=args.thumbnail,
+                  mask_dir=args.mask_dir or None, device=args.device)
+    scenes = args.scenes.split(",")
+    if waymo:
+        run_e2e_waymo(args.dataroot, scenes, args.out, models, **common)
+    else:
+        run_e2e(args.dataroot, args.version, scenes, args.out, models, **common)
 
 
 if __name__ == "__main__":

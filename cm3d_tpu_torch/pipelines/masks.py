@@ -17,7 +17,8 @@ event), so a waiting thread blocks only on that producer, not on the work
 queued after it.
 
     python -m cm3d_tpu_torch.pipelines.masks --dataroot ROOT --out_dir OUT \\
-        --fake_weights [--device cpu]
+        [--dataset waymo] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
+        --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--device cpu]
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import torch
 from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
-from cm3d_tpu_torch.pipelines.cli_flags import add_unported_flags, refuse_unported
+from cm3d_tpu_torch.pipelines.cli_flags import (
+    add_model_flags, add_unported_flags, refuse_unported)
 from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
@@ -460,6 +462,87 @@ def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
                               encode_chunk=encode_chunk)
 
 
+def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: str,
+                      vocabulary=CUSTOM_VOCABULARY_NUSCENES, dtype: str = "bfloat16",
+                      rect_encode: bool = False, encode_chunk: int = 1,
+                      sam_size: str = "vit_h", quant_int8: bool = False,
+                      quant_static: bool = False, detic_used: bool = True,
+                      device=None, verbose: bool = True) -> MaskModels:
+    """Full-size Detic Swin-B and SAM (`sam_size`) from the released
+    checkpoints, the classifier from CLIP's text encoder over `vocabulary`,
+    behind the same batched wrappers as `build_fake_models`.
+
+    Each checkpoint is a released torch file (converted on the fly,
+    `models/convert.py`) or a directory of an already-converted state dict
+    (`models/checkpoints.py load_released_checkpoint`). The modules are
+    built on `device` (CUDA unless told otherwise) and loaded strictly:
+    a missing key or a shape mismatch raises, keys nothing reads are
+    reported. The vocabulary is embedded once, in f32 with TF32 off.
+    sam_size picks the SAM encoder scale (vit_h = the reference's
+    sam_vit_h_4b8939.pth; vit_l / vit_b are the released smaller
+    checkpoints, a documented speed/quality deviation)."""
+    from cm3d_tpu_torch.models.checkpoints import load_released_checkpoint
+    from cm3d_tpu_torch.models.clip_text import (
+        CLIP_TEXT_B32, ClipTextEncoder, SimpleTokenizer, embed_vocabulary)
+    from cm3d_tpu_torch.models.convert import (
+        clip_state_dict_from_released, detic_state_dict_from_released,
+        load_released_state_dict, load_torch_state_dict)
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
+    from cm3d_tpu_torch.models.sam import Sam, sam_config_for
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32_scope
+
+    if quant_int8 or quant_static:
+        raise NotImplementedError("--quant_int8 / --quant_static: int8 w8a8 is not ported "
+                                  "yet (ROADMAP A12)")
+    if not detic_used:
+        raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
+    device = resolve_device(device)
+    detic_cfg = dataclasses.replace(
+        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
+    sam_cfg = dataclasses.replace(sam_config_for(sam_size), dtype=dtype,
+                                  rect_encode=rect_encode)
+    loads = (
+        ("Detic", detic_ckpt, lambda: Detic(detic_cfg),
+         lambda p: detic_state_dict_from_released(load_torch_state_dict(p), detic_cfg)),
+        ("SAM", sam_ckpt, lambda: Sam(sam_cfg), load_torch_state_dict),
+        ("CLIP", clip_ckpt, lambda: ClipTextEncoder(CLIP_TEXT_B32),
+         lambda p: clip_state_dict_from_released(load_torch_state_dict(p))),
+    )
+    modules = []
+    for name, path, make, convert in loads:
+        sd = load_released_checkpoint(path, convert)
+        with torch.device(device):
+            module = make()
+        load_released_state_dict(module, sd, f"{name} {path}", verbose=verbose)
+        modules.append(module)
+        del sd
+    detic, sam, clip = modules
+    with strict_f32_scope():
+        classifier = embed_vocabulary(clip, SimpleTokenizer.from_file(bpe_path),
+                                      list(vocabulary))
+    return _batched_model_fns(detic, classifier, sam, vocabulary, device=device,
+                              encode_chunk=encode_chunk)
+
+
+def build_models(p, args, vocabulary, device) -> MaskModels:
+    """The MaskModels the CLI flags (`cli_flags.add_model_flags`) ask for:
+    the tiny random-weight models with `--fake_weights`, else the released
+    checkpoints (all four paths, or argparse's error through `p`, as in
+    JAX)."""
+    if args.fake_weights:
+        return build_fake_models(vocabulary=vocabulary, rect_encode=args.rect_encode,
+                                 encode_chunk=args.encode_chunk, device=device)
+    missing = [f"--{f}" for f in ("detic_ckpt", "sam_ckpt", "clip_ckpt", "bpe_path")
+               if not getattr(args, f)]
+    if missing:
+        p.error(f"pass --fake_weights, or all of --detic_ckpt --sam_ckpt --clip_ckpt "
+                f"--bpe_path (missing: {' '.join(missing)})")
+    return build_real_models(args.detic_ckpt, args.sam_ckpt, args.clip_ckpt, args.bpe_path,
+                             vocabulary=vocabulary, rect_encode=args.rect_encode,
+                             encode_chunk=args.encode_chunk, sam_size=args.sam_size,
+                             device=device)
+
+
 def _nuscenes_provider(args):
     from PIL import Image
 
@@ -482,19 +565,36 @@ def _nuscenes_provider(args):
     return provider, scene_names, lambda s: len(samples[s])
 
 
+def _waymo_provider(args):
+    """Per-camera JPEGs from frame-lite npz OR raw .tfrecord segments
+    (reference waymo/gen_2d_masks_detic.py decodes them from the Frame
+    proto; raw ingestion here is TF-free via datasets.waymo.frame_proto).
+    The ring is mixed: front cameras 1920x1280, side cameras 1920x886."""
+    from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend, ring_images
+
+    fe = WaymoFrontend(args.dataroot, MaskArtifactStore(args.out_dir))
+    scene_names = args.scenes.split(",") if args.scenes else fe.scene_names()
+
+    def provider(scene, frame):
+        return ring_images(fe.load_frame_by_index(scene, frame, want_pose=False),
+                           args.thumbnail)
+
+    return provider, scene_names, fe.num_frames
+
+
 def main(argv=None):
-    """CLI: the nuScenes 2D mask stage on the port (CUDA unless --device
-    says otherwise)."""
+    """CLI: the nuScenes / Waymo 2D mask stage on the port (CUDA unless
+    --device says otherwise)."""
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_WAYMO
+
     p = argparse.ArgumentParser(description="CM3D 2D mask generation stage (PyTorch port)")
-    p.add_argument("--dataroot", required=True, help="nuScenes root")
+    p.add_argument("--dataroot", required=True, help="nuScenes root / waymo frame-lite root")
     p.add_argument("--version", default="v1.0-mini")
     p.add_argument("--out_dir", required=True)
     p.add_argument("--scenes", default="", help="comma-separated scenes")
     p.add_argument("--thumbnail", type=int, default=1024)  # reference :293
     p.add_argument("--run_nms", type=int, default=-1, help="-1 = dataset default (on)")
-    p.add_argument("--fake_weights", action="store_true",
-                   help="tiny random-weight models (hermetic smoke run); required "
-                   "until checkpoint loading is ported")
+    add_model_flags(p)
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--rect_encode", action="store_true",
                    help="SAM encodes without square padding (small documented "
@@ -506,12 +606,11 @@ def main(argv=None):
     add_unported_flags(p)
     args = p.parse_args(argv)
     refuse_unported(args)
-    if not args.fake_weights:
-        p.error("checkpoint loading is not ported yet (ROADMAP A6): pass --fake_weights")
 
-    provider, scene_names, frames_fn = _nuscenes_provider(args)
-    models = build_fake_models(rect_encode=args.rect_encode, encode_chunk=args.encode_chunk,
-                               device=args.device)
+    waymo = args.dataset == "waymo"
+    provider, scene_names, frames_fn = (_waymo_provider if waymo else _nuscenes_provider)(args)
+    vocab = CUSTOM_VOCABULARY_WAYMO if waymo else CUSTOM_VOCABULARY_NUSCENES
+    models = build_models(p, args, vocab, args.device)
     run_nms = True if args.run_nms < 0 else bool(args.run_nms)
     cfg = MaskStageConfig(run_nms=run_nms, thumbnail=args.thumbnail)
     run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,

@@ -118,6 +118,13 @@ def test_port_imports_neither_jax_nor_cm3d_tpu():
         "import cm3d_tpu_torch.models.swin, cm3d_tpu_torch.models.detic\n"
         "import cm3d_tpu_torch.models.sam, cm3d_tpu_torch.models.convert\n"
         "import cm3d_tpu_torch.ops.maskpack, cm3d_tpu_torch.ops.roi_align, cm3d_tpu_torch.vocab\n"
+        "import cm3d_tpu_torch.models.clip_text, cm3d_tpu_torch.models.verify_convert\n"
+        "import cm3d_tpu_torch.models.checkpoints, cm3d_tpu_torch.pipelines.e2e\n"
+        "import cm3d_tpu_torch.ops.range_image, cm3d_tpu_torch.ops.nms\n"
+        "import cm3d_tpu_torch.datasets.waymo, cm3d_tpu_torch.datasets.waymo.frontend\n"
+        "import cm3d_tpu_torch.datasets.waymo.frame_proto, cm3d_tpu_torch.pipelines.lift_waymo\n"
+        "import cm3d_tpu_torch.geometry.boxes, cm3d_tpu_torch.eval.waymo_metrics\n"
+        "import cm3d_tpu_torch.native, cm3d_tpu_torch.config\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'flax' or m == 'cm3d_tpu' or m.startswith('cm3d_tpu.'))\n"
         "print(','.join(bad))\n"

@@ -911,3 +911,100 @@ def test_pillarize_and_splat_on_card_match_cpu(cuda):
     torch.testing.assert_close(results[1][2], results[0][2], rtol=1e-5, atol=1e-6)
     assert (segment_sum_max.launches, segment_sum.launches, segment_sum_bwd.launches) == (
         before[0] + 1, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("with_pose", [False, True])
+def test_range_image_on_card_matches_cpu(cuda, with_pose):
+    """The Waymo range-image unprojection at the TOP lidar's 64 x 2650 on the
+    card against the CPU: validity equal, points within 2e-3 m (f32 through
+    the global frame, around 3000 m, where TF32 would cost metres; the op
+    has no matmul, so no backend flag can switch it to TF32)."""
+    from cm3d_tpu_torch.ops.range_image import pixel_pose_matrices, range_image_to_points
+
+    rng = np.random.default_rng(0)
+    h, w = 64, 2650
+    ri = rng.uniform(2, 75, (h, w)).astype(np.float32)
+    ri[rng.random((h, w)) < 0.1] = -1.0
+    incl = np.linspace(0.04, -0.3, h).astype(np.float32)
+    ext = np.eye(4, dtype=np.float32)
+    ext[:3, 3] = [1.4, 0.0, 2.2]
+    pose6 = np.zeros((h, w, 6), np.float32)
+    pose6[..., 2] = 0.7
+    pose6[..., 3:6] = [3000.0, -1200.0, 30.0]
+    pose6[..., 3] += np.linspace(-1, 1, w, dtype=np.float32)[None]
+    frame = np.eye(4)
+    frame[:2, :2] = [[np.cos(0.7), -np.sin(0.7)], [np.sin(0.7), np.cos(0.7)]]
+    frame[:3, 3] = [3000.0, -1200.0, 30.0]
+    inv = np.linalg.inv(frame).astype(np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = True  # must not matter
+    try:
+        out = []
+        for device in (torch.device("cpu"), cuda):
+            kw = {}
+            if with_pose:
+                kw = dict(pixel_pose=pixel_pose_matrices(torch.from_numpy(pose6).to(device)),
+                          frame_pose_inv=torch.from_numpy(inv).to(device))
+            pts, valid = range_image_to_points(torch.from_numpy(ri).to(device),
+                                               torch.from_numpy(incl).to(device),
+                                               torch.from_numpy(ext).to(device), **kw)
+            out.append((pts.cpu(), valid.cpu()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(out[0][1], out[1][1]) and 0 < int(out[0][1].sum()) < h * w
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=2e-3)
+
+
+def test_released_checkpoints_load_at_full_size_on_card(cuda, tmp_path):
+    """build_real_models on the card from full-size released files (Detic
+    Swin-B with fc1 in detectron2's (c, y, x) order, SAM ViT-H, CLIP B/32
+    under Detic's prefix; seeded random weights): every key read, the
+    classifier [512, 19] of unit columns, one Detic forward's boxes
+    finite."""
+    import dataclasses
+    import gzip
+
+    from cm3d_tpu_torch.models.clip_text import CLIP_TEXT_B32, ClipTextEncoder, init_clip_weights
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
+    from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
+    from cm3d_tpu_torch.pipelines import masks
+
+    gen = torch.Generator(device=cuda)
+    with torch.device(cuda):
+        detic = init_weights(Detic(DETIC_SWINB), gen.manual_seed(0))
+        sam = init_weights(Sam(SAM_VIT_H), gen.manual_seed(1))
+        clip = init_clip_weights(ClipTextEncoder(CLIP_TEXT_B32), gen.manual_seed(2))
+    sd = {k: v.cpu() for k, v in detic.state_dict().items()}
+    p, c = DETIC_SWINB.pooler_size, DETIC_SWINB.fpn_dim
+    for k in range(DETIC_SWINB.num_cascade_stages):
+        w = sd[f"roi_heads.box_head.{k}.fc1.weight"]
+        sd[f"roi_heads.box_head.{k}.fc1.weight"] = (
+            w.reshape(-1, p, p, c).permute(0, 3, 1, 2).reshape(w.shape))
+    torch.save({"model": sd, "iteration": 1}, tmp_path / "detic.pth")
+    torch.save({k: v.cpu() for k, v in sam.state_dict().items()}, tmp_path / "sam.pth")
+    torch.save({f"text_encoder.{k}": v.cpu() for k, v in clip.state_dict().items()},
+               tmp_path / "clip.pt")
+    with gzip.open(tmp_path / "bpe.txt.gz", "wt", encoding="utf-8") as f:
+        f.write("#version: toy\nc a\nca r</w>")
+    seen = {}
+    real = masks._batched_model_fns
+
+    def spy(detic_model, classifier, sam_model, vocabulary, **kw):
+        seen.update(detic=detic_model, classifier=classifier)
+        return real(detic_model, classifier, sam_model, vocabulary, **kw)
+
+    masks._batched_model_fns = spy
+    try:
+        models = masks.build_real_models(str(tmp_path / "detic.pth"), str(tmp_path / "sam.pth"),
+                                         str(tmp_path / "clip.pt"), str(tmp_path / "bpe.txt.gz"),
+                                         device=cuda)
+    finally:
+        masks._batched_model_fns = real
+    assert seen["classifier"].shape == (512, 19)
+    np.testing.assert_allclose(np.linalg.norm(seen["classifier"], axis=0), 1.0, atol=1e-5)
+    got = seen["detic"].state_dict()
+    torch.testing.assert_close(got["roi_heads.box_head.0.fc1.weight"].float().cpu(),
+                               detic.state_dict()["roi_heads.box_head.0.fc1.weight"].cpu()
+                               .to(got["roi_heads.box_head.0.fc1.weight"].dtype).float())
+    boxes = models.detic(models.prepare([np.full((576, 1024, 3), 100, np.uint8)] * 2))[0]
+    assert bool(torch.isfinite(boxes).all())

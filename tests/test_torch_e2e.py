@@ -310,12 +310,14 @@ def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch
     assert MaskArtifactStore(world["tmp"] / "cli_masks").completed_scenes() == {world["scene"]}
     for extra, item in ((["--quant_int8"], "A12"), (["--detector", "gdino"], "A13"),
                         (["--camera_mesh", "2"], "A14"), (["--host_shard"], "A14"),
-                        (["--sam_ckpt", "x.pth"], "A6"), (["--sam_size", "vit_b"], "A6"),
-                        (["--dataset", "waymo"], "A8"), (["--dataset", "kitti"], "A9")):
+                        (["--dataset", "kitti"], "A9")):
         with pytest.raises(NotImplementedError, match=item):
             e2e.main(argv + extra)
-    with pytest.raises(SystemExit):  # checkpoint loading is not ported
-        e2e.main([a for a in argv if a != "--fake_weights"])
+    # the checkpoint flags are ported (A6): without --fake_weights all four
+    # paths are needed, else argparse's error
+    for extra in ([], ["--sam_ckpt", "x.pth", "--sam_size", "vit_b"]):
+        with pytest.raises(SystemExit):
+            e2e.main([a for a in argv if a != "--fake_weights"] + extra)
 
 
 def test_bench_e2e_protocol_at_a_tiny_geometry(monkeypatch):

@@ -386,8 +386,11 @@ def test_checkpoint_save_and_load(tmp_path):
         load_params(str(tmp_path / "ck"), like={**tree, "params": {"w": torch.zeros(3, 2)}})
     with pytest.raises(TypeError, match="unsupported leaf"):
         save_params({"fn": print}, str(tmp_path / "bad"))
-    with pytest.raises(NotImplementedError, match="A6"):
-        load_released_checkpoint("detic.pth")
+    # a directory loads the port's own tree; a file goes to the converter
+    assert set(load_released_checkpoint(str(tmp_path / "ck"), None)) == set(tree)
+    with pytest.raises(FileNotFoundError):
+        load_released_checkpoint(str(tmp_path / "detic.pth"),
+                                 lambda p: torch.load(p, weights_only=True))
 
 
 def test_train_benchmarks_run_small_on_the_cpu():
