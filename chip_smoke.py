@@ -122,7 +122,7 @@ Phases, each of which raises on a failed check (exit code != 0):
    augmentation, EMA, clip and cosine schedule: bit-equal parameters, batch
    statistics, optimizer moments and EMA.
 
-Phases 15 and 16 run after phase 9, before the training phases.
+Phases 15-17 run after phase 9, before the training phases.
 15. Released weights: full-width Detic Swin-B, SAM ViT-H and CLIP B/32
    from seeded random weights, written as released files (detectron2's
    layout with fc1 in (c, y, x) order, SAM's keys, CLIP's under Detic's
@@ -145,7 +145,24 @@ Phases 15 and 16 run after phase 9, before the training phases.
    projection held to their plain versions at each of its 8 (stage, shift)
    shapes as in phase 4, 24 + 24 launches a forward; and run_e2e_waymo at
    full width (Swin-B + ViT-H), counted and timed.
-17. One JSON line per kernel summary, then the card's name and power limit,
+17. KITTI: 8 frames at real geometry fabricated here (a 64 x 1900 velodyne
+   sweep ray-cast on the card, about 120k points; calib txts of three
+   drives with P2's baseline column; image_2 PNGs at KITTI's mixed native
+   sizes; label_2 with the boxes; masks on the 1024 x 320 canvas): the
+   frontend's calibration chain projected on the card against the CPU and
+   the f64 host chain (within 1e-2 px); B1 / B2 on a batch-8 KITTI step's
+   inputs against their plain versions (the camera stage at R = 8 rows);
+   the step counted (3 + 1 launches) and timed (ms a step, keyframes/s); 2
+   keyframes against the CPU lift; run_lift_kitti counted and its pred/
+   scored by eval/kitti.py against label_2 (the AP table printed, finite);
+   run_e2e_kitti on the tiny models over the mixed sizes (309 and 310 row
+   thumbnails on the pinned 1024 x 320 canvas); B3 held to its plain version
+   at the KITTI frame's 8 shapes of a full-width Detic forward as in phase 4
+   and run_e2e_kitti at full width (Swin-B + ViT-H, unfused SAM), 24 + 24
+   launches a keyframe, counted and timed; one KITTI frame encoded with
+   SAM's windowed blocks fused against unfused (within ENCODE_AB_TOL, 28 +
+   28 launches) and B4 held to its plain version at that grid as in phase 7.
+18. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -934,7 +951,7 @@ def mask_cpu_check(torch, device="cuda"):
             "logit_err": logit_err, "bits_differ": int(diff.sum())}
 
 
-def capture_relpos_inputs(torch, models, frame):
+def capture_relpos_inputs(torch, models, frame, n_cameras: int = N_CAMERAS):
     """Run one SAM encode of the ring, recording the rel-pos wrapper's
     inputs at the first windowed block and how many blocks call it."""
     import cm3d_tpu_torch.models.sam as sam
@@ -954,10 +971,63 @@ def capture_relpos_inputs(torch, models, frame):
     finally:
         sam.window_attn_relpos = real
     torch.cuda.synchronize()
-    check(calls[0] == SAM_WINDOWED_BLOCKS * N_CAMERAS,
-          f"one ring encode runs {SAM_WINDOWED_BLOCKS} windowed blocks x {N_CAMERAS} cameras "
+    check(calls[0] == SAM_WINDOWED_BLOCKS * n_cameras,
+          f"one ring encode runs {SAM_WINDOWED_BLOCKS} windowed blocks x {n_cameras} cameras "
           f"through the fused kernels, saw {calls[0]}")
     return seen[0]
+
+
+def relpos_check(torch, x, params, kw, name: str):
+    """The rel-pos kernels (heads, then the shared projection) at x's grid:
+    bf16 against the f32 plain version on the same bf16-rounded inputs,
+    weights and tables (<= 2^-5 of max|plain|), f32 against the f32 plain
+    version (<= 1e-4 of it). Returns (the bf16 heads' output, {part:
+    (abs err, rel err)}, the f32 abs err)."""
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_proj_plain
+    from cm3d_tpu_torch.kernels.window_attn_relpos import (
+        window_attn_relpos_heads,
+        window_attn_relpos_heads_plain,
+        window_attn_relpos_plain,
+        window_attn_relpos_proj,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g, b, wqkv, bqkv, wproj, bproj, rel_h, rel_w = params
+    heads, win = kw["heads"], kw["window"]
+    geo = dict(heads=heads, window=win, eps=kw["eps"])
+    shape = tuple(x.shape)
+    wqkv_b, wproj_b = wqkv.to(bf16), wproj.to(bf16)
+    r_qkv, r_proj = wqkv_b.float(), wproj_b.float()
+    r_h, r_w = rel_h.to(bf16).float(), rel_w.to(bf16).float()
+    o = window_attn_relpos_heads(x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo)
+    got = window_attn_relpos_proj(o, wproj_b, bproj, out_shape=shape, heads=heads,
+                                  window=win, dtype=bf16)
+    o_ref = window_attn_relpos_heads_plain(x.float(), g, b, r_qkv, bqkv, r_h, r_w,
+                                           dtype=f32, **geo)
+    ref = window_attn_proj_plain(o.float(), r_proj, bproj, out_shape=shape, window=win,
+                                 shift=0, dtype=f32)
+    full_ref = window_attn_relpos_plain(x.float(), g, b, r_qkv, bqkv, r_proj, bproj, r_h,
+                                        r_w, dtype=f32, **geo)
+    torch.cuda.synchronize()
+    errs = {}
+    for part, gv, rv in (("heads", o, o_ref), ("proj", got, ref), ("branch", got, full_ref)):
+        err = float((gv.float() - rv).abs().max())
+        scale = float(rv.abs().max())
+        errs[part] = (err, err / scale)
+        check(err <= WA_BF16_TOL * scale, f"rel-pos window attention {name} {part}: bf16 "
+              f"kernel vs f32 plain {err:.3g} > 2^-5 x {scale:.3g}")
+    del o_ref, ref, full_ref
+    xf = x.float()
+    o32 = window_attn_relpos_heads(xf, g, b, wqkv.float(), bqkv, rel_h, rel_w, dtype=f32, **geo)
+    got32 = window_attn_relpos_proj(o32, wproj.float(), bproj, out_shape=shape, heads=heads,
+                                    window=win, dtype=f32)
+    ref32 = window_attn_relpos_plain(xf, g, b, wqkv.float(), bqkv, wproj.float(), bproj,
+                                     rel_h, rel_w, dtype=f32, **geo)
+    torch.cuda.synchronize()
+    err32 = float((got32 - ref32).abs().max())
+    check(err32 <= WA_F32_TOL * float(ref32.abs().max()),
+          f"rel-pos window attention {name}: f32 kernel vs plain {err32:.3g}")
+    return o, errs, err32
 
 
 def relpos_phase(torch, captured):
@@ -966,13 +1036,13 @@ def relpos_phase(torch, captured):
     from cm3d_tpu_torch.kernels.window_attn_relpos import (
         window_attn_relpos_heads,
         window_attn_relpos_heads_plain,
-        window_attn_relpos_plain,
         window_attn_relpos_proj,
     )
     from cm3d_tpu_torch.kernels.window_attn import window_attn_proj_plain, window_attn_qkv
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    x_sq, (g, b, wqkv, bqkv, wproj, bproj, rel_h, rel_w), kw = captured
+    bf16 = torch.bfloat16
+    x_sq, params, kw = captured
+    g, b, wqkv, bqkv, wproj, bproj, rel_h, rel_w = params
     heads, win, eps = kw["heads"], kw["window"], kw["eps"]
     check(kw["dtype"] == bf16, "the ViT-H encode computes in bf16")
     check(tuple(x_sq.shape) == (1, 64, 64, 1280), f"square ViT-H grid, got {tuple(x_sq.shape)}")
@@ -982,40 +1052,7 @@ def relpos_phase(torch, captured):
         bsz, h, w, c = x.shape
         shape = tuple(x.shape)
         wqkv_b, wproj_b = wqkv.to(bf16), wproj.to(bf16)
-        # bf16 kernels against the f32 plain version on the same bf16-rounded
-        # inputs, weights and tables
-        r_qkv, r_proj = wqkv_b.float(), wproj_b.float()
-        r_h, r_w = rel_h.to(bf16).float(), rel_w.to(bf16).float()
-        o = window_attn_relpos_heads(x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo)
-        got = window_attn_relpos_proj(o, wproj_b, bproj, out_shape=shape, heads=heads,
-                                      window=win, dtype=bf16)
-        o_ref = window_attn_relpos_heads_plain(x.float(), g, b, r_qkv, bqkv, r_h, r_w,
-                                               dtype=f32, **geo)
-        ref = window_attn_proj_plain(o.float(), r_proj, bproj, out_shape=shape, window=win,
-                                     shift=0, dtype=f32)
-        full_ref = window_attn_relpos_plain(x.float(), g, b, r_qkv, bqkv, r_proj, bproj, r_h,
-                                            r_w, dtype=f32, **geo)
-        torch.cuda.synchronize()
-        errs = {}
-        for part, gv, rv in (("heads", o, o_ref), ("proj", got, ref), ("branch", got, full_ref)):
-            err = float((gv.float() - rv).abs().max())
-            scale = float(rv.abs().max())
-            errs[part] = (err, err / scale)
-            check(err <= WA_BF16_TOL * scale, f"rel-pos window attention {name} {part}: bf16 "
-                  f"kernel vs f32 plain {err:.3g} > 2^-5 x {scale:.3g}")
-        # f32 kernels against the f32 plain version
-        xf = x.float()
-        o32 = window_attn_relpos_heads(xf, g, b, wqkv.float(), bqkv, rel_h, rel_w, dtype=f32,
-                                       **geo)
-        got32 = window_attn_relpos_proj(o32, wproj.float(), bproj, out_shape=shape, heads=heads,
-                                        window=win, dtype=f32)
-        ref32 = window_attn_relpos_plain(xf, g, b, wqkv.float(), bqkv, wproj.float(), bproj,
-                                         rel_h, rel_w, dtype=f32, **geo)
-        torch.cuda.synchronize()
-        err32 = float((got32 - ref32).abs().max())
-        check(err32 <= WA_F32_TOL * float(ref32.abs().max()),
-              f"rel-pos window attention {name}: f32 kernel vs plain {err32:.3g}")
-        del o32, got32, ref32, xf, o_ref, ref, full_ref
+        o, errs, err32 = relpos_check(torch, x, params, kw, name)
         # times (CUDA events) and bounds of the bf16 launches
         ms_h = time_ms(torch, lambda: window_attn_relpos_heads(
             x, g, b, wqkv_b, bqkv, rel_h, rel_w, dtype=bf16, **geo))
@@ -2201,6 +2238,84 @@ def _near_tie_rows(torch, rows, valid):
     return (valid.sum(1) > 1) & ((two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs())
 
 
+def dataset_step_phase(torch, dataset: str, step, cpu_step, frames, cpu_frames,
+                       camera_rows: int, keep_of) -> dict:
+    """A dataset's batch-8 lift step on the card: B1 / B2 held to their
+    plain versions on its inputs (compaction bit-exact at every stage, the
+    camera stage at `camera_rows` rows; medoid sums within rtol 1e-5), the
+    step counted (3 + 1 launches) and timed, and its first 2 keyframes
+    (`cpu_frames`) through `cpu_step` against the card's (counts, flags and
+    keep sets equal, medoids but for near ties). `keep_of(step output)` is
+    its keep flags."""
+    from cm3d_tpu_torch.kernels.compact import compact_rows, compact_rows_plain
+    from cm3d_tpu_torch.kernels.medoid import (
+        medoid_distance_sums_rows, medoid_distance_sums_rows_plain)
+
+    out = {"compaction_shapes": []}
+    n_frames = frames.points.shape[0]
+    compactions, (rows, valid) = capture_kernel_inputs(torch, step, frames)
+    for name, (sel, values, limit) in zip(STAGES, compactions):
+        got, want = compact_rows(sel, values, limit), compact_rows_plain(sel, values, limit)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"{dataset} compaction {name} stage bit-exact vs plain")
+        out["compaction_shapes"].append({
+            "stage": name, "rows": values.shape[0], "sources": values.shape[2],
+            "words": values.shape[1], "limit": limit,
+            "kept": int(sel.sum(1).clamp(max=limit).sum())})
+    check(out["compaction_shapes"][0]["rows"] == camera_rows,
+          f"the {dataset} camera stage has {camera_rows} rows")
+    sums = medoid_distance_sums_rows(rows, valid)
+    plain = medoid_distance_sums_rows_plain(rows, valid)
+    g, w = sums[valid], plain[valid]
+    rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) if g.numel() else 0.0
+    out["medoid"] = {"rows": rows.shape[0], "k": rows.shape[2], "max_rel_err": rel,
+                     "max_abs_err": float((g - w).abs().max()) if g.numel() else 0.0,
+                     "rows_with_points": int(valid.any(1).sum())}
+    check(rel <= 1e-5, f"{dataset} medoid sums within rtol 1e-5 of plain ({rel:.3g})")
+    near_tie = _near_tie_rows(torch, rows, valid)
+    del compactions, rows, valid
+
+    # the step, counted and timed
+    compact_rows.launches = medoid_distance_sums_rows.launches = 0
+    n_iters = 10
+    step(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        res = step(frames)
+    torch.cuda.synchronize()
+    out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_iters
+    out["keyframes_per_s"] = n_frames * 1e3 / out["ms_per_step"]
+    out["launches_per_step"] = {
+        "compact_rows": compact_rows.launches / (n_iters + 1),
+        "medoid_distance_sums_rows": medoid_distance_sums_rows.launches / (n_iters + 1)}
+    check(out["launches_per_step"] == {"compact_rows": 3, "medoid_distance_sums_rows": 1},
+          f"a {dataset} step launches 3 compactions and 1 medoid: {out['launches_per_step']}")
+    lift, keep = res[0], keep_of(res)
+    out["kept_boxes"] = int(keep.sum())
+    out["cam_truncated"] = int(lift.cam_truncated.sum())
+    out["mask_truncated"] = int(lift.truncated.sum())
+    check(bool(torch.isfinite(lift.centroids).all()) and out["kept_boxes"] > 0,
+          f"{dataset} step: finite centroids, boxes kept")
+
+    # 2 keyframes against the CPU lift
+    cpu_res = cpu_step(cpu_frames)
+    cpu_lift = cpu_res[0]
+    for name, a, b in (("point_counts", lift.point_counts, cpu_lift.point_counts),
+                       ("has_points", lift.has_points, cpu_lift.has_points),
+                       ("truncated", lift.truncated, cpu_lift.truncated),
+                       ("cam_truncated", lift.cam_truncated, cpu_lift.cam_truncated),
+                       ("keep", keep, keep_of(cpu_res))):
+        check(torch.equal(a[:2].cpu(), b), f"{dataset} {name} equal to the CPU path")
+    m = lift.centroids.shape[1]
+    same = (lift.centroids[:2].cpu() == cpu_lift.centroids).all(-1)
+    tie = near_tie.reshape(n_frames, m)[:2].cpu()
+    check(bool((same | tie).all()), f"{dataset} medoids equal to the CPU's but for near ties")
+    out["medoids_differing"] = int((~same).sum())
+    out["near_tie_rows"] = int(tie.sum())
+    return out
+
+
 def waymo_phase(torch) -> dict:
     """The Waymo path on the card at real geometry (fabricate_waymo):
     the frontend (range image unprojected on the card) against its CPU run,
@@ -2219,9 +2334,8 @@ def waymo_phase(torch) -> dict:
     from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
     from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend, ring_images
     from cm3d_tpu_torch.datasets.waymo.proto import decode_objects
-    from cm3d_tpu_torch.kernels.compact import compact_rows, compact_rows_plain
-    from cm3d_tpu_torch.kernels.medoid import (
-        medoid_distance_sums_rows, medoid_distance_sums_rows_plain)
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
     from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
     from cm3d_tpu_torch.models.swin import SWIN_TEST
     from cm3d_tpu_torch.parallel import make_keyframe_step_fn
@@ -2263,68 +2377,15 @@ def waymo_phase(torch) -> dict:
         check(all(n == WAYMO_LIFT.max_points for n in n_valid),
               f"the 131072-point cap cuts each range image: {n_valid}")
 
-        # B1 / B2 at Waymo's shapes, against their plain versions
+        # B1 / B2 at Waymo's shapes, the step counted and timed, 2 keyframes
+        # against the CPU lift
         host = stack_keyframes([kf for kf, _ in built])
         frames = to_device(host.frames, dev)
-        step = make_keyframe_step_fn(WAYMO_LIFT, device=dev)
-        compactions, (rows, valid) = capture_kernel_inputs(torch, step, frames)
-        out["compaction_shapes"] = []
-        err = 0.0
-        for name, (sel, values, limit) in zip(STAGES, compactions):
-            got, want = compact_rows(sel, values, limit), compact_rows_plain(sel, values, limit)
-            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                  f"Waymo compaction {name} stage bit-exact vs plain")
-            out["compaction_shapes"].append({"stage": name, "rows": values.shape[0],
-                                             "sources": values.shape[2], "words": values.shape[1],
-                                             "limit": limit, "kept": int(
-                                                 sel.sum(1).clamp(max=limit).sum())})
-        check(out["compaction_shapes"][0]["rows"] == WAYMO_FRAMES * len(WAYMO_CAMERAS),
-              f"the camera stage has {WAYMO_FRAMES * len(WAYMO_CAMERAS)} rows")
-        sums, plain = medoid_distance_sums_rows(rows, valid), medoid_distance_sums_rows_plain(
-            rows, valid)
-        g, w = sums[valid], plain[valid]
-        rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max()) if g.numel() else 0.0
-        out["medoid"] = {"rows": rows.shape[0], "k": rows.shape[2], "max_rel_err": rel,
-                         "max_abs_err": float((g - w).abs().max()) if g.numel() else 0.0}
-        check(rel <= 1e-5, f"Waymo medoid sums within rtol 1e-5 of plain ({rel:.3g})")
-        near_tie = _near_tie_rows(torch, rows, valid)
-        del compactions, rows, valid
-
-        # the step, counted and timed
-        compact_rows.launches = medoid_distance_sums_rows.launches = 0
-        n_iters = 10
-        step(frames)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_iters):
-            lift, boxes = step(frames)
-        torch.cuda.synchronize()
-        out["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / n_iters
-        out["keyframes_per_s"] = WAYMO_FRAMES * 1e3 / out["ms_per_step"]
-        out["launches_per_step"] = {
-            "compact_rows": compact_rows.launches / (n_iters + 1),
-            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches / (n_iters + 1)}
-        check(out["launches_per_step"] == {"compact_rows": 3, "medoid_distance_sums_rows": 1},
-              f"a Waymo step launches 3 compactions and 1 medoid: {out['launches_per_step']}")
-        out["kept_boxes"] = int(boxes.keep.sum())
-        check(bool(torch.isfinite(lift.centroids).all()) and out["kept_boxes"] > 0,
-              "Waymo step: finite centroids, boxes kept")
-
-        # 2 keyframes against the CPU lift
-        cpu_lift, cpu_boxes = make_keyframe_step_fn(WAYMO_LIFT, device="cpu")(
-            to_device(map_fields(lambda x: x[:2], host.frames), "cpu"))
-        for name, a, b in (("point_counts", lift.point_counts, cpu_lift.point_counts),
-                           ("has_points", lift.has_points, cpu_lift.has_points),
-                           ("truncated", lift.truncated, cpu_lift.truncated),
-                           ("cam_truncated", lift.cam_truncated, cpu_lift.cam_truncated),
-                           ("keep", boxes.keep, cpu_boxes.keep)):
-            check(torch.equal(a[:2].cpu(), b), f"Waymo {name} equal to the CPU path")
-        m = lift.centroids.shape[1]
-        same = (lift.centroids[:2].cpu() == cpu_lift.centroids).all(-1)
-        tie = near_tie.reshape(WAYMO_FRAMES, m)[:2].cpu()
-        check(bool((same | tie).all()), "Waymo medoids equal to the CPU's but for near ties")
-        out["medoids_differing"] = int((~same).sum())
-        out["near_tie_rows"] = int(tie.sum())
+        out.update(dataset_step_phase(
+            torch, "Waymo", make_keyframe_step_fn(WAYMO_LIFT, device=dev),
+            make_keyframe_step_fn(WAYMO_LIFT, device="cpu"),
+            frames, to_device(map_fields(lambda x: x[:2], host.frames), "cpu"),
+            WAYMO_FRAMES * len(WAYMO_CAMERAS), lambda res: res[1].keep))
 
         # run_lift_waymo end to end, counted
         compact_rows.launches = medoid_distance_sums_rows.launches = 0
@@ -2443,6 +2504,401 @@ def waymo_phase(torch) -> dict:
           f"({out['full_width_fused_s_per_keyframe']:.3f} s a keyframe), {n_full} keyframes, "
           f"{out['full_width_objects']} objects, launches {out['full_width_fused_launches']}",
           flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- 17. the KITTI path ---------------------------------------------------------
+
+KITTI_FRAMES = 8  # one batch-8 lift step
+# image_2's native sizes in KITTI's drives, one a frame: their 1024 thumbnails
+# are 309 or 310 rows high, so the frame size changes from frame to frame
+KITTI_IMAGE_WH = ((1242, 375), (1224, 370), (1238, 374), (1241, 376), (1226, 370),
+                  (1242, 375), (1224, 370), (1238, 374))
+KITTI_BEAMS, KITTI_AZIMUTHS = 64, 1900  # an HDL-64E sweep: 121600 rays
+KITTI_ELEVATION_DEG = (2.0, -24.8)  # its vertical field of view
+KITTI_LIDAR_HEIGHT = 1.73  # metres above the road
+KITTI_OBJECTS = 40  # planted boxes a frame, ahead of the car
+# P2 of three KITTI drives (2011_09_26, 2011_09_28, 2011_10_03): focal length,
+# principal point and the baseline column (the colour camera sits about 6 cm
+# from the reference camera, so the camera translation is not zero)
+KITTI_P2 = (
+    ((721.5377, 0.0, 609.5593, 44.85728), (0.0, 721.5377, 172.854, 0.2163791),
+     (0.0, 0.0, 1.0, 0.002745884)),
+    ((707.0493, 0.0, 604.0814, 45.75831), (0.0, 707.0493, 180.5066, -0.3454157),
+     (0.0, 0.0, 1.0, 0.004981016)),
+    ((718.856, 0.0, 607.1928, 45.38225), (0.0, 718.856, 185.2157, -0.1130887),
+     (0.0, 0.0, 1.0, 0.003779761)),
+)
+KITTI_PIXEL_ATOL = 1e-2  # the calibration chain on the card vs the f64 host chain, px
+
+
+def _kitti_calib_txt(p2) -> str:
+    """A calib file of KITTI's layout and magnitudes with exact rotations
+    (R0_rect a rotation of about a degree; Tr_velo_to_cam the axes swap
+    with a small rotation and KITTI's translation)."""
+    from scipy.spatial.transform import Rotation
+
+    r0 = Rotation.from_euler("xyz", [0.0079, -0.0098, 0.0107]).as_matrix()
+    swap = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], float)
+    v2c = np.concatenate([Rotation.from_euler("xyz", [0.0021, -0.0104, 0.0073]).as_matrix()
+                          @ swap, np.array([[-0.0040698], [-0.0763162], [-0.2717806]])], 1)
+
+    def fmt(m):
+        return " ".join(repr(float(v)) for v in np.asarray(m).ravel())
+
+    return "".join(f"P{i}: {fmt(p2)}\n" for i in range(4)) + (
+        f"R0_rect: {fmt(r0)}\nTr_velo_to_cam: {fmt(v2c)}\n"
+        f"Tr_imu_to_velo: {fmt(np.eye(3, 4))}\n")
+
+
+def fabricate_kitti(torch, root, mask_dir, n_frames, seed=0):
+    """A KITTI root at real geometry in `root/training` and the mask
+    artifacts of its objects in `mask_dir` (scene "kitti"): a 64 x 1900
+    velodyne sweep cast on the card against the road, a ring of walls 70 m
+    out and KITTI_OBJECTS boxes ahead (every ray returns: about 120k points,
+    under KITTI_LIFT's 131072), calib txts of three drives, image_2 PNGs at
+    KITTI's mixed native sizes, label_2 with the boxes (their 2D boxes
+    projected and clipped to the frame), and a mask a box on the 1024 x 320
+    canvas (the ellipse of its projection)."""
+    from PIL import Image
+
+    from cm3d_tpu_torch.config import KITTI_LIFT, SHAPE_PRIORS_CHATGPT
+    from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
+    from cm3d_tpu_torch.datasets.kitti.calib import (
+        Calibration, Object3d, compute_box_3d, write_label)
+    from cm3d_tpu_torch.datasets.kitti.frontend import (
+        _project_clipped_box2d, velo_yaw_to_kitti_ry)
+    from cm3d_tpu_torch.vocab import NUSC_TO_KITTI
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    split = os.path.join(root, "training")
+    for sub in ("calib", "velodyne", "image_2", "label_2"):
+        os.makedirs(os.path.join(split, sub), exist_ok=True)
+    store = MaskArtifactStore(mask_dir)
+    elev = np.deg2rad(np.linspace(*KITTI_ELEVATION_DEG, KITTI_BEAMS))
+    az = np.linspace(-np.pi, np.pi, KITTI_AZIMUTHS, endpoint=False)
+    te, ta = torch.as_tensor(elev, device=dev), torch.as_tensor(az, device=dev)
+    dirs = torch.stack([torch.cos(te)[:, None] * torch.cos(ta)[None],
+                        torch.cos(te)[:, None] * torch.sin(ta)[None],
+                        torch.sin(te)[:, None].expand(-1, len(az))], -1).reshape(-1, 3).float()
+    # background: the road below the sensor, walls on a 70 m circle
+    horiz = dirs[:, :2].norm(dim=1).clamp(min=1e-6)
+    bg = torch.minimum(torch.where(dirs[:, 2] < -1e-3, KITTI_LIDAR_HEIGHT / -dirs[:, 2],
+                                   torch.full_like(horiz, 1e9)), 70.0 / horiz)
+    names = ("car", "pedestrian", "car", "bicycle", "truck")
+    mw, mh = 1024, 320  # the KITTI frontend's mask canvas
+    xs, ys = np.arange(mw)[:, None], np.arange(mh)[None, :]
+    for f in range(n_frames):
+        p2 = KITTI_P2[f % len(KITTI_P2)]
+        calib_path = os.path.join(split, "calib", f"{f:06d}.txt")
+        with open(calib_path, "w") as fh:
+            fh.write(_kitti_calib_txt(p2))
+        cal = Calibration(calib_path)
+        img_w, img_h = KITTI_IMAGE_WH[f % len(KITTI_IMAGE_WH)]
+        objects = []
+        for j in range(KITTI_OBJECTS):
+            name = names[j % len(names)]
+            w, l, h = SHAPE_PRIORS_CHATGPT[name]
+            yaw_dir, dist = rng.uniform(-0.7, 0.7), rng.uniform(5.0, 55.0)
+            center = np.array([dist * np.cos(yaw_dir), dist * np.sin(yaw_dir),
+                               h / 2 - KITTI_LIDAR_HEIGHT])
+            objects.append((name, center, (w, l, h), rng.uniform(-np.pi, np.pi)))
+        best = bg.clone()
+        for _, center, (w, l, h), yaw in objects:
+            rot = torch.as_tensor(_rotz(-yaw), device=dev, dtype=torch.float32)
+            o = rot @ -torch.as_tensor(center, device=dev, dtype=torch.float32)
+            d = dirs @ rot.T
+            half = torch.as_tensor([l / 2, w / 2, h / 2], device=dev)
+            inv = 1.0 / torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
+            t1, t2 = (-half - o) * inv, (half - o) * inv
+            t_near, t_far = torch.minimum(t1, t2).amax(-1), torch.maximum(t1, t2).amin(-1)
+            hit = (t_near <= t_far) & (t_near > 0)
+            best = torch.where(hit, torch.minimum(best, t_near), best)
+        pts = (dirs * best[:, None]).cpu().numpy()
+        raw = np.concatenate([pts, rng.random((len(pts), 1))], 1).astype(np.float32)
+        raw.tofile(os.path.join(split, "velodyne", f"{f:06d}.bin"))
+
+        a, b, k = cal.rect_chain()
+        ksc = k * KITTI_LIFT.image_ratio
+        ksc[2, 2] = 1.0
+        labels, scores, masks, gts = [], [], [], []
+        for name, center, (w, l, h), yaw in objects:
+            rect = cal.project_velo_to_rect(center[None])[0]
+            ry = velo_yaw_to_kitti_ry(yaw)
+            alpha = (ry - np.arctan2(rect[0], rect[2]) + np.pi) % (2 * np.pi) - np.pi
+            gt = Object3d(NUSC_TO_KITTI[name], 0.0, 0, float(alpha), np.zeros(4), h, w, l,
+                          (float(rect[0]), float(rect[1] + h / 2), float(rect[2])), ry)
+            corners = compute_box_3d(gt)
+            gt.box2d = _project_clipped_box2d(cal, corners, (img_w, img_h))
+            if gt.box2d[3] <= gt.box2d[1]:
+                continue  # not in the frame
+            gts.append(gt)
+            # the mask: the ellipse of the box's projection on the canvas
+            velo = cal.project_rect_to_velo(corners)
+            cam = velo @ a.T + b
+            uvw = cam @ ksc.T
+            u, v = uvw[:, 0] / uvw[:, 2], uvw[:, 1] / uvw[:, 2]
+            u0, u1 = np.clip([u.min(), u.max()], 0, mw - 1)
+            v0, v1 = np.clip([v.min(), v.max()], 0, mh - 1)
+            if u1 - u0 < 3 or v1 - v0 < 3:
+                continue
+            cu, cv, ru, rv = (u0 + u1) / 2, (v0 + v1) / 2, (u1 - u0) / 2, (v1 - v0) / 2
+            masks.append((((xs - cu) / ru) ** 2 + ((ys - cv) / rv) ** 2 <= 1.0).astype(np.uint8))
+            labels.append(name)
+            scores.append(float(rng.uniform(0.3, 1.0)))
+        write_label(os.path.join(split, "label_2", f"{f:06d}.txt"), gts)
+        store.write_frame("kitti", f, FrameMasks(labels, scores, [0] * len(labels),
+                                                 np.stack(masks)))
+        grad = np.add.outer(np.arange(img_h) * 0.3, np.arange(img_w) * 0.1) % 200 + 30
+        Image.fromarray(np.repeat(grad[..., None], 3, -1).astype(np.uint8)).save(
+            os.path.join(split, "image_2", f"{f:06d}.png"), compress_level=1)
+    store.mark_scene_complete("kitti", n_frames)
+
+
+def kitti_phase(torch) -> dict:
+    """The KITTI path on the card at real geometry (fabricate_kitti): the
+    calibration chain (the frontend's keyframes projected on the card)
+    against the CPU and the f64 host chain; B1 / B2 held to their plain
+    versions on a batch-8 KITTI step's inputs (camera stage R = 8); the step
+    counted and timed; 2 keyframes against the CPU lift; run_lift_kitti
+    counted and its pred/ scored by eval/kitti.py against label_2;
+    run_e2e_kitti on the tiny models over the mixed frame sizes; B3 at full
+    width at the KITTI frame's 8 shapes (window_attn_phase) and
+    run_e2e_kitti at full width, counted and timed; one KITTI frame encoded
+    with SAM's windowed blocks fused against unfused (28 + 28 launches) and
+    B4 held to its plain version at that grid."""
+    import tempfile
+
+    from PIL import Image
+
+    from cm3d_tpu_torch.benchmarks import build_production_fake_models
+    from cm3d_tpu_torch.config import KITTI_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.kitti.calib import read_label
+    from cm3d_tpu_torch.datasets.kitti.frontend import KittiFrontend
+    from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
+    from cm3d_tpu_torch.eval.kitti import evaluate_kitti, format_results, load_frames
+    from cm3d_tpu_torch.geometry.pointcloud import project_to_camera
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.kernels.window_attn_relpos import (
+        window_attn_relpos_heads, window_attn_relpos_proj)
+    from cm3d_tpu_torch.models.swin import SWIN_TEST
+    from cm3d_tpu_torch.pipelines.e2e import kitti_canvas_wh, run_e2e_kitti
+    from cm3d_tpu_torch.pipelines.lift_kitti import make_kitti_step_fn, run_lift_kitti
+    from cm3d_tpu_torch.pipelines.masks import build_fake_models
+
+    dev = torch.device("cuda")
+    lift_kernels = (compact_rows, medoid_distance_sums_rows)
+    swin_kernels = (window_attn_heads, window_attn_proj)
+    relpos_kernels = (window_attn_relpos_heads, window_attn_relpos_proj)
+
+    def counts(fns):
+        return {fn.__name__: fn.launches for fn in fns}
+
+    def reset(fns):
+        for fn in fns:
+            fn.launches = 0
+
+    out = {"config": "KITTI_LIFT, batch 8, one camera, 64 x 1900 velodyne sweep, image_2 at "
+                     f"{sorted(set(KITTI_IMAGE_WH))}, mask canvas 1024 x 320"}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, mask_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "masks")
+        t0 = time.perf_counter()
+        fabricate_kitti(torch, root, mask_dir, KITTI_FRAMES)
+        out["fabricate_s"] = time.perf_counter() - t0
+        indices = list(range(KITTI_FRAMES))
+
+        # the frontend, and its calibration chain on the card against the
+        # CPU and against the f64 host chain (P2 R0 Tr_velo_to_cam x ratio)
+        fe = KittiFrontend(root, MaskArtifactStore(mask_dir), KITTI_LIFT)
+        t0 = time.perf_counter()
+        built = list(fe.iter_frames(indices))
+        out["frontend_s_per_frame"] = (time.perf_counter() - t0) / len(built)
+        check(len(built) == KITTI_FRAMES, f"{KITTI_FRAMES} KITTI keyframes built")
+        out["points_per_keyframe"] = [int(kf.point_valid.sum()) for kf, _ in built]
+        check(all(100_000 < n < KITTI_LIFT.max_points for n in out["points_per_keyframe"]),
+              f"about 120k points a sweep, under the cap: {out['points_per_keyframe']}")
+        host = stack_keyframes([kf for kf, _ in built])
+        frames = to_device(host.frames, dev)
+        cpu_frames = to_device(host.frames, "cpu")
+        pix = {}
+        for name, fr in (("card", frames), ("cpu", cpu_frames)):
+            cams = fr.cameras
+            uv, depth = project_to_camera(fr.points[..., :3][:, None], cams.ego_translation,
+                                          cams.ego_rotation, cams.cam_translation,
+                                          cams.cam_rotation, cams.intrinsics)
+            pix[name] = (uv[:, 0, :, :2].cpu().double(), depth[:, 0].cpu().double())
+        err_cpu, err_f64 = 0.0, 0.0
+        for i, (kf, idx) in enumerate(built):
+            uv64 = fe.dataset.get_calibration(idx).project_velo_to_image(
+                kf.points[:, :3].astype(np.float64)) * KITTI_LIFT.image_ratio
+            front = (pix["card"][1][i] > KITTI_LIFT.min_dist).numpy()
+            inside = front & (uv64[:, 0] > 0) & (uv64[:, 0] < 1024) & (uv64[:, 1] > 0) & (
+                uv64[:, 1] < 320)
+            err_cpu = max(err_cpu, float((pix["card"][0][i] - pix["cpu"][0][i])[inside].abs()
+                                         .max()))
+            err_f64 = max(err_f64, float(np.abs(pix["card"][0][i].numpy()[inside]
+                                                - uv64[inside]).max()))
+        out["pixels_card_vs_cpu_max_abs_err"] = err_cpu
+        out["pixels_card_vs_f64_max_abs_err"] = err_f64
+        check(err_f64 <= KITTI_PIXEL_ATOL and err_cpu <= KITTI_PIXEL_ATOL,
+              f"KITTI projection on the card within {KITTI_PIXEL_ATOL} px of the CPU's "
+              f"({err_cpu:.3g}) and of the f64 calibration chain ({err_f64:.3g})")
+        del pix
+
+        # B1 / B2 at KITTI's shapes (one camera: the camera stage has R = 8
+        # rows), the step counted and timed, 2 keyframes against the CPU lift
+        out.update(dataset_step_phase(
+            torch, "KITTI", make_kitti_step_fn(KITTI_LIFT, device=dev),
+            make_kitti_step_fn(KITTI_LIFT, device="cpu"),
+            frames, map_fields(lambda x: x[:2], cpu_frames), KITTI_FRAMES,
+            lambda res: res[1]))
+        del cpu_frames
+
+        # run_lift_kitti end to end, counted, then its pred/ scored
+        reset(lift_kernels)
+        pred_dir = os.path.join(tmp, "lift")
+        t0 = time.perf_counter()
+        n_boxes = run_lift_kitti(root, mask_dir, indices, pred_dir, batch_size=KITTI_FRAMES,
+                                 verbose=False, device=dev)
+        out["run_lift_kitti_s"] = time.perf_counter() - t0
+        out["run_lift_kitti_launches"] = counts(lift_kernels)
+        check(n_boxes > 0 and out["run_lift_kitti_launches"] == {
+            "compact_rows": 3, "medoid_distance_sums_rows": 1},
+            f"run_lift_kitti: {n_boxes} boxes, launches {out['run_lift_kitti_launches']}")
+        out["boxes"] = n_boxes
+        gt_frames, det_frames, ids = load_frames(os.path.join(root, "training", "label_2"),
+                                                 os.path.join(pred_dir, "pred"))
+        ap = evaluate_kitti(gt_frames, det_frames)
+        print(format_results(ap), flush=True)
+        values = [v for cls in ap.values() for met in cls.values() if isinstance(met, dict)
+                  for v in met.values()]
+        check(len(ids) == KITTI_FRAMES and values and all(np.isfinite(values))
+              and all(0.0 <= v <= 1.0 for v in values),
+              f"KITTI AP table finite and in [0, 1] over {len(ids)} frames")
+        out["ap"] = ap
+        out["gt_objects"] = sum(len(f) for f in gt_frames)
+
+        # the fused path on the tiny models over the mixed frame sizes
+        thumbs = []
+        for idx in indices:
+            im = Image.open(fe.dataset.get_image_path(idx)).convert("RGB")
+            im.thumbnail((1024, 1024))
+            thumbs.append(im.size)
+        out["thumbnails_wh"] = thumbs
+        check(len({h for _, h in thumbs}) == 2 and kitti_canvas_wh(1024) == (1024, 320),
+              f"KITTI's thumbnails change height from frame to frame ({thumbs}), "
+              f"the canvas is pinned at 1024 x 320")
+        models = build_fake_models(device=dev)
+        reset(lift_kernels + swin_kernels)
+        t0 = time.perf_counter()
+        n = run_e2e_kitti(root, indices, os.path.join(tmp, "fused"), models, batch_size=4,
+                          verbose=False, device=dev)
+        torch.cuda.synchronize()
+        out["fused_s"] = time.perf_counter() - t0
+        out["fused_frames_lifted"] = n
+        out["fused_launches"] = counts(lift_kernels + swin_kernels)
+        blocks, steps = sum(SWIN_TEST.depths) * KITTI_FRAMES, -(-n // 4)
+        check(out["fused_launches"] == {"compact_rows": 3 * steps,
+                                        "medoid_distance_sums_rows": steps,
+                                        "window_attn_heads": blocks, "window_attn_proj": blocks},
+              f"fused KITTI: {blocks} + {blocks} window-attention launches over the mixed "
+              f"sizes, 3 + 1 a lift step ({steps} steps): {out['fused_launches']}")
+        del models
+
+        # B3 at full width at the KITTI frame's 8 (stage, shift) shapes
+        prod = build_production_fake_models("bfloat16", device=dev)
+        im = Image.open(fe.dataset.get_image_path(0)).convert("RGB")
+        im.thumbnail((1024, 1024))
+        frame = prod.prepare([np.asarray(im)])
+        captured = capture_window_attn_inputs(torch, lambda: prod.detic(frame))
+        stage0 = tuple(captured[0][1][0].shape)
+        check(stage0 == (1, 80, 256, 128),
+              f"Swin-B's first stage on a KITTI frame (320 x 1024 padded): {stage0}")
+        out["full_width_window_attn"] = [
+            {"channels": r["channels"], "shift": r["shift"], "shape": r["shape"],
+             "blocks_per_forward": r["blocks_per_forward"], "max_rel_err": r["max_rel_err"],
+             "f32_max_abs_err": r["f32_max_abs_err"],
+             **{f"{k}_{f}": r[k][f] for k in ("heads", "proj")
+                for f in ("ms", "plain_ms", "bound_ms")}}
+            for r in window_attn_phase(torch, captured)]
+        del captured
+
+        # the fused KITTI path at full width (Swin-B + ViT-H, unfused SAM),
+        # counted and timed (first calls at these shapes included)
+        reset(lift_kernels + swin_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_full = run_e2e_kitti(root, indices, os.path.join(tmp, "full"), prod, batch_size=4,
+                               verbose=False, device=dev)
+        torch.cuda.synchronize()
+        out["full_width_fused_s"] = time.perf_counter() - t0
+        out["full_width_fused_s_per_keyframe"] = out["full_width_fused_s"] / KITTI_FRAMES
+        out["full_width_fused_launches"] = counts(lift_kernels + swin_kernels)
+        out["full_width_frames_lifted"] = n_full
+        blocks, steps = SWIN_BLOCKS_PER_FORWARD * KITTI_FRAMES, -(-n_full // 4)
+        check(n_full > 0 and out["full_width_fused_launches"] == {
+            "compact_rows": 3 * steps, "medoid_distance_sums_rows": steps,
+            "window_attn_heads": blocks, "window_attn_proj": blocks},
+            f"full-width fused KITTI: {n_full} frames lifted, {blocks} + {blocks} "
+            f"window-attention launches, 3 + 1 a lift step: {out['full_width_fused_launches']}")
+        objs = [o for idx in indices
+                for o in read_label(os.path.join(tmp, "full", "pred", f"{idx:06d}.txt"))]
+        out["full_width_boxes"] = len(objs)
+        check(all(np.isfinite([*o.t, o.h, o.w, o.l, o.ry, o.alpha, *o.box2d, o.score]).all()
+                  for o in objs), "full-width fused KITTI boxes are finite")
+
+        # one KITTI frame through ViT-H with SAM's windowed blocks fused
+        # (the same weights) against unfused, and B4 at that grid
+        emb_u = prod.sam_encode(frame).float()
+        del prod
+        torch.cuda.empty_cache()
+        fused = build_production_fake_models("bfloat16", device=dev, fused_window_attn=True)
+        reset(relpos_kernels)
+        emb_f = fused.sam_encode(frame).float()
+        torch.cuda.synchronize()
+        out["fused_encode_launches"] = counts(relpos_kernels)
+        check(out["fused_encode_launches"] == {"window_attn_relpos_heads": SAM_WINDOWED_BLOCKS,
+                                               "window_attn_relpos_proj": SAM_WINDOWED_BLOCKS},
+              f"one fused ViT-H encode of a KITTI frame: 28 + 28 rel-pos launches, got "
+              f"{out['fused_encode_launches']}")
+        diff, scale = float((emb_f - emb_u).abs().max()), float(emb_u.abs().max())
+        out["encode_ab"] = {"max_abs_diff": diff, "max_abs_unfused": scale,
+                            "tolerance": ENCODE_AB_TOL * scale}
+        check(bool(torch.isfinite(emb_f).all()) and diff <= ENCODE_AB_TOL * scale,
+              f"fused vs unfused ViT-H embeddings of a KITTI frame differ by {diff:.3g} > "
+              f"2^-4 x {scale:.3g}")
+        del emb_u, emb_f
+        x, params, kw = capture_relpos_inputs(torch, fused, frame, n_cameras=1)
+        check(tuple(x.shape) == (1, 64, 64, 1280), f"SAM's square grid, got {tuple(x.shape)}")
+        _, errs, err32 = relpos_check(torch, x, params, kw, "KITTI square")
+        out["relpos"] = {"shape": list(x.shape), "max_rel_err": errs["branch"][1],
+                         "max_abs_err": errs["branch"][0], "f32_max_abs_err": err32}
+        del fused, frame, x, params
+    out["card"] = card_line()
+    print(f"kitti ({out['card']}): fabricate {out['fabricate_s']:.2f} s, frontend "
+          f"{out['frontend_s_per_frame']:.3f} s a frame, points {out['points_per_keyframe']}; "
+          f"projection card vs CPU {out['pixels_card_vs_cpu_max_abs_err']:.3g} px, vs the f64 "
+          f"chain {out['pixels_card_vs_f64_max_abs_err']:.3g} px; B1 stages "
+          f"{out['compaction_shapes']} bit-exact; B2 {out['medoid']}; step "
+          f"{out['ms_per_step']:.3f} ms ({out['keyframes_per_s']:.1f} keyframes/s), launches a "
+          f"step {out['launches_per_step']}, cam_truncated {out['cam_truncated']}, masks "
+          f"truncated {out['mask_truncated']}; CPU check: {out['medoids_differing']} medoids "
+          f"differ ({out['near_tie_rows']} near-tie rows allowed to); run_lift_kitti "
+          f"{out['run_lift_kitti_s']:.2f} s, {out['boxes']} boxes ({out['gt_objects']} GT "
+          f"objects); thumbnails {out['thumbnails_wh']}; fused path (tiny) "
+          f"{out['fused_s']:.2f} s, {out['fused_frames_lifted']} frames lifted, launches "
+          f"{out['fused_launches']}; full width {out['full_width_fused_s']:.2f} s "
+          f"({out['full_width_fused_s_per_keyframe']:.3f} s a keyframe), "
+          f"{out['full_width_frames_lifted']} frames lifted, {out['full_width_boxes']} boxes, "
+          f"launches {out['full_width_fused_launches']}; fused encode "
+          f"{out['fused_encode_launches']}, embeddings differ by {out['encode_ab']['max_abs_diff']:.4g} "
+          f"(tolerance {out['encode_ab']['tolerance']:.4g}); B4 at the KITTI grid "
+          f"{out['relpos']}", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -2607,9 +3063,10 @@ def main(argv) -> int:
     cpu_check = mask_cpu_check(torch)
     e2e_check = e2e_cpu_check(torch)
 
-    # --- 15. released checkpoints, 16. the Waymo path ---
+    # --- 15. released checkpoints, 16. the Waymo path, 17. the KITTI path ---
     released = released_weights_phase(torch)
     waymo = waymo_phase(torch)
+    kitti = kitti_phase(torch)
 
     # --- 10.-14. the training path ---
     seg = segment_phase(torch, *capture_segment_inputs(torch))
@@ -2619,7 +3076,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     deterministic = deterministic_phases_in_child()
 
-    # --- 17. summary ---
+    # --- 18. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -2647,6 +3104,12 @@ def main(argv) -> int:
                 waymo["full_width_fused_launches"][f"window_attn_{name}"],
             "waymo_full_width_max_rel_err": max(
                 r["max_rel_err"] for r in waymo["full_width_window_attn"]),
+            # KITTI (8 frames of changing size): tiny Detic, then Swin-B
+            "kitti_fused_launches": kitti["fused_launches"][f"window_attn_{name}"],
+            "kitti_full_width_launches":
+                kitti["full_width_fused_launches"][f"window_attn_{name}"],
+            "kitti_full_width_max_rel_err": max(
+                r["max_rel_err"] for r in kitti["full_width_window_attn"]),
             **_per_forward_extras(wa, name, "blocks_per_forward"),
         }
 
@@ -2692,6 +3155,9 @@ def main(argv) -> int:
             "bound_by": "operations" if sq["ops_ms"] >= sq["bytes_ms"] else "bytes",
             "library_ms": None,
             "per": "one ViT-H encode of one camera: 28 launches at [1, 64, 64, 1280], bf16",
+            # one fused encode of a KITTI frame, and the kernels at its grid
+            "kitti_launches": kitti["fused_encode_launches"][f"window_attn_relpos_{name}"],
+            "kitti_max_rel_err": kitti["relpos"]["max_rel_err"],
             **{k: v * SAM_WINDOWED_BLOCKS if isinstance(v, float) else
                {kk: vv * SAM_WINDOWED_BLOCKS for kk, vv in v.items()}
                for k, v in _per_forward_extras(rp[:1], name, None).items()},
@@ -2757,6 +3223,9 @@ def main(argv) -> int:
             # the Waymo lift: run_lift_waymo's launches, a step's shapes
             "waymo_launches": waymo["run_lift_waymo_launches"]["compact_rows"],
             "waymo_stages": waymo["compaction_shapes"],
+            # the KITTI lift: run_lift_kitti's launches, a step's shapes
+            "kitti_launches": kitti["run_lift_kitti_launches"]["compact_rows"],
+            "kitti_stages": kitti["compaction_shapes"],
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -2771,6 +3240,8 @@ def main(argv) -> int:
             "near_tie_rows": med["near_tie_rows"],
             "waymo_launches": waymo["run_lift_waymo_launches"]["medoid_distance_sums_rows"],
             "waymo_max_rel_err": waymo["medoid"]["max_rel_err"],
+            "kitti_launches": kitti["run_lift_kitti_launches"]["medoid_distance_sums_rows"],
+            "kitti_max_rel_err": kitti["medoid"]["max_rel_err"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
@@ -2798,7 +3269,7 @@ def main(argv) -> int:
                       "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check,
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
                       "train_cpu_check": train_check, "deterministic": deterministic,
-                      "released_weights": released, "waymo": waymo}),
+                      "released_weights": released, "waymo": waymo, "kitti": kitti}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -70,7 +70,10 @@ def rel_pos_index(window: int) -> np.ndarray:
     return (rel[:, :, 0] * (2 * window - 1) + rel[:, :, 1]).astype(np.int64)
 
 
-@functools.lru_cache(maxsize=None)
+# bounded: a key per (padded canvas, stage) of the plain path, and a
+# stage-1 mask of a 6-camera Swin-B ring is about 45 MB; 16 entries hold
+# every shifted stage of four canvases
+@functools.lru_cache(maxsize=16)
 def shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
     """[nW, win^2, win^2] additive mask for shifted windows (0 / -100)."""
     img = np.zeros((hp, wp), np.int32)

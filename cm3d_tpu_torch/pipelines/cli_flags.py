@@ -1,6 +1,7 @@
 """Flags the masks and e2e CLIs share: the model flags (`--fake_weights`
 or the four released checkpoints; `pipelines/masks.py build_models` reads
-them) and the JAX CLIs' flags whose feature the port has not ported yet.
+them), `--run_nms`'s dataset default, and the JAX CLIs' flags whose feature
+the port has not ported yet.
 
 The CLIs accept the unported flags, so that a JAX command line fails with a
 NotImplementedError naming its ROADMAP item instead of argparse's usage
@@ -60,5 +61,11 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
     if args.detector != "detic":
         raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
-    if args.dataset == "kitti":
-        raise NotImplementedError("--dataset kitti is not ported yet (ROADMAP A9)")
+
+
+def run_nms(args) -> bool:
+    """Class-wise 2D NMS before SAM prompting: `--run_nms` 1 / 0, or with
+    -1 the dataset's default, off for KITTI (the reference's KITTI flow runs
+    without it, "wo_2d_nms", kitti/gen_2d_masks_detic.py:781-811) and on
+    for nuScenes and Waymo."""
+    return args.dataset != "kitti" if args.run_nms < 0 else bool(args.run_nms)

@@ -1,5 +1,5 @@
 """Fused pseudo-label pipeline: images -> masks -> 3D boxes in ONE process.
-Mirrors `cm3d_tpu/pipelines/e2e.py` for nuScenes and Waymo.
+Mirrors `cm3d_tpu/pipelines/e2e.py` for nuScenes, Waymo and KITTI.
 
 The reference is two CLIs glued by an on-disk artifact store
 (gen_2d_masks_detic.py writes {frame}_data.json + {frame}_masks.pkl,
@@ -19,6 +19,8 @@ Usage:
   python -m cm3d_tpu_torch.pipelines.e2e --dataset waymo --dataroot F \\
       --scenes segment-... --out pred.bin --detic_ckpt D --sam_ckpt S \\
       --clip_ckpt C --bpe_path B
+  python -m cm3d_tpu_torch.pipelines.e2e --dataset kitti --dataroot KITTI \\
+      --scenes 0,1,2 --out preds_dir --fake_weights
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import List, Optional
 
@@ -36,7 +39,7 @@ from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_unported_flags, refuse_unported)
+    add_model_flags, add_unported_flags, refuse_unported, run_nms)
 from cm3d_tpu_torch.pipelines.masks import (
     MaskModels, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
@@ -46,10 +49,10 @@ from cm3d_tpu_torch.utils.observability import MaskCounters
 
 def _scale_ratio_for_thumbnail(lift_cfg: LiftStageConfig, thumbnail: int) -> LiftStageConfig:
     """The reference's intrinsics ratios are calibrated for 1024-wide
-    thumbnails (0.64 = 1024/1600 nuScenes). The fused mask canvas tracks the
-    actual thumbnail size, so any other --thumbnail must rescale the ratio
-    with it or projected points land off the masks (silent
-    misprojection)."""
+    thumbnails (0.64 = 1024/1600 nuScenes, 0.8366 about 1024/1224 KITTI).
+    The fused mask canvas tracks the actual thumbnail size, so any other
+    --thumbnail must rescale the ratio with it or projected points land off
+    the masks (silent misprojection)."""
     if thumbnail == 1024:
         return lift_cfg
     return dataclasses.replace(
@@ -380,6 +383,110 @@ def run_e2e_waymo(
     return n_frames
 
 
+def kitti_canvas_wh(thumbnail: int) -> tuple:
+    """The fused KITTI path's pinned bit-plane canvas: (1024, 320), the
+    two-stage frontend's default, scaled for other thumbnails."""
+    return thumbnail, -(-320 * thumbnail // 1024)
+
+
+def run_e2e_kitti(
+    root: str,
+    indices: List[int],
+    out_dir: str,
+    models: MaskModels,
+    lift_cfg: Optional[LiftStageConfig] = None,
+    mask_cfg: MaskStageConfig = MaskStageConfig(),
+    thumbnail: int = 1024,
+    mask_dir: Optional[str] = None,
+    batch_size: int = 4,
+    verbose: bool = True,
+    device=None,
+) -> int:
+    """Fused KITTI pipeline: image_2 -> masks -> boxes -> label txts under
+    `out_dir/pred` and `out_dir/pseudo`, one process (the working version of
+    the reference's two-script KITTI flow; its lifter dead-ends at
+    kitti/2d_to_3d.py:1528). Returns the number of frames lifted.
+
+    KITTI's native image sizes vary from frame to frame (1242x375,
+    1224x370, 1238x374, ...; their 1024 thumbnails are 309 or 310 rows), so
+    the bit-plane canvas is pinned (`kitti_canvas_wh`): a canvas per frame
+    would make the keyframes' mask_bits differ in shape and the batch stack
+    fail. With `mask_dir` the artifacts are written frame by frame, with no
+    scene-completion mark: `indices` may be any subset of the split."""
+    from PIL import Image
+
+    from cm3d_tpu_torch.config import KITTI_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.kitti.frontend import (
+        KittiFrontend, boxes_to_kitti_objects, kitti_image_wh)
+    from cm3d_tpu_torch.pipelines.lift_kitti import make_kitti_step_fn, write_kitti_labels
+
+    if lift_cfg is None:
+        lift_cfg = KITTI_LIFT
+    if mask_cfg.max_masks_total != lift_cfg.max_masks:
+        raise ValueError(
+            f"the fused path needs the mask stage's bit-plane capacity "
+            f"(MaskStageConfig.max_masks_total = {mask_cfg.max_masks_total}) to equal the "
+            f"lift's padded mask count (LiftStageConfig.max_masks = {lift_cfg.max_masks})")
+    device = resolve_device(device)
+    lift_cfg = _scale_ratio_for_thumbnail(lift_cfg, thumbnail)
+    store = MaskArtifactStore(mask_dir) if mask_dir else None
+    canvas_wh = kitti_canvas_wh(thumbnail)
+    # every keyframe gets its masks from the decode (`packed`), so the
+    # frontend never reads a store; it needs one all the same
+    frontend = KittiFrontend(root, store or MaskArtifactStore(root), lift_cfg,
+                             mask_wh=canvas_wh)
+    kitti_step = make_kitti_step_fn(lift_cfg, device=device)
+
+    # run_fused hands the second element of the step's output to the
+    # writer, sliced per frame: the KITTI writer needs the masks' scores and
+    # labels beside the lift
+    def step(batch):
+        lift, keep = kitti_step(batch)
+        return None, (lift, keep, batch.mask_score, batch.mask_label)
+
+    os.makedirs(f"{out_dir}/pred", exist_ok=True)
+    os.makedirs(f"{out_dir}/pseudo", exist_ok=True)
+    n_boxes = 0
+    t0 = time.perf_counter()
+
+    def frame_source():
+        for idx in indices:
+            im = Image.open(frontend.dataset.get_image_path(idx)).convert("RGB")
+            im.thumbnail((thumbnail, thumbnail))
+            images = [np.asarray(im)]
+
+            def assemble(handle, idx=idx):
+                if store is not None:
+                    write_frame_artifacts(store, frontend.scene_name, idx, handle)
+                if handle["planes"] is None:
+                    return None
+                packed = (handle["labels"], handle["scores"], handle["cams"],
+                          handle["planes"])
+                return frontend.build_keyframe(idx, packed)  # (kf, idx)
+
+            yield images, assemble
+
+    def on_boxes(idx, payload):
+        nonlocal n_boxes
+        lift, keep, scores, labels = payload
+        objs = boxes_to_kitti_objects(
+            frontend.dataset.get_calibration(idx), lift.centroids, lift.pca_yaws, scores,
+            labels, keep, image_wh=kitti_image_wh(frontend.dataset, idx))
+        n_boxes += len(objs)
+        write_kitti_labels(out_dir, idx, objs)
+
+    counters = MaskCounters()
+    n_frames = run_fused(models, step, frame_source(), mask_cfg, on_boxes, batch_size,
+                         counters=counters, mask_wh=canvas_wh, device=device)
+    if verbose:
+        dt = time.perf_counter() - t0
+        print(f"e2e kitti: {n_frames} frames -> {n_boxes} boxes in {dt:.1f}s "
+              f"({n_frames / max(dt, 1e-9):.2f} f/s)")
+        print(counters.report())
+    return n_frames
+
+
 def merge_submissions(paths: List[str], out_path: str) -> dict:
     """Merge submission JSONs over disjoint sample sets (runs split by
     scene) into one. Duplicate sample tokens concatenate."""
@@ -404,22 +511,24 @@ def merge_host_outputs(paths: List[str], out: str, dataset: str = "nuscenes") ->
 
 
 def main(argv=None):
-    """CLI: the fused nuScenes / Waymo pipeline on the port (CUDA unless
-    --device says otherwise)."""
+    """CLI: the fused nuScenes / Waymo / KITTI pipeline on the port (CUDA
+    unless --device says otherwise)."""
     from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, CUSTOM_VOCABULARY_WAYMO
 
     p = argparse.ArgumentParser(
         description="CM3D fused images->masks->boxes pipeline (PyTorch port)")
     p.add_argument("--dataroot", required=True)
     p.add_argument("--version", default="v1.0-mini")
-    p.add_argument("--scenes", required=True, help="comma-separated names")
+    p.add_argument("--scenes", required=True,
+                   help="comma-separated names (KITTI: frame indices)")
     p.add_argument("--out", default="pseudolabels.json")
     p.add_argument("--mask_dir", default="",
                    help="also write reference-layout mask artifacts here")
     p.add_argument("--thumbnail", type=int, default=1024)
     p.add_argument("--run_nms", type=int, default=-1,
                    help="class-wise 2D NMS before SAM prompting: 1 on / 0 off / "
-                   "-1 dataset default (on)")
+                   "-1 dataset default (off for kitti, the reference's 'wo_2d_nms'; "
+                   "on otherwise; as the masks CLI)")
     add_model_flags(p)
     p.add_argument("--rect_encode", action="store_true",
                    help="SAM rectangle encode (faster; small deviation)")
@@ -436,12 +545,13 @@ def main(argv=None):
     waymo = args.dataset == "waymo"
     models = build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
                           else CUSTOM_VOCABULARY_NUSCENES, args.device)
-    run_nms = True if args.run_nms < 0 else bool(args.run_nms)
-    common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms), thumbnail=args.thumbnail,
+    common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms(args)), thumbnail=args.thumbnail,
                   mask_dir=args.mask_dir or None, device=args.device)
     scenes = args.scenes.split(",")
     if waymo:
         run_e2e_waymo(args.dataroot, scenes, args.out, models, **common)
+    elif args.dataset == "kitti":
+        run_e2e_kitti(args.dataroot, [int(i) for i in scenes], args.out, models, **common)
     else:
         run_e2e(args.dataroot, args.version, scenes, args.out, models, **common)
 

@@ -17,7 +17,7 @@ event), so a waiting thread blocks only on that producer, not on the work
 queued after it.
 
     python -m cm3d_tpu_torch.pipelines.masks --dataroot ROOT --out_dir OUT \\
-        [--dataset waymo] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
+        [--dataset waymo|kitti] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
         --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--device cpu]
 """
 
@@ -36,7 +36,7 @@ from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_unported_flags, refuse_unported)
+    add_model_flags, add_unported_flags, refuse_unported, run_nms)
 from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
@@ -565,6 +565,28 @@ def _nuscenes_provider(args):
     return provider, scene_names, lambda s: len(samples[s])
 
 
+def _kitti_provider(args):
+    """Single-camera image_2 variant (reference kitti/gen_2d_masks_detic.py;
+    note its run_nms=False "wo_2d_nms" default). `--scenes` holds frame
+    indices; every frame goes to the one scene "kitti"."""
+    from PIL import Image
+
+    from cm3d_tpu_torch.datasets.kitti.frontend import KittiDataset
+
+    ds = KittiDataset(args.dataroot)
+    if args.scenes:
+        indices = [int(i) for i in args.scenes.split(",")]
+    else:
+        indices = list(range(ds.num_samples))
+
+    def provider(scene, frame):
+        im = Image.open(ds.get_image_path(indices[frame])).convert("RGB")
+        im.thumbnail((args.thumbnail, args.thumbnail))
+        return [np.asarray(im)]
+
+    return provider, ["kitti"], lambda s: len(indices)
+
+
 def _waymo_provider(args):
     """Per-camera JPEGs from frame-lite npz OR raw .tfrecord segments
     (reference waymo/gen_2d_masks_detic.py decodes them from the Frame
@@ -583,17 +605,20 @@ def _waymo_provider(args):
 
 
 def main(argv=None):
-    """CLI: the nuScenes / Waymo 2D mask stage on the port (CUDA unless
-    --device says otherwise)."""
+    """CLI: the nuScenes / KITTI / Waymo 2D mask stage on the port (CUDA
+    unless --device says otherwise)."""
     from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_WAYMO
 
     p = argparse.ArgumentParser(description="CM3D 2D mask generation stage (PyTorch port)")
-    p.add_argument("--dataroot", required=True, help="nuScenes root / waymo frame-lite root")
+    p.add_argument("--dataroot", required=True,
+                   help="nuScenes root / KITTI root / waymo frame-lite root")
     p.add_argument("--version", default="v1.0-mini")
     p.add_argument("--out_dir", required=True)
-    p.add_argument("--scenes", default="", help="comma-separated scenes")
+    p.add_argument("--scenes", default="",
+                   help="comma-separated scenes (KITTI: frame indices)")
     p.add_argument("--thumbnail", type=int, default=1024)  # reference :293
-    p.add_argument("--run_nms", type=int, default=-1, help="-1 = dataset default (on)")
+    p.add_argument("--run_nms", type=int, default=-1,
+                   help="-1 = dataset default (nuscenes / waymo on, kitti off)")
     add_model_flags(p)
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--rect_encode", action="store_true",
@@ -607,12 +632,14 @@ def main(argv=None):
     args = p.parse_args(argv)
     refuse_unported(args)
 
-    waymo = args.dataset == "waymo"
-    provider, scene_names, frames_fn = (_waymo_provider if waymo else _nuscenes_provider)(args)
-    vocab = CUSTOM_VOCABULARY_WAYMO if waymo else CUSTOM_VOCABULARY_NUSCENES
+    provider, scene_names, frames_fn = {
+        "nuscenes": _nuscenes_provider,
+        "kitti": _kitti_provider,
+        "waymo": _waymo_provider,
+    }[args.dataset](args)
+    vocab = CUSTOM_VOCABULARY_WAYMO if args.dataset == "waymo" else CUSTOM_VOCABULARY_NUSCENES
     models = build_models(p, args, vocab, args.device)
-    run_nms = True if args.run_nms < 0 else bool(args.run_nms)
-    cfg = MaskStageConfig(run_nms=run_nms, thumbnail=args.thumbnail)
+    cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail)
     run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,
                    resume=not args.no_resume)
 

@@ -165,6 +165,8 @@ def test_compact_kernel_on_empty_rows_and_unaligned_selection(cuda):
     (48, 131072, 5, 32768, 0.35),  # camera stage of a batch-8 lift step
     (48, 32768, 8, 8192, 0.25),  # union stage
     (1024, 8192, 4, 2048, 0.02),  # mask stage
+    (8, 131072, 5, 32768, 0.35),  # KITTI's camera stage: one camera a keyframe
+    (8, 32768, 8, 8192, 0.25),  # KITTI's union stage
 ])
 def test_compact_kernel_at_production_shapes(cuda, r, s, d, limit, density):
     """The lift step's three calls through the wrapper's own tile plan, on
@@ -293,6 +295,23 @@ def test_window_attn_kernel_matches_plain(cuda, b, h, w, c, heads, win, shift, x
     for g, ref in ((got_o, want_o), (got, want)):
         err = float((g.float() - ref.float()).abs().max())
         assert err <= tol * float(ref.float().abs().max()), (err, tol)
+
+
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("h,w,c,heads", [(80, 256, 128, 4), (40, 128, 256, 8),
+                                         (20, 64, 512, 16), (10, 32, 1024, 32)])
+def test_window_attn_kernel_at_kitti_shapes(cuda, h, w, c, heads, shift):
+    """Swin-B's 8 (stage, shift) shapes on a KITTI frame: a 1024 x 309 or
+    310 thumbnail pads to 320 x 1024, one camera, bf16."""
+    rng = np.random.default_rng(h * w + shift)
+    args = _window_attn_inputs(rng, 1, h, w, c, heads, 7, torch.bfloat16, cuda)
+    kw = dict(heads=heads, window=7, shift=shift, dtype=torch.bfloat16)
+    got = window_attn(*args, **kw)
+    torch.cuda.synchronize()
+    want = window_attn_plain(*args, **kw).float()
+    assert got.shape == (1, h, w, c)
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -5 * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("b,h,w,c,heads,win,shift,dtype", [
@@ -680,6 +699,70 @@ def test_e2e_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
                                        atol=1e-4)
         n_boxes += len(boxes)
     assert n_boxes > 0
+
+
+def test_kitti_clis_run_on_the_card_by_default(cuda, tmp_path, monkeypatch, capsys):
+    """The KITTI CLIs without --device run on the card (the kernels' launch
+    counts move) and write the CPU run's results (--device cpu): the masks
+    CLI the same labels, masks differing in at most 1e-3 of their pixels;
+    lift_kitti and the fused e2e CLI the same objects, box centres within
+    1e-3 m and scores within 1e-4 (medoids agree but for near ties, which
+    these seeded frames do not hold)."""
+    import dataclasses
+
+    from kitti_fixture import make_kitti_root
+
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.kitti.calib import read_label
+    from cm3d_tpu_torch.pipelines import e2e, lift_kitti, masks
+
+    root = make_kitti_root(tmp_path / "kitti", tmp_path / "planted", n_frames=2)
+    # the CLIs' production caps, cut to the fixture's size
+    small = LiftStageConfig(num_sweeps=1, image_ratio=0.8366, sqrt_min_dist_load_filter=False,
+                            max_points=8192, max_masks=16, max_points_per_mask=512,
+                            max_points_per_camera=4096, max_points_in_masks=2048,
+                            max_lane_points=64)
+    monkeypatch.setattr(lift_kitti, "KITTI_LIFT", small)
+    real_run = e2e.run_e2e_kitti
+
+    def small_run(*a, **kw):
+        kw.update(lift_cfg=small, batch_size=2, mask_cfg=dataclasses.replace(
+            kw["mask_cfg"], max_detections=8, max_masks_total=16, dtype="float32"))
+        return real_run(*a, **kw)
+
+    monkeypatch.setattr(e2e, "run_e2e_kitti", small_run)
+    labels = {}
+    for device in ("cpu", "cuda"):
+        flag = ["--device", "cpu"] if device == "cpu" else []
+        before = (compact_rows.launches, window_attn_heads.launches)
+        masks.main(["--dataset", "kitti", "--dataroot", str(root), "--out_dir",
+                    str(tmp_path / f"masks_{device}"), "--scenes", "0,1", "--fake_weights",
+                    "--thumbnail", "128"] + flag)
+        lift_kitti.main(["--root", str(root), "--mask_dir", str(tmp_path / "planted"),
+                         "--out_dir", str(tmp_path / f"lift_{device}")] + flag)
+        e2e.main(["--dataset", "kitti", "--dataroot", str(root), "--scenes", "0,1", "--out",
+                  str(tmp_path / f"e2e_{device}"), "--fake_weights", "--thumbnail", "512"] + flag)
+        after = (compact_rows.launches, window_attn_heads.launches)
+        assert all((a > b) == (device == "cuda") for a, b in zip(after, before))
+        labels[device] = {kind: [read_label(tmp_path / f"{kind}_{device}" / "pred" / f"{i:06d}.txt")
+                                 for i in range(2)] for kind in ("lift", "e2e")}
+    capsys.readouterr()
+    for f in range(2):
+        want = MaskArtifactStore(tmp_path / "masks_cpu").read_frame("kitti", f)
+        got = MaskArtifactStore(tmp_path / "masks_cuda").read_frame("kitti", f)
+        assert got.labels == want.labels
+        if want.labels:
+            assert (got.masks != want.masks).mean() <= 1e-3
+    n_objects = 0
+    for kind in ("lift", "e2e"):
+        for got, want in zip(labels["cuda"][kind], labels["cpu"][kind]):
+            assert [o.type for o in got] == [o.type for o in want]
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.t, w.t, rtol=0, atol=1e-3)
+                assert abs(g.score - w.score) <= 1e-4
+            n_objects += len(want)
+    assert n_objects > 0
 
 
 def _segment_inputs(seed, r, n, d, n_cells, device):

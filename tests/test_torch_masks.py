@@ -120,7 +120,8 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
 
 
 # item None: ported since (the checkpoint flags and --sam_size in A6, Waymo
-# in A8); the flag is accepted and the run goes on to read the dataroot
+# in A8, KITTI in A9); the flag is accepted and the run goes on to read the
+# dataroot
 @pytest.mark.parametrize("extra,item", [
     (["--detic_ckpt", "x.pth"], None), (["--sam_ckpt", "x.pth"], None),
     (["--clip_ckpt", "c.pt"], None), (["--bpe_path", "b.txt.gz"], None),
@@ -128,7 +129,7 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
     (["--use_zoedepth"], "A13"), (["--zoe_ckpt", "z.pt"], "A13"), (["--detector", "gdino"], "A13"),
     (["--gdino_ckpt", "g.pth"], "A13"), (["--gdino_vocab", "v.txt"], "A13"),
     (["--gdino_bf16"], "A13"), (["--camera_mesh", "2"], "A14"), (["--host_shard"], "A14"),
-    (["--dataset", "waymo"], None), (["--dataset", "kitti"], "A9"),
+    (["--dataset", "waymo"], None), (["--dataset", "kitti"], None),
 ])
 def test_masks_cli_names_the_roadmap_item_of_a_jax_flag(tmp_path, extra, item):
     """The JAX CLI's flags are accepted and refused with the ROADMAP item

@@ -48,7 +48,7 @@ from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend, create_gt_bin
 from cm3d_tpu_torch.ops import range_image
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines import e2e, lift_waymo, masks
-from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_WAYMO
+from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, CUSTOM_VOCABULARY_WAYMO
 
 POINTS_ATOL = 2e-3
 SMALL = dict(num_sweeps=1, image_ratio=1024.0 / 1920.0, sqrt_min_dist_load_filter=False,
@@ -204,6 +204,41 @@ def test_frontend_keyframes_match_jax(fake_waymo):
             else:
                 assert np.asarray(a).dtype == np.asarray(b).dtype, f
                 np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def test_waymo_intrinsics_ignore_the_thumbnail_ratio_as_in_jax(fake_waymo, tmp_path):
+    """A fault of the reference, kept on purpose (ROADMAP C): the Waymo
+    frontend scales the intrinsics by the constant WAYMO_IMAGE_RATIO
+    (1024/1920, reference waymo/2d_to_3d.py:523), not by
+    LiftStageConfig.image_ratio, so at --thumbnail 768 the ratio that
+    `_scale_ratio_for_thumbnail` rescales never reaches the projection and
+    the points land on the 1024-wide canvas while the masks are 768 wide.
+    The port and JAX do the same thing. The KITTI frontend does honour the
+    ratio (tests/test_kitti.py:280): its intrinsics follow it."""
+    from cm3d_tpu.pipelines.e2e import _scale_ratio_for_thumbnail as jax_scale
+    from kitti_fixture import make_kitti_root
+
+    from cm3d_tpu_torch.datasets.kitti.frontend import KittiFrontend
+    from cm3d_tpu_torch.datasets.waymo.frontend import WAYMO_IMAGE_RATIO
+
+    at_768 = e2e._scale_ratio_for_thumbnail(port_config.LiftStageConfig(**SMALL), 768)
+    assert at_768.image_ratio == jax_scale(JaxLiftStageConfig(**SMALL), 768).image_ratio
+    assert at_768.image_ratio == pytest.approx(WAYMO_IMAGE_RATIO * 0.75)
+    intr = {}
+    for thumb, cfg in ((1024, SMALL), (768, dataclasses.asdict(at_768))):
+        jax_fe, port_fe, scene = _frontends(fake_waymo, **cfg)
+        (kf, _), (jkf, _) = next(port_fe.iter_scene(scene)), next(jax_fe.iter_scene(scene))
+        np.testing.assert_array_equal(kf.cameras.intrinsics, jkf.cameras.intrinsics)
+        intr[thumb] = kf.cameras.intrinsics
+    np.testing.assert_array_equal(intr[768], intr[1024])  # the ratio did not reach them
+
+    root = make_kitti_root(tmp_path / "kitti", tmp_path / "kmasks", n_frames=1, image_wh=())
+    kitti = {}
+    for thumb in (1024, 768):
+        cfg = e2e._scale_ratio_for_thumbnail(port_config.KITTI_LIFT, thumb)
+        fe = KittiFrontend(root, MaskArtifactStore(tmp_path / "kmasks"), cfg)
+        kitti[thumb] = fe.build_keyframe(0)[0].cameras.intrinsics[0]
+    np.testing.assert_allclose(kitti[768][:2], kitti[1024][:2] * 0.75, rtol=1e-6)
 
 
 def test_lift_step_on_the_jax_frontends_keyframes_is_exact(fake_waymo):
@@ -377,6 +412,11 @@ def test_e2e_cli_waymo_gets_the_waymo_vocabulary(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         e2e.merge_host_outputs([str(tmp_path / "o.bin.host0")], str(tmp_path / "o.bin"),
                                dataset="waymo")
-    with pytest.raises(NotImplementedError, match="A9"):
-        e2e.main(["--dataset", "kitti", "--dataroot", str(tmp_path), "--scenes", "0",
-                  "--fake_weights", "--device", "cpu"])
+    # KITTI (ported in A9) keeps the nuScenes vocabulary, as in JAX
+    monkeypatch.setattr(e2e, "run_e2e_kitti",
+                        lambda root, indices, out, models, **kw: seen.update(
+                            root=root, scenes=indices, models=models, **kw))
+    e2e.main(["--dataset", "kitti", "--dataroot", str(tmp_path), "--scenes", "0,4",
+              "--out", str(tmp_path / "k"), "--fake_weights", "--device", "cpu"])
+    assert tuple(seen["models"].vocabulary) == tuple(CUSTOM_VOCABULARY_NUSCENES)
+    assert seen["scenes"] == [0, 4]
