@@ -162,7 +162,27 @@ Phases 15-17 run after phase 9, before the training phases.
    launches a keyframe, counted and timed; one KITTI frame encoded with
    SAM's windowed blocks fused against unfused (within ENCODE_AB_TOL, 28 +
    28 launches) and B4 held to its plain version at that grid as in phase 7.
-18. One JSON line per kernel summary, then the card's name and power limit,
+18. Data parallelism at world size 1 (one card: NCCL refuses two ranks on
+   one device), in a child process (`chip_smoke.py --data-parallel-phase`,
+   CUBLAS_WORKSPACE_CONFIG set: run_pretrain's deterministic algorithms
+   want it before the first matrix product). Every path through its
+   group's command broadcast, scatter, gather and collectives: the lift step
+   at batch 8 on bench_lift's keyframes and on phase 16 / 17's fabricated
+   Waymo and KITTI frames (outputs equal to the plain step's, 3 + 1
+   launches, ms a step with and without the group in turns);
+   run_lift_waymo / run_lift_kitti with data_parallel=1 (the .bin and the
+   label txts byte-equal to the plain run's, 3 + 1 launches); run_pretrain
+   at bench_train's width (PillarConfig(), CenterPointConfig(), batch 8 x
+   32768 points x 64 boxes, a fabricated LIDAR_TOP dataroot) for 3 steps
+   with and without data_parallel=1 (losses within 1e-3 relative,
+   parameters reported: see DP_TRAJECTORY_RTOL; 1 segment_sum_max launch a
+   step); run_detect with data_parallel=1 (the same kept boxes); on
+   bench_train's batch the first step's loss (within 1e-5) and gradients
+   (within 1e-3 in norm: the global BatchNorm's two-pass statistics against
+   cuDNN's) through the group against the plain step's from the same
+   weights, then a training step with and without the group, in turns. The card's name and
+   power limit beside the times.
+19. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -2903,6 +2923,407 @@ def kitti_phase(torch) -> dict:
     return out
 
 
+# --- 18. data parallelism at world size 1 --------------------------------------
+
+DATA_PARALLEL_FLAG = "--data-parallel-phase"  # the child process of phase 18
+DP_TRAIN_SAMPLES = 8  # one batch-8 step a sample set
+DP_TRAIN_STEPS = 3
+DP_SWEEP_POINTS = 40000  # a LIDAR_TOP sweep; the 32768-point training cap binds
+DP_TRAIN_BOXES = 64  # pseudo-labels a sample (run_pretrain's box cap)
+# the first training step through the group against the plain step, from the
+# same weights: the loss, relative
+DP_TRAIN_RTOL = 1e-5
+# ... and the gradient vector, in norm, relative: the global BatchNorm's
+# two-pass statistics against cuDNN's (PyTorch runs cuDNN's persistent mode on
+# channels-last maps in training, which reduces in scaled integers); a
+# BatchNorm bias's gradient is a small difference of large terms and carries
+# the two roundings at those terms' scale. The card-against-CPU tolerance of
+# phase 13 (TRAIN_GRAD_TOL)
+DP_GRAD_RTOL = TRAIN_GRAD_TOL
+# run_pretrain's losses after DP_TRAIN_STEPS steps, relative: AdamW divides each
+# element's step by its own gradient's RMS, and a BatchNorm bias's gradient is
+# a small difference of large terms, so the formulas' rounding (1e-7 of those
+# terms) moves such elements by a fraction of a step, and the loss with them
+DP_TRAJECTORY_RTOL = 1e-3
+DP_TURNS, DP_STEPS_A_TURN = 3, 5  # step timing: plain and data-parallel in turns
+DP_VERSION = "v1.0-dp"
+
+
+def fabricate_nuscenes_lidar(root, n_samples, n_points, n_boxes, seed=0) -> str:
+    """A nuScenes dataroot of one scene with LIDAR_TOP keyframes only (the
+    tables run_pretrain and run_detect read), each sweep `n_points` points
+    spread as bench_train's over the pillar grid, and a pseudo-label
+    submission of `n_boxes` boxes a sample; returns the labels' path."""
+    from cm3d_tpu_torch.config import NUSCENES_CLASSES
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, DP_VERSION), exist_ok=True)
+    os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+    tok = [f"{seed:04d}{i:028x}" for i in range(4 * n_samples + 8)]
+    samples = [tok[i] for i in range(n_samples)]
+    sds = [tok[n_samples + i] for i in range(n_samples)]
+    poses = [tok[2 * n_samples + i] for i in range(n_samples)]
+    cs, log, scene = tok[-1], tok[-2], tok[-3]
+    nxt = lambda ts, i: ts[i + 1] if i + 1 < n_samples else ""  # noqa: E731
+    prv = lambda ts, i: ts[i - 1] if i > 0 else ""  # noqa: E731
+    tables = {
+        "attribute": [],
+        "calibrated_sensor": [{"token": cs, "sensor_token": tok[-4], "translation": [0, 0, 0],
+                               "rotation": [1, 0, 0, 0], "camera_intrinsic": []}],
+        "log": [{"token": log, "location": "singapore-onenorth"}],
+        "scene": [{"token": scene, "name": "scene-0001", "log_token": log,
+                   "first_sample_token": samples[0], "last_sample_token": samples[-1],
+                   "nbr_samples": n_samples}],
+        "ego_pose": [], "sample": [], "sample_data": []}
+    results = {}
+    for i in range(n_samples):
+        ts = 1_000_000 * (i + 1)
+        ego = [10.0 * i, -3.0 * i, 0.0]
+        pts = np.empty((n_points, 5), np.float32)
+        pts[:, 0] = rng.uniform(-51.2, 51.2, n_points)
+        pts[:, 1] = rng.uniform(-51.2, 51.2, n_points)
+        pts[:, 2] = rng.uniform(-2.0, 1.0, n_points)
+        pts[:, 3] = rng.uniform(0.0, 1.0, n_points)
+        pts[:, 4] = 0.0
+        pts.tofile(os.path.join(root, "sweeps", f"lidar_{i}.bin"))
+        tables["ego_pose"].append({"token": poses[i], "timestamp": ts, "translation": ego,
+                                   "rotation": [1, 0, 0, 0]})
+        tables["sample"].append({"token": samples[i], "timestamp": ts, "scene_token": scene,
+                                 "next": nxt(samples, i), "prev": prv(samples, i),
+                                 "data": {"LIDAR_TOP": sds[i]}})
+        tables["sample_data"].append({
+            "token": sds[i], "sample_token": samples[i], "ego_pose_token": poses[i],
+            "calibrated_sensor_token": cs, "timestamp": ts, "fileformat": "bin",
+            "is_key_frame": True, "filename": f"sweeps/lidar_{i}.bin", "channel": "LIDAR_TOP",
+            "next": nxt(sds, i), "prev": prv(sds, i)})
+        boxes = []
+        for _ in range(n_boxes):
+            yaw = rng.uniform(-np.pi, np.pi)
+            boxes.append({
+                "sample_token": samples[i],
+                "translation": [ego[0] + rng.uniform(-45, 45), ego[1] + rng.uniform(-45, 45),
+                                rng.uniform(-1.0, 0.5)],
+                "size": [float(v) for v in rng.uniform(0.5, 4.5, 3)],
+                "rotation": [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))],
+                "velocity": [0.0, 0.0],
+                "detection_name": NUSCENES_CLASSES[int(rng.integers(len(NUSCENES_CLASSES)))],
+                "detection_score": float(rng.uniform(0.3, 1.0)), "attribute_name": ""})
+        results[samples[i]] = boxes
+    for name, rows in tables.items():
+        with open(os.path.join(root, DP_VERSION, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    labels = os.path.join(root, "labels.json")
+    with open(labels, "w") as f:
+        json.dump({"meta": {}, "results": results}, f)
+    return labels
+
+
+def _tensors_equal(torch, a, b) -> bool:
+    from cm3d_tpu_torch.parallel.mesh import _flatten
+
+    _, la = _flatten(a)
+    _, lb = _flatten(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _in_turns(torch, device, runs: dict) -> dict:
+    """ms a call of each of `runs` (name -> zero-argument call), timed in
+    DP_TURNS turns of DP_STEPS_A_TURN calls, one after another in each
+    turn: the spread of each is the spread over its turns."""
+    times = {name: [] for name in runs}
+    for _ in range(DP_TURNS):
+        for name, fn in runs.items():
+            fn()
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            for _ in range(DP_STEPS_A_TURN):
+                fn()
+            _sync(torch, device)
+            times[name].append((time.perf_counter() - t0) * 1e3 / DP_STEPS_A_TURN)
+    return {f"{name}_ms": ts for name, ts in times.items()}
+
+
+def _dp_lift_step(torch, name: str, step, frames, batch: int) -> dict:
+    """One batch-major lift step with and without the world-size-1 group:
+    equal outputs, 3 + 1 launches through the group, ms a step in turns."""
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.parallel import dp_step
+
+    device = step.device
+    want = step(frames)
+    with dp_step(step, batch, 1) as dp:
+        compact_rows.launches = medoid_distance_sums_rows.launches = 0
+        got = dp(frames)
+        _sync(torch, device)
+        launches = {"compact_rows": compact_rows.launches,
+                    "medoid_distance_sums_rows": medoid_distance_sums_rows.launches}
+        check(_tensors_equal(torch, got, want),
+              f"{name}: the data-parallel step's outputs equal the plain step's")
+        if device.type == "cuda":
+            check(launches == {"compact_rows": 3, "medoid_distance_sums_rows": 1},
+                  f"{name}: 3 + 1 launches a data-parallel step, got {launches}")
+        out = {"launches": launches,
+               **_in_turns(torch, device, {"plain": lambda: step(frames),
+                                           "data_parallel": lambda: dp(frames)})}
+    print(f"{name} step at batch {batch}: plain {out['plain_ms']} ms, data-parallel "
+          f"(world size 1) {out['data_parallel_ms']} ms", flush=True)
+    return out
+
+
+def _first_gradients(torch, step, state, batch, data_parallel: bool):
+    """(loss, {name: gradient}) of a train step's loss at `state`, without
+    applying them; inside the global batch for the data-parallel step."""
+    import contextlib
+
+    from cm3d_tpu_torch.parallel.mesh import global_batch
+
+    with global_batch() if data_parallel else contextlib.nullcontext():
+        loss, _ = step.loss_fn(batch)
+        names = list(state.params)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def _max_abs(torch, a: dict, b: dict) -> float:
+    """Largest |a - b| over the tensors of two nested dicts."""
+    worst = 0.0
+    for k, v in a.items():
+        if isinstance(v, dict):
+            worst = max(worst, _max_abs(torch, v, b[k]))
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            worst = max(worst, float((v - b[k]).abs().max()))
+    return worst
+
+
+def _max_rel(torch, a: dict, b: dict) -> float:
+    """Largest max|a - b| / max|b| over the tensors of two nested dicts."""
+    worst = 0.0
+    for k, v in a.items():
+        if isinstance(v, dict):
+            worst = max(worst, _max_rel(torch, v, b[k]))
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            scale = float(b[k].abs().max())
+            worst = max(worst, float((v - b[k]).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def data_parallel_phase(torch, device="cuda", lift_cfg=None, syn_cfg=None, pillar_cfg=None,
+                        model_cfg=None, batch: int = 8, datasets=("Waymo", "KITTI")) -> dict:
+    """Phase 18: every data-parallel path at world size 1 (NCCL on the card,
+    gloo on the CPU): the scatter, the gather and every collective of a
+    step run, and each result must equal the plain run's."""
+    import tempfile
+
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+    from cm3d_tpu_torch.kernels.segment import segment_sum_max
+    from cm3d_tpu_torch.models.checkpoints import load_params
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.parallel.mesh import Program, dp_mesh
+    from cm3d_tpu_torch.pipelines import pretrain
+    from cm3d_tpu_torch.pipelines.detect import run_detect
+    from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig
+
+    device = torch.device(device)
+    lift_cfg = lift_cfg or LiftStageConfig()
+    pillar_cfg = pillar_cfg or PillarConfig()
+    model_cfg = model_cfg or CenterPointConfig()
+    out = {"card": card_line() if device.type == "cuda" else "cpu"}
+
+    # the nuScenes lift step at production geometry (bench_lift's keyframes)
+    rng = np.random.default_rng(0)
+    host = stack_keyframes([make_keyframe(syn_cfg or SyntheticConfig(), lift_cfg, rng)
+                            for _ in range(batch)])
+    out["nuscenes_step"] = _dp_lift_step(
+        torch, "nuScenes", make_keyframe_step_fn(lift_cfg, device=device),
+        to_device(host.frames, device), batch)
+    del host
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if "Waymo" in datasets:
+            out["waymo"] = _dp_waymo(torch, device, tmp)
+        if "KITTI" in datasets:
+            out["kitti"] = _dp_kitti(torch, device, tmp)
+
+        # training at bench_train's width: run_pretrain and run_detect with
+        # and without data_parallel=1
+        root = os.path.join(tmp, "nusc")
+        labels = fabricate_nuscenes_lidar(root, DP_TRAIN_SAMPLES, DP_SWEEP_POINTS,
+                                          DP_TRAIN_BOXES)
+        kw = dict(steps=DP_TRAIN_STEPS, batch_size=batch, verbose=False,
+                  pillar_cfg=pillar_cfg, model_cfg=model_cfg, device=device)
+        metrics = {}
+        for tag, n in (("plain", 0), ("data_parallel", 1)):
+            segment_sum_max.launches = 0
+            t0 = time.perf_counter()
+            metrics[tag] = pretrain.run_pretrain(root, DP_VERSION, labels,
+                                                 os.path.join(tmp, tag), data_parallel=n, **kw)
+            out[f"run_pretrain_{tag}_s"] = time.perf_counter() - t0
+            out[f"run_pretrain_{tag}_segment_sum_max_launches"] = segment_sum_max.launches
+        loss_rel = max(abs(metrics["data_parallel"][k] - v) / max(abs(v), 1e-30)
+                       for k, v in metrics["plain"].items())
+        params = {tag: load_params(os.path.join(tmp, tag, "centerpoint")) for tag in metrics}
+        out.update(train_metrics=metrics, loss_max_rel_err=loss_rel,
+                   params_max_rel_err=_max_rel(torch, params["data_parallel"], params["plain"]),
+                   params_max_abs_err=_max_abs(torch, params["data_parallel"],
+                                               params["plain"]))
+        check(all(np.isfinite(v) for m in metrics.values() for v in m.values())
+              and loss_rel <= DP_TRAJECTORY_RTOL,
+              f"run_pretrain data-parallel vs plain after {DP_TRAIN_STEPS} steps: losses "
+              f"{loss_rel:.3g} relative (<= {DP_TRAJECTORY_RTOL}); parameters "
+              f"{out['params_max_abs_err']:.3g} apart at most")
+        if device.type == "cuda":
+            got = out["run_pretrain_data_parallel_segment_sum_max_launches"]
+            check(got == DP_TRAIN_STEPS,
+                  f"1 segment_sum_max launch a data-parallel training step, got {got}")
+        subs = {tag: run_detect(root, DP_VERSION, os.path.join(tmp, "plain", "centerpoint"),
+                                os.path.join(tmp, f"det_{tag}.json"), batch_size=batch,
+                                score_thresh=0.0, pillar_cfg=pillar_cfg, model_cfg=model_cfg,
+                                verbose=False,
+                                data_parallel=n, device=device)
+                for tag, n in (("plain", 0), ("data_parallel", 1))}
+        n_boxes = sum(len(v) for v in subs["plain"]["results"].values())
+        check(subs["data_parallel"]["results"] == subs["plain"]["results"] and n_boxes > 0,
+              f"run_detect data-parallel keeps the plain run's {n_boxes} boxes")
+        out["detect_boxes"] = n_boxes
+
+        # a training step with and without the group, in turns, on bench_train's batch
+        from cm3d_tpu_torch.benchmarks import train_bench_setup
+
+        step, state, tbatch = train_bench_setup(batch, device=device, pillar_cfg=pillar_cfg,
+                                                model_cfg=model_cfg)
+        setup = pretrain.TrainSetup(
+            seed=0, pillar_cfg=pillar_cfg, model_cfg=model_cfg, fusion_cfg=None,
+            image_hw=(0, 0), n_cams=0, learning_rate=1e-3, steps=0, lr_schedule="const",
+            warmup_steps=0, grad_clip=None, ema_decay=0.0, augment=False, data_parallel=True)
+        dp_state, dp_step_fn, _ = pretrain.build_training(setup, device)
+        with dp_mesh(1, batch, device, Program("cm3d_tpu_torch.pipelines.pretrain:"
+                                               "data_parallel_train_program", (setup,))) as g:
+            pretrain.broadcast_state(dp_state)
+            # the first step's loss and gradients, from the same weights
+            want_loss, want = _first_gradients(torch, step, state, tbatch, False)
+            got_loss, got = g.run(lambda rows: _first_gradients(torch, dp_step_fn, dp_state,
+                                                                rows, True), (tbatch,),
+                                  gather=False)
+            diff = torch.sqrt(sum(((got[k] - v) ** 2).sum() for k, v in want.items()))
+            grad_rel = float(diff / torch.sqrt(sum((v ** 2).sum() for v in want.values())))
+            worst = sorted(((float((got[k] - v).abs().max() / v.abs().max()), k)
+                            for k, v in want.items()), reverse=True)[:3]
+            out.update(first_step_loss_rel_err=abs(got_loss - want_loss) / abs(want_loss),
+                       first_step_grad_rel_err=grad_rel, first_step_worst_tensors=worst)
+            check(out["first_step_loss_rel_err"] <= DP_TRAIN_RTOL and grad_rel <= DP_GRAD_RTOL,
+                  f"the first data-parallel training step: loss {got_loss} against {want_loss} "
+                  f"(<= {DP_TRAIN_RTOL} relative), gradients {grad_rel:.3g} apart in norm "
+                  f"(<= {DP_GRAD_RTOL}); worst tensors {worst}")
+            segment_sum_max.launches = 0
+            g.run(lambda rows: dp_step_fn(dp_state, rows), (tbatch,), gather=False)
+            _sync(torch, device)
+            out["train_step_launches"] = {"segment_sum_max": segment_sum_max.launches}
+            out["train_step"] = _in_turns(torch, device, {
+                "plain": lambda: step(state, tbatch),
+                "data_parallel": lambda: g.run(lambda rows: dp_step_fn(dp_state, rows),
+                                               (tbatch,), gather=False)})
+        print(f"training step at batch {batch}: plain {out['train_step']['plain_ms']} ms, "
+              f"data-parallel (world size 1) {out['train_step']['data_parallel_ms']} ms "
+              f"[{out['card']}]", flush=True)
+    return out
+
+
+def _dp_waymo(torch, device, tmp) -> dict:
+    from cm3d_tpu_torch.config import WAYMO_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+    from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.pipelines.lift_waymo import run_lift_waymo
+
+    frames_root, mask_dir = os.path.join(tmp, "wframes"), os.path.join(tmp, "wmasks")
+    scene = fabricate_waymo(torch, frames_root, mask_dir, WAYMO_FRAMES)
+    fe = WaymoFrontend(frames_root, MaskArtifactStore(mask_dir), WAYMO_LIFT, device=device)
+    host = stack_keyframes([kf for kf, _ in fe.iter_scene(scene)])
+    out = {"step": _dp_lift_step(torch, "Waymo", make_keyframe_step_fn(WAYMO_LIFT, device=device),
+                                 to_device(host.frames, device), WAYMO_FRAMES)}
+    bins = {}
+    for tag, n in (("plain", 0), ("data_parallel", 1)):
+        compact_rows.launches = medoid_distance_sums_rows.launches = 0
+        path = os.path.join(tmp, f"{tag}.bin")
+        run_lift_waymo(frames_root, mask_dir, [scene], path, batch_size=WAYMO_FRAMES,
+                       verbose=False, data_parallel=n, device=device)
+        out[f"run_lift_waymo_{tag}_launches"] = {
+            "compact_rows": compact_rows.launches,
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches}
+        bins[tag] = open(path, "rb").read()
+    check(bins["data_parallel"] == bins["plain"] and len(bins["plain"]) > 0,
+          "run_lift_waymo data-parallel writes the plain run's .bin byte for byte")
+    check(out["run_lift_waymo_data_parallel_launches"] == {"compact_rows": 3,
+                                                           "medoid_distance_sums_rows": 1},
+          f"run_lift_waymo data-parallel launches {out['run_lift_waymo_data_parallel_launches']}")
+    out["bin_bytes"] = len(bins["plain"])
+    return out
+
+
+def _dp_kitti(torch, device, tmp) -> dict:
+    from cm3d_tpu_torch.config import KITTI_LIFT
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.datasets.kitti.frontend import KittiFrontend
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.pipelines.lift_kitti import make_kitti_step_fn, run_lift_kitti
+
+    root, mask_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "kmasks")
+    fabricate_kitti(torch, root, mask_dir, KITTI_FRAMES)
+    indices = list(range(KITTI_FRAMES))
+    fe = KittiFrontend(root, MaskArtifactStore(mask_dir), KITTI_LIFT)
+    host = stack_keyframes([kf for kf, _ in fe.iter_frames(indices)])
+    out = {"step": _dp_lift_step(torch, "KITTI", make_kitti_step_fn(KITTI_LIFT, device=device),
+                                 to_device(host.frames, device), KITTI_FRAMES)}
+    labels = {}
+    for tag, n in (("plain", 0), ("data_parallel", 1)):
+        compact_rows.launches = medoid_distance_sums_rows.launches = 0
+        pred = os.path.join(tmp, f"kitti_{tag}")
+        run_lift_kitti(root, mask_dir, indices, pred, batch_size=KITTI_FRAMES, verbose=False,
+                       data_parallel=n, device=device)
+        out[f"run_lift_kitti_{tag}_launches"] = {
+            "compact_rows": compact_rows.launches,
+            "medoid_distance_sums_rows": medoid_distance_sums_rows.launches}
+        labels[tag] = {f"{kind}/{name}": open(os.path.join(pred, kind, name), "rb").read()
+                       for kind in ("pred", "pseudo")
+                       for name in sorted(os.listdir(os.path.join(pred, kind)))}
+    check(labels["data_parallel"] == labels["plain"] and len(labels["plain"]) == 2 * KITTI_FRAMES,
+          "run_lift_kitti data-parallel writes the plain run's label txts byte for byte")
+    check(out["run_lift_kitti_data_parallel_launches"] == {"compact_rows": 3,
+                                                           "medoid_distance_sums_rows": 1},
+          f"run_lift_kitti data-parallel launches {out['run_lift_kitti_data_parallel_launches']}")
+    return out
+
+
+def data_parallel_phase_in_child() -> dict:
+    """Run phase 18 in a child process (run_pretrain's deterministic
+    algorithms want cuBLAS's workspace fixed before the process's first
+    matrix product; the child also starts and ends its own NCCL groups) and
+    return its results: the child prints its progress lines, then one JSON
+    line, which is parsed here."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), DATA_PARALLEL_FLAG],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=DETERMINISTIC_WORKSPACE),
+        stdout=subprocess.PIPE, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines, f"the data-parallel phase's process exited with "
+          f"{proc.returncode}: {lines[-1] if lines else 'no output'}")
+    return json.loads(lines[-1])
+
+
 def main(argv) -> int:
     import torch
 
@@ -2919,6 +3340,9 @@ def main(argv) -> int:
         return 0
     if argv == [KERNEL_TIMES_FLAG]:
         print(json.dumps(kernel_times(torch)), flush=True)
+        return 0
+    if argv == [DATA_PARALLEL_FLAG]:
+        print(json.dumps(data_parallel_phase(torch)), flush=True)
         return 0
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
@@ -3076,7 +3500,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     deterministic = deterministic_phases_in_child()
 
-    # --- 18. summary ---
+    # --- 18. every data-parallel path at world size 1, over NCCL ---
+    data_parallel = data_parallel_phase_in_child()
+
+    # --- 19. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -3269,7 +3696,8 @@ def main(argv) -> int:
                       "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check,
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
                       "train_cpu_check": train_check, "deterministic": deterministic,
-                      "released_weights": released, "waymo": waymo, "kitti": kitti}),
+                      "released_weights": released, "waymo": waymo, "kitti": kitti,
+                      "data_parallel": data_parallel}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

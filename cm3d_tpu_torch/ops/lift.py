@@ -225,7 +225,10 @@ def _finish_lift(pts_xyz, coords_dm, idx_buf, valid_k, has_points, counts,
     sxx = (d[:, :, 0] * d[:, :, 0]).sum(-1)
     syy = (d[:, :, 1] * d[:, :, 1]).sum(-1)
     sxy = (d[:, :, 0] * d[:, :, 1]).sum(-1)
-    pca_yaws = 0.5 * torch.atan2(2 * sxy, sxx - syy)
+    # atan2 in f64, rounded: the CPU's vectorised and scalar f32 atan2
+    # differ in the last bit, and which one a mask meets depends on the
+    # batch's size (ops/pushback.py)
+    pca_yaws = (0.5 * torch.atan2(2 * sxy.double(), (sxx - syy).double())).float()
 
     return LiftOutputs(
         centroids, has_points, counts, truncated, cam_truncated, pca_yaws

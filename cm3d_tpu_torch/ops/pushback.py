@@ -44,16 +44,21 @@ def push_centroid(
     w_swapped = extents_wlh[..., 1]
 
     # alpha = atan(|y|/|x|) with explicit quadrant fixes == atan2(y, x)
-    # (reference 2d_to_3d.py:180-190).
-    alpha = torch.atan2(ego_centroid[..., 1], ego_centroid[..., 0])
-    theta = yaws
+    # (reference 2d_to_3d.py:180-190). The angles go through f64 and each
+    # sine / cosine is rounded to f32: the CPU's vectorised and scalar f32
+    # versions differ in the last bit, and which one an element meets
+    # depends on the batch's size, so a keyframe's boxes would depend on
+    # the batch it rides in (a data-parallel rank's rows against the whole
+    # batch).
+    alpha = torch.atan2(ego_centroid[..., 1].double(), ego_centroid[..., 0].double())
+    theta = yaws.double()
 
-    s = torch.abs(torch.sin(theta - alpha))
-    c = torch.abs(torch.cos(theta - alpha))
+    s = torch.abs(torch.sin(theta - alpha)).float()
+    c = torch.abs(torch.cos(theta - alpha)).float()
     off_w = torch.abs(w_swapped / (2.0 * torch.where(s < 1e-12, 1e-12, s)))
     off_l = torch.abs(l_swapped / (2.0 * torch.where(c < 1e-12, 1e-12, c)))
     offset = torch.minimum(off_w, off_l)
 
-    x_dash = centroids[..., 0] + offset * torch.cos(alpha)
-    y_dash = centroids[..., 1] + offset * torch.sin(alpha)
+    x_dash = centroids[..., 0] + offset * torch.cos(alpha).float()
+    y_dash = centroids[..., 1] + offset * torch.sin(alpha).float()
     return torch.stack([x_dash, y_dash, centroids[..., 2]], dim=-1)

@@ -1,5 +1,23 @@
-"""The batched keyframe step."""
+"""The batched keyframe step, and its data-parallel and multi-host
+versions over torch.distributed."""
 
-from cm3d_tpu_torch.parallel.pipeline import keyframe_step, make_keyframe_step_fn
+from cm3d_tpu_torch.parallel.mesh import dp_mesh, shard_batch
+from cm3d_tpu_torch.parallel.multihost import shard_for_host
+from cm3d_tpu_torch.parallel.pipeline import (
+    dp_step,
+    keyframe_step,
+    make_keyframe_step_fn,
+    sharded_batch_step,
+    sharded_keyframe_step,
+)
 
-__all__ = ["keyframe_step", "make_keyframe_step_fn"]
+__all__ = [
+    "dp_mesh",
+    "shard_batch",
+    "shard_for_host",
+    "dp_step",
+    "keyframe_step",
+    "make_keyframe_step_fn",
+    "sharded_batch_step",
+    "sharded_keyframe_step",
+]

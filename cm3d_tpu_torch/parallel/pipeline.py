@@ -11,6 +11,8 @@ kernels' row dimension.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from cm3d_tpu_torch.config import LiftStageConfig, class_arrays, drivable_class_array
@@ -23,6 +25,7 @@ from cm3d_tpu_torch.ops.lift import (
     build_boxes,
     lift_keyframe,
 )
+from cm3d_tpu_torch.parallel.mesh import DataParallelGroup, Program, dp_mesh
 from cm3d_tpu_torch.utils.device import resolve_device
 
 
@@ -112,4 +115,53 @@ def make_keyframe_step_fn(cfg: LiftStageConfig = LiftStageConfig(), device=None)
             frames, priors, is_vehicle, radii, lift_params, drivable, box_params
         )
 
+    # how a data-parallel worker rebuilds this step (dp_step)
+    step.program = Program(f"{__name__}:make_keyframe_step_fn", (cfg,))
+    step.device = device
     return step
+
+
+def sharded_batch_step(group: DataParallelGroup, step):
+    """Run a batch-major step over a started data-parallel group: the rows
+    of every input tensor (a [B, ...] tree) are scattered over the ranks,
+    each rank steps on its rows, and the outputs come back concatenated in
+    rank order: the single-device step's tensors, row for row (the
+    nuScenes / Waymo keyframe step and the KITTI step take no parameters
+    but their batch)."""
+
+    def run(*args):
+        return group.run(step, args)
+
+    return run
+
+
+def sharded_keyframe_step(group: DataParallelGroup, cfg: LiftStageConfig = LiftStageConfig()):
+    """The batched lift step over a started group (see sharded_batch_step);
+    the group's workers must have been started with this step's program."""
+    return sharded_batch_step(group, make_keyframe_step_fn(cfg, device=group.device))
+
+
+@contextlib.contextmanager
+def dp_step(step, batch_size: int, data_parallel: int):
+    """The lift CLIs' --data_parallel contract, as a context: `step` itself
+    when data_parallel is 0, else `step` over a fresh N-rank group
+    (validation in mesh.dp_mesh), torn down on the way out. `step` must
+    carry its `program` (how a worker rebuilds it: the factory by
+    importable name and its picklable arguments)."""
+    if not data_parallel:
+        yield step
+        return
+    program = getattr(step, "program", None)
+    if program is None:
+        raise TypeError("a data-parallel step needs its `program`: the factory that "
+                        "rebuilds it on a worker, by importable name, and its arguments")
+    device = _step_device(step)
+    with dp_mesh(data_parallel, batch_size, device, program) as group:
+        yield sharded_batch_step(group, step)
+
+
+def _step_device(step) -> torch.device:
+    device = getattr(step, "device", None)
+    if device is None:
+        raise TypeError("a data-parallel step needs its `device`")
+    return torch.device(device)

@@ -1,7 +1,7 @@
 """Flags the masks and e2e CLIs share: the model flags (`--fake_weights`
 or the four released checkpoints; `pipelines/masks.py build_models` reads
-them), `--run_nms`'s dataset default, and the JAX CLIs' flags whose feature
-the port has not ported yet.
+them), `--run_nms`'s dataset default, `--host_shard`, and the JAX CLIs'
+flags whose feature the port has not ported yet.
 
 The CLIs accept the unported flags, so that a JAX command line fails with a
 NotImplementedError naming its ROADMAP item instead of argparse's usage
@@ -19,10 +19,9 @@ UNPORTED_FLAGS = {
     "gdino_ckpt": "A13 (GroundingDINO)",
     "gdino_vocab": "A13 (GroundingDINO)",
     "gdino_bf16": "A13 (GroundingDINO)",
-    "camera_mesh": "A14 (multi-chip)",
-    "host_shard": "A14 (multi-chip)",
+    "camera_mesh": "A14e (model parallel)",
 }
-_SWITCHES = ("quant_int8", "quant_static", "use_zoedepth", "gdino_bf16", "host_shard")
+_SWITCHES = ("quant_int8", "quant_static", "use_zoedepth", "gdino_bf16")
 
 
 def add_model_flags(p) -> None:
@@ -40,9 +39,12 @@ def add_model_flags(p) -> None:
 
 
 def add_unported_flags(p) -> None:
-    """Accept the UNPORTED_FLAGS, `--detector` and every `--dataset` of the
-    JAX CLIs, as the JAX CLIs spell them."""
+    """Accept the UNPORTED_FLAGS, `--detector`, `--host_shard` and every
+    `--dataset` of the JAX CLIs, as the JAX CLIs spell them."""
     p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
+    p.add_argument("--host_shard", action="store_true",
+                   help="multi-host: keep only this process's scene stride (RANK / "
+                   "WORLD_SIZE, or torch.distributed's group; parallel/multihost.py)")
     p.add_argument("--detector", default="detic", choices=("detic", "gdino"))
     for flag in UNPORTED_FLAGS:
         if flag in _SWITCHES:

@@ -19,7 +19,6 @@ from typing import List, Optional
 import numpy as np
 
 from cm3d_tpu_torch.config import NUSCENES_CLASSES, class_arrays
-from cm3d_tpu_torch.pipelines.pretrain import DATA_PARALLEL_ITEM
 
 
 def make_detect_fn(model, pillar_cfg, radius_sq: np.ndarray, top_k: int = 128,
@@ -42,12 +41,59 @@ def make_detect_fn(model, pillar_cfg, radius_sq: np.ndarray, top_k: int = 128,
     def detect(points, valid, *camera):
         model.eval()
         pillars = pillarize(points, valid, pillar_cfg)
-        out = model(pillars, *camera)
+        if device.type == "cpu":
+            # one sample at a time: oneDNN's CPU convolutions block over the
+            # batch, so a sample's numbers would depend on the batch it rides
+            # in (a data-parallel rank's rows against the whole batch)
+            outs = [model(pillars[i:i + 1], *(c[i:i + 1] for c in camera))
+                    for i in range(pillars.shape[0])]
+            out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        else:
+            out = model(pillars, *camera)
         boxes, scores, classes = decode_detections(out, pillar_cfg, out_stride, top_k=top_k)
         good = scores >= score_thresh
         keep = circle_nms_keep(boxes[..., :2], scores, classes, good, radius_sq) & good
         return boxes, scores, classes, keep
 
+    return detect
+
+
+def load_detect_fn(ckpt_dir: str, pillar_cfg, model_cfg, fusion_cfg, classes,
+                   top_k: int, score_thresh: float, device):
+    """make_detect_fn over the checkpoint `ckpt_dir` on `device`: the
+    CenterPoint detector, or BEVFusion-lite when `fusion_cfg` is given
+    (whose configuration must match the checkpoint's). Every argument is
+    picklable, so a data-parallel worker loads the same detector
+    (parallel.dp_step)."""
+    from cm3d_tpu_torch.models.checkpoints import load_params
+    from cm3d_tpu_torch.parallel.mesh import Program
+
+    if fusion_cfg is not None:
+        from cm3d_tpu_torch.train.bevfusion import BevFusionDetector
+
+        model_cfg = fusion_cfg.centerpoint
+        model = BevFusionDetector(fusion_cfg, pillar_cfg)
+    else:
+        from cm3d_tpu_torch.train.centerpoint import CenterPointDetector
+
+        model = CenterPointDetector(model_cfg, in_channels=pillar_cfg.num_features)
+    stats = {k: b for k, b in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    like = {"params": dict(model.named_parameters()), "batch_stats": stats}
+    restored = load_params(ckpt_dir, like=like)
+    model.load_state_dict({**restored["params"], **restored["batch_stats"]}, strict=True)
+    model.to(device).eval()
+
+    # CIRCLE_NMS_THRESH values are the squared thresholds the reference
+    # compares squared distances against (ops/nms.circle_nms_keep doc)
+    _, _, radii = class_arrays(classes)
+    detect = make_detect_fn(model, pillar_cfg, radii[: model_cfg.num_classes],
+                            top_k=top_k, score_thresh=score_thresh,
+                            fusion=fusion_cfg is not None)
+    detect.program = Program(f"{__name__}:load_detect_fn",
+                             (ckpt_dir, pillar_cfg, model_cfg, fusion_cfg, tuple(classes),
+                              top_k, score_thresh))
+    detect.device = device
     return detect
 
 
@@ -75,48 +121,35 @@ def run_detect(
     """Run the trained detector over keyframes; write + return the
     submission. `ckpt_dir` is pretrain's `{out}/centerpoint`
     (params + batch statistics), or `{out}/bevfusion` with use_camera=True,
-    which must match the training-time image_hw / fusion_cfg."""
-    import torch
-
+    which must match the training-time image_hw / fusion_cfg.
+    data_parallel N > 0 splits each batch over N ranks (parallel.dp_step):
+    the same submission as the single-device run."""
     from cm3d_tpu_torch.datasets.nuscenes.writer import SubmissionWriter, boxes_to_dicts
     from cm3d_tpu_torch.datasets.types import to_device
-    from cm3d_tpu_torch.models.checkpoints import load_params
+    from cm3d_tpu_torch.parallel import dp_step
+    from cm3d_tpu_torch.parallel.mesh import validate_data_parallel
     from cm3d_tpu_torch.pipelines.pretrain import load_ego_points, make_points_frontend
     from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig
     from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
 
-    if data_parallel:
-        raise NotImplementedError(DATA_PARALLEL_ITEM)
     device = resolve_device(device)
+    if data_parallel:
+        validate_data_parallel(data_parallel, batch_size, device)
     strict_f32()
 
     pillar_cfg = pillar_cfg or PillarConfig()
     if use_camera:
-        from cm3d_tpu_torch.train.bevfusion import BevFusionConfig, BevFusionDetector
+        from cm3d_tpu_torch.train.bevfusion import BevFusionConfig
 
         fusion_cfg = fusion_cfg or BevFusionConfig(
             centerpoint=model_cfg or CenterPointConfig(),
             camera_backbone=camera_backbone,
         )
-        model_cfg = fusion_cfg.centerpoint
-        model = BevFusionDetector(fusion_cfg, pillar_cfg)
     else:
-        from cm3d_tpu_torch.train.centerpoint import CenterPointDetector
-
+        fusion_cfg = None
         model_cfg = model_cfg or CenterPointConfig()
-        model = CenterPointDetector(model_cfg, in_channels=pillar_cfg.num_features)
-    stats = {k: b for k, b in model.named_buffers()
-             if k.endswith(("running_mean", "running_var"))}
-    like = {"params": dict(model.named_parameters()), "batch_stats": stats}
-    restored = load_params(ckpt_dir, like=like)
-    model.load_state_dict({**restored["params"], **restored["batch_stats"]}, strict=True)
-    model.to(device).eval()
-
-    # CIRCLE_NMS_THRESH values are the squared thresholds the reference
-    # compares squared distances against (ops/nms.circle_nms_keep doc)
-    _, _, radii = class_arrays(classes)
-    detect = make_detect_fn(model, pillar_cfg, radii[: model_cfg.num_classes],
-                            top_k=top_k, score_thresh=score_thresh, fusion=use_camera)
+    detect = load_detect_fn(ckpt_dir, pillar_cfg, model_cfg, fusion_cfg, classes, top_k,
+                            score_thresh, device)
 
     fe = make_points_frontend(dataroot, version, max_points)
     nusc = fe.nusc
@@ -129,40 +162,41 @@ def run_detect(
 
     writer = SubmissionWriter()
     t0 = time.perf_counter()
-    for i0 in range(0, len(samples), batch_size):
-        chunk = samples[i0: i0 + batch_size]
-        pts = np.zeros((batch_size, max_points, 4), np.float32)
-        val = np.zeros((batch_size, max_points), bool)
-        egos = []
-        camera = ()
-        if use_camera:
-            from cm3d_tpu_torch.pipelines.pretrain import load_ring_cameras
-
-            ih, iw = image_hw
-            imgs = np.zeros((batch_size, 6, ih, iw, 3), np.float32)
-            intr = np.tile(np.eye(3, dtype=np.float32), (batch_size, 6, 1, 1))
-            exts = np.tile(np.eye(4, dtype=np.float32), (batch_size, 6, 1, 1))
-        for j, sample in enumerate(chunk):
-            # shared helper = the training frame, verbatim
-            pts[j], val[j], ego_t = load_ego_points(fe, sample, max_points)
-            egos.append(ego_t)
+    with dp_step(detect, batch_size, data_parallel) as detect:
+        for i0 in range(0, len(samples), batch_size):
+            chunk = samples[i0: i0 + batch_size]
+            pts = np.zeros((batch_size, max_points, 4), np.float32)
+            val = np.zeros((batch_size, max_points), bool)
+            egos = []
+            camera = ()
             if use_camera:
-                im_u8, k, e = load_ring_cameras(fe, sample, image_hw, ego_t)
-                imgs[j], intr[j], exts[j] = im_u8 / 255.0, k, e
-        if use_camera:
-            camera = (imgs, intr, exts)
-        moved = to_device((pts, val) + camera, device)
-        boxes, scores, cls, keep = (t.cpu().numpy() for t in detect(*moved))
-        for j, sample in enumerate(chunk):
-            centers = boxes[j, :, :3] + egos[j][None]  # back to global
-            writer.add_sample(
-                sample["token"],
-                boxes_to_dicts(
-                    sample["token"], centers, boxes[j, :, 3:6],
-                    boxes[j, :, 6], scores[j], cls[j], keep[j],
-                    classes=classes,
-                ),
-            )
+                from cm3d_tpu_torch.pipelines.pretrain import load_ring_cameras
+
+                ih, iw = image_hw
+                imgs = np.zeros((batch_size, 6, ih, iw, 3), np.float32)
+                intr = np.tile(np.eye(3, dtype=np.float32), (batch_size, 6, 1, 1))
+                exts = np.tile(np.eye(4, dtype=np.float32), (batch_size, 6, 1, 1))
+            for j, sample in enumerate(chunk):
+                # shared helper = the training frame, verbatim
+                pts[j], val[j], ego_t = load_ego_points(fe, sample, max_points)
+                egos.append(ego_t)
+                if use_camera:
+                    im_u8, k, e = load_ring_cameras(fe, sample, image_hw, ego_t)
+                    imgs[j], intr[j], exts[j] = im_u8 / 255.0, k, e
+            if use_camera:
+                camera = (imgs, intr, exts)
+            moved = to_device((pts, val) + camera, device)
+            boxes, scores, cls, keep = (t.cpu().numpy() for t in detect(*moved))
+            for j, sample in enumerate(chunk):
+                centers = boxes[j, :, :3] + egos[j][None]  # back to global
+                writer.add_sample(
+                    sample["token"],
+                    boxes_to_dicts(
+                        sample["token"], centers, boxes[j, :, 3:6],
+                        boxes[j, :, 6], scores[j], cls[j], keep[j],
+                        classes=classes,
+                    ),
+                )
     submission = writer.write(out_json)
     if verbose:
         dt = time.perf_counter() - t0
@@ -185,7 +219,8 @@ def main(argv=None):
                    help="comma-separated scene names (default: all samples)")
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP.md A14): any N > 0 raises")
+                   help="split each batch over N cards, one process a card "
+                   "(N must divide --batch_size; 0 = single device)")
     p.add_argument("--top_k", type=int, default=128)
     p.add_argument("--score_thresh", type=float, default=0.1)
     p.add_argument("--use_camera", action="store_true",

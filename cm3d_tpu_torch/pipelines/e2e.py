@@ -504,10 +504,44 @@ def merge_submissions(paths: List[str], out_path: str) -> dict:
 
 
 def merge_host_outputs(paths: List[str], out: str, dataset: str = "nuscenes") -> None:
-    """The JAX package's merge of per-host `--host_shard` outputs; not
-    ported (the port has no multi-host run to merge yet)."""
-    raise NotImplementedError("merge_host_outputs: --host_shard is not ported yet "
-                              "(ROADMAP A14)")
+    """Merge per-host --host_shard outputs into one, for any dataset.
+
+    nuscenes: submission JSONs merge per sample token (merge_submissions).
+    waymo: proto .bin shards concatenate byte-wise: Objects is a message
+        with a single repeated field, and protobuf defines concatenation of
+        serialized messages as message merging, so `cat` is exact (the
+        metrics binary reads the result as one bin).
+    kitti: per-host OUTPUT DIRECTORIES hold disjoint {frame:06d}.txt label
+        files, either flat (the two-stage lift layout) or under pred/ and
+        pseudo/ (run_e2e_kitti's layout); merging mirrors the layout and
+        copies files (a duplicate frame raises: host shards are disjoint).
+    """
+    if dataset == "nuscenes":
+        merge_submissions(paths, out)
+    elif dataset == "waymo":
+        with open(out, "wb") as f:
+            for path in paths:
+                with open(path, "rb") as g:
+                    f.write(g.read())
+    elif dataset == "kitti":
+        import shutil
+
+        def merge_dir(srcs, dst_dir):
+            os.makedirs(dst_dir, exist_ok=True)
+            for src in srcs:
+                for name in sorted(os.listdir(src)):
+                    s = os.path.join(src, name)
+                    d = os.path.join(dst_dir, name)
+                    if os.path.isdir(s):
+                        merge_dir([s], d)  # run_e2e_kitti's pred/ and pseudo/
+                        continue
+                    if os.path.exists(d):
+                        raise FileExistsError(f"{d}: frame written by two host shards")
+                    shutil.copyfile(s, d)
+
+        merge_dir(paths, out)
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
 
 
 def main(argv=None):
@@ -548,12 +582,22 @@ def main(argv=None):
     common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms(args)), thumbnail=args.thumbnail,
                   mask_dir=args.mask_dir or None, device=args.device)
     scenes = args.scenes.split(",")
+    out = args.out
+    if args.host_shard:
+        # each host lifts its stride and writes {out}.host{i}; merge with
+        # merge_host_outputs(paths, out, dataset)
+        from cm3d_tpu_torch.parallel.multihost import process_index_and_count, shard_for_host
+
+        scenes = shard_for_host(scenes)
+        index, count = process_index_and_count()
+        if count > 1:
+            out = f"{args.out}.host{index}"
     if waymo:
-        run_e2e_waymo(args.dataroot, scenes, args.out, models, **common)
+        run_e2e_waymo(args.dataroot, scenes, out, models, **common)
     elif args.dataset == "kitti":
-        run_e2e_kitti(args.dataroot, [int(i) for i in scenes], args.out, models, **common)
+        run_e2e_kitti(args.dataroot, [int(i) for i in scenes], out, models, **common)
     else:
-        run_e2e(args.dataroot, args.version, scenes, args.out, models, **common)
+        run_e2e(args.dataroot, args.version, scenes, out, models, **common)
 
 
 if __name__ == "__main__":

@@ -10,6 +10,9 @@ nuScenes submission. Differences by design:
   skip-and-log instead of crashing.
 - Stage timers keep the reference's taxonomy (io / device / write / total,
   reference :368-378) and report keyframes/sec.
+- Scale-out as in JAX: `--data_parallel N` splits each keyframe batch over
+  N cards (parallel/mesh.py), `--host_shard` keeps this process's stride
+  of the scenes (parallel/multihost.py).
 
 Usage:
   python -m cm3d_tpu_torch.pipelines.lift --dataroot D --version v1.0-mini \
@@ -29,7 +32,7 @@ from typing import List
 from cm3d_tpu_torch.config import LiftStageConfig
 from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
-from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+from cm3d_tpu_torch.parallel import dp_step, make_keyframe_step_fn, shard_for_host
 
 
 def run_lift(
@@ -44,17 +47,19 @@ def run_lift(
     profile_dir: str | None = None,
     verbose: bool = True,
     resume: bool = False,
+    data_parallel: int = 0,
     device=None,
 ) -> dict:
     """Lift every keyframe of `scenes` and write the submission JSON to
-    `out_path`. Runs on CUDA unless `device` says otherwise."""
+    `out_path`. Runs on CUDA unless `device` says otherwise. data_parallel
+    N > 0 splits each batch over N ranks (parallel.dp_step): the same
+    submission as the single-device run."""
     from cm3d_tpu_torch.datasets.nuscenes import NuScenesFrontend, SubmissionWriter
     from cm3d_tpu_torch.utils.fetch import device_fetch
     from cm3d_tpu_torch.utils.device import resolve_device
     from cm3d_tpu_torch.utils.observability import LiftCounters, StageTimer, trace
 
     device = resolve_device(device)
-    step = make_keyframe_step_fn(lift_cfg, device=device)
     timer = StageTimer()
     counters = LiftCounters()
     t_total = time.perf_counter()
@@ -76,7 +81,7 @@ def run_lift(
     n_frames = 0
     pending: list = []
 
-    def flush():
+    def flush(step):
         nonlocal pending
         if not pending:
             return
@@ -123,7 +128,9 @@ def run_lift(
     work = []
     for scene_name in scenes:
         work.extend(scene_frames(scene_name))
-    with trace("lift", profile_dir), ThreadPoolExecutor(max_workers=num_workers) as pool:
+    with (dp_step(make_keyframe_step_fn(lift_cfg, device=device), batch_size,
+                  data_parallel) as step,
+          trace("lift", profile_dir), ThreadPoolExecutor(max_workers=num_workers) as pool):
         for built in pool.map(lambda a: frontend.build_keyframe(*a), work, chunksize=1):
             if built is None:
                 continue
@@ -131,10 +138,10 @@ def run_lift(
             pending.append(built)
             n_frames += 1
             if len(pending) >= batch_size:
-                flush()
+                flush(step)
             t0 = time.perf_counter()
         timer.add("io", time.perf_counter() - t0)
-        flush()
+        flush(step)
 
     t0 = time.perf_counter()
     submission = writer.write(out_path)
@@ -163,11 +170,17 @@ def main(argv=None):
                    help="comma-separated scene names; '' = all with artifacts")
     p.add_argument("--out", default="pseudolabels.json")
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="split the keyframe batch over N cards, one process a card "
+                   "(N must divide --batch_size; 0 = single device)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run the step on ('cpu' runs the plain "
                    "PyTorch versions of the kernels)")
     p.add_argument("--resume", action="store_true",
                    help="keep samples already in --out; lift only the rest")
+    p.add_argument("--host_shard", action="store_true",
+                   help="multi-host: keep only this process's scene stride (RANK / "
+                   "WORLD_SIZE, or torch.distributed's group)")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler (chrome trace) file to this dir")
     p.add_argument("--drivable_filter", action="store_true",
@@ -185,6 +198,8 @@ def main(argv=None):
         scenes = args.scenes.split(",")
     else:
         scenes = sorted(store.completed_scenes())
+    if args.host_shard:
+        scenes = shard_for_host(scenes)
     if not scenes:
         raise SystemExit("no scenes to process (no --scenes and empty manifest)")
 
@@ -198,7 +213,7 @@ def main(argv=None):
     run_lift(args.dataroot, args.version, args.mask_dir, scenes, args.out,
              lift_cfg=lift_cfg, batch_size=args.batch_size,
              profile_dir=args.profile or None, resume=args.resume,
-             device=args.device)
+             data_parallel=args.data_parallel, device=args.device)
 
 
 if __name__ == "__main__":

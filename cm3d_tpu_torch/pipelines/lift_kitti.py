@@ -33,7 +33,8 @@ from cm3d_tpu_torch.datasets.kitti.frontend import (
 from cm3d_tpu_torch.datasets.types import Keyframe, stack_keyframes, to_device
 from cm3d_tpu_torch.ops.lift import LiftParams, lift_keyframe
 from cm3d_tpu_torch.ops.nms import circle_nms_keep
-from cm3d_tpu_torch.pipelines.pretrain import DATA_PARALLEL_ITEM
+from cm3d_tpu_torch.parallel import dp_step
+from cm3d_tpu_torch.parallel.mesh import Program
 from cm3d_tpu_torch.utils.device import resolve_device
 
 
@@ -73,6 +74,9 @@ def make_kitti_step_fn(cfg: LiftStageConfig = KITTI_LIFT, device=None):
                                frames.mask_label, lift.has_points, radii)
         return lift, keep & lift.has_points
 
+    # how a data-parallel worker rebuilds this step (parallel.dp_step)
+    step.program = Program(f"{__name__}:make_kitti_step_fn", (cfg,))
+    step.device = device
     return step
 
 
@@ -98,17 +102,15 @@ def run_lift_kitti(
 ) -> int:
     """Lift the frames `indices` of `split` and write their label txts
     under `out_dir/pred` and `out_dir/pseudo`; returns the number of boxes
-    written. Runs on CUDA unless `device` says otherwise. data_parallel is
-    not ported (it raises, naming its ROADMAP item)."""
+    written. Runs on CUDA unless `device` says otherwise. data_parallel
+    N > 0 splits each batch over N ranks (parallel.dp_step): the same
+    label txts as the single-device run."""
     from cm3d_tpu_torch.utils.fetch import device_fetch
 
-    if data_parallel:
-        raise NotImplementedError(DATA_PARALLEL_ITEM)
     if lift_cfg is None:
         lift_cfg = KITTI_LIFT
     device = resolve_device(device)
     frontend = KittiFrontend(root, MaskArtifactStore(mask_dir), lift_cfg, split=split)
-    step = make_kitti_step_fn(lift_cfg, device=device)
     os.makedirs(f"{out_dir}/pred", exist_ok=True)
     os.makedirs(f"{out_dir}/pseudo", exist_ok=True)
 
@@ -116,7 +118,7 @@ def run_lift_kitti(
     n_boxes = 0
     t0 = time.perf_counter()
 
-    def flush():
+    def flush(step):
         nonlocal pending, n_boxes
         if not pending:
             return
@@ -140,11 +142,13 @@ def run_lift_kitti(
             write_kitti_labels(out_dir, idx, objs)
         pending = []
 
-    for kf, idx in frontend.iter_frames(indices):
-        pending.append((kf, idx))
-        if len(pending) >= batch_size:
-            flush()
-    flush()
+    with dp_step(make_kitti_step_fn(lift_cfg, device=device), batch_size,
+                 data_parallel) as step:
+        for kf, idx in frontend.iter_frames(indices):
+            pending.append((kf, idx))
+            if len(pending) >= batch_size:
+                flush(step)
+        flush(step)
     if verbose:
         dt = time.perf_counter() - t0
         print(f"wrote {n_boxes} boxes for {len(indices)} frames in {dt:.1f}s")
@@ -161,7 +165,8 @@ def main(argv=None):
     p.add_argument("--out_dir", default="kitti_preds")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP.md A14): any N > 0 raises")
+                   help="split the keyframe batch over N cards, one process a card "
+                   "(N must divide --batch_size; 0 = single device)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cpu' runs the plain PyTorch "
                    "versions of the kernels)")

@@ -21,8 +21,7 @@ from typing import List
 from cm3d_tpu_torch.config import WAYMO_LIFT, LiftStageConfig
 from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
 from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
-from cm3d_tpu_torch.parallel import make_keyframe_step_fn
-from cm3d_tpu_torch.pipelines.pretrain import DATA_PARALLEL_ITEM
+from cm3d_tpu_torch.parallel import dp_step, make_keyframe_step_fn
 
 
 def run_lift_waymo(
@@ -39,14 +38,13 @@ def run_lift_waymo(
     """Lift every frame of `scenes` and write the Objects .bin to
     `out_path`; returns the number of objects written. Runs on CUDA unless
     `device` says otherwise (the range image is unprojected there too).
-    data_parallel is not ported (it raises, naming its ROADMAP item)."""
+    data_parallel N > 0 splits each batch over N ranks (parallel.dp_step):
+    the same .bin as the single-device run."""
     from cm3d_tpu_torch.datasets.waymo.frontend import WaymoFrontend, boxes_to_waymo_objects
     from cm3d_tpu_torch.datasets.waymo.proto import encode_objects
     from cm3d_tpu_torch.utils.device import resolve_device
     from cm3d_tpu_torch.utils.fetch import device_fetch
 
-    if data_parallel:
-        raise NotImplementedError(DATA_PARALLEL_ITEM)
     if lift_cfg is None:
         lift_cfg = WAYMO_LIFT
     device = resolve_device(device)
@@ -55,12 +53,11 @@ def run_lift_waymo(
 
     frontend = WaymoFrontend(frames_root, MaskArtifactStore(mask_dir), lift_cfg,
                              device=device)
-    step = make_keyframe_step_fn(lift_cfg, device=device)
     all_objects = []
     pending: list = []
     n_frames = 0
 
-    def flush():
+    def flush(step):
         nonlocal pending
         if not pending:
             return
@@ -80,17 +77,19 @@ def run_lift_waymo(
         timer["write"] += time.perf_counter() - t0
         pending = []
 
-    for scene in scenes:
-        t0 = time.perf_counter()
-        for kf, meta in frontend.iter_scene(scene):
-            timer["io"] += time.perf_counter() - t0
-            pending.append((kf, meta))
-            n_frames += 1
-            if len(pending) >= batch_size:
-                flush()
+    with dp_step(make_keyframe_step_fn(lift_cfg, device=device), batch_size,
+                 data_parallel) as step:
+        for scene in scenes:
             t0 = time.perf_counter()
-        timer["io"] += time.perf_counter() - t0
-    flush()
+            for kf, meta in frontend.iter_scene(scene):
+                timer["io"] += time.perf_counter() - t0
+                pending.append((kf, meta))
+                n_frames += 1
+                if len(pending) >= batch_size:
+                    flush(step)
+                t0 = time.perf_counter()
+            timer["io"] += time.perf_counter() - t0
+        flush(step)
 
     t0 = time.perf_counter()
     with open(out_path, "wb") as f:
@@ -113,7 +112,8 @@ def main(argv=None):
     p.add_argument("--out", default="pred.bin")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP.md A14): any N > 0 raises")
+                   help="split the keyframe batch over N cards, one process a card "
+                   "(N must divide --batch_size; 0 = single device)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on ('cpu' runs the plain PyTorch "
                    "versions of the kernels)")

@@ -637,6 +637,10 @@ def main(argv=None):
         "kitti": _kitti_provider,
         "waymo": _waymo_provider,
     }[args.dataset](args)
+    if args.host_shard:
+        from cm3d_tpu_torch.parallel.multihost import shard_for_host
+
+        scene_names = shard_for_host(scene_names)
     vocab = CUSTOM_VOCABULARY_WAYMO if args.dataset == "waymo" else CUSTOM_VOCABULARY_NUSCENES
     models = build_models(p, args, vocab, args.device)
     cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail)

@@ -15,23 +15,21 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
-from typing import Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from cm3d_tpu_torch.config import CLASS_TO_ID, LiftStageConfig
+from cm3d_tpu_torch.parallel.mesh import validate_data_parallel
 
 # ONE padded-points shape shared by the resident dataset (unpadded rows,
 # see build_train_batches) and batch assembly (run_pretrain.assemble):
 # the two sites must agree or assembly breaks/mis-pads.
 MAX_POINTS = 32768
-
-DATA_PARALLEL_ITEM = ("--data_parallel is not ported yet (ROADMAP.md A14: "
-                      "parallel/* over torch.distributed)")
-
 
 def make_points_frontend(dataroot: str, version: str, max_points: int, tables=None):
     """NuScenes frontend used only for sweep aggregation + tables (no mask
@@ -264,6 +262,91 @@ def deterministic_training():
             del os.environ["CUBLAS_WORKSPACE_CONFIG"]
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainSetup:
+    """Everything that builds the model, the optimizer and the step of a
+    run: picklable, so that a data-parallel worker builds the same ones."""
+
+    seed: int
+    pillar_cfg: Any
+    model_cfg: Any  # CenterPointConfig, or None with a camera
+    fusion_cfg: Any  # BevFusionConfig with a camera, else None
+    image_hw: Tuple[int, int]
+    n_cams: int
+    learning_rate: float
+    steps: int
+    lr_schedule: str
+    warmup_steps: int
+    grad_clip: Optional[float]
+    ema_decay: float
+    augment: bool
+    data_parallel: bool = False
+
+
+def build_training(setup: TrainSetup, device):
+    """(state, step_fn, checkpoint name) of a run, on `device`: the
+    CenterPoint detector, or BEVFusion-lite when the setup has a fusion
+    config; weights from the setup's seed."""
+    from cm3d_tpu_torch.train import AugmentConfig, make_optimizer, make_train_step
+    from cm3d_tpu_torch.train.train import init_state
+
+    opt = make_optimizer(setup.learning_rate, total_steps=setup.steps,
+                         schedule=setup.lr_schedule, warmup_steps=setup.warmup_steps,
+                         grad_clip=setup.grad_clip)
+    step_kw = dict(ema_decay=setup.ema_decay,
+                   augment=AugmentConfig() if setup.augment else None,
+                   aug_seed=setup.seed, data_parallel=setup.data_parallel)
+    if setup.fusion_cfg is not None:
+        from cm3d_tpu_torch.train.bevfusion import init_fusion_state, make_fusion_train_step
+
+        state, model, tx = init_fusion_state(
+            setup.seed, setup.pillar_cfg, setup.fusion_cfg, setup.image_hw,
+            n_cams=setup.n_cams, tx=opt, ema=setup.ema_decay > 0, device=device,
+        )
+        return state, make_fusion_train_step(model, tx, setup.pillar_cfg, **step_kw), "bevfusion"
+    state, model, tx = init_state(setup.seed, setup.pillar_cfg, setup.model_cfg, tx=opt,
+                                  ema=setup.ema_decay > 0, device=device)
+    return state, make_train_step(model, tx, setup.pillar_cfg, **step_kw), "centerpoint"
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a train state, in one fixed order."""
+    out = list(state.params.values()) + list(state.batch_stats.values())
+    out += list(state.opt_state["mu"].values()) + list(state.opt_state["nu"].values())
+    if state.ema_params is not None:
+        out += list(state.ema_params.values())
+    return out
+
+
+def broadcast_state(state) -> None:
+    """Make every rank's state rank 0's: tensors, step and update count."""
+    import torch.distributed as dist
+
+    from cm3d_tpu_torch.parallel.mesh import broadcast_tensors
+
+    broadcast_tensors(state_tensors(state))
+    counts = [state.step, state.opt_state["count"]]
+    dist.broadcast_object_list(counts, src=0)
+    state.step, state.opt_state["count"] = counts
+
+
+def data_parallel_train_program(setup: TrainSetup, device):
+    """A data-parallel worker's side of run_pretrain: its replica of the
+    model and optimizer, started from rank 0's state (`sync`), stepping on
+    its rows of each global batch under the same deterministic algorithms
+    as rank 0. Rank 0 alone writes checkpoints."""
+    state, step_fn, _ = build_training(setup, device)
+    scope = deterministic_training()
+    scope.__enter__()  # for the worker's lifetime
+
+    def program(batch):
+        return step_fn(state, batch)[1]
+
+    program.sync = lambda: broadcast_state(state)
+    program.scope = scope  # held: collected, the context would restore the settings
+    return program
+
+
 def run_pretrain(
     dataroot: str,
     version: str,
@@ -315,23 +398,21 @@ def run_pretrain(
     checkpoint (fresh optimizer, step 0; unlike resume, which restores the
     FULL train state).
 
-    data_parallel is not ported (it raises, naming its ROADMAP item)."""
+    data_parallel N > 0 splits each global batch over N ranks (parallel/
+    mesh.py): the resident dataset stays here, on rank 0, which assembles
+    each global batch as the single-device run does and scatters its rows;
+    the workers' replicas start from rank 0's state (after --resume and
+    --init_from too); BatchNorm and the losses see the global batch and the
+    gradients are summed, so the run follows the single-device one."""
     import torch
 
     from cm3d_tpu_torch.datasets.types import to_device
     from cm3d_tpu_torch.models.checkpoints import load_params, save_params
-    from cm3d_tpu_torch.train import (
-        AugmentConfig,
-        CenterPointConfig,
-        PillarConfig,
-        make_optimizer,
-        make_train_step,
-    )
-    from cm3d_tpu_torch.train.train import TrainBatch, init_state
+    from cm3d_tpu_torch.parallel.mesh import Program, dp_mesh
+    from cm3d_tpu_torch.train import CenterPointConfig, PillarConfig
+    from cm3d_tpu_torch.train.train import TrainBatch
     from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
 
-    if data_parallel:
-        raise NotImplementedError(DATA_PARALLEL_ITEM)
     if resume and init_from:
         raise SystemExit("--resume restores the full train state; it is "
                          "mutually exclusive with --init_from")
@@ -339,6 +420,8 @@ def run_pretrain(
         raise SystemExit("pass exactly one label source: --labels <json> "
                          "or --labels_gt")
     device = resolve_device(device)
+    if data_parallel:
+        validate_data_parallel(data_parallel, batch_size, device)
     strict_f32()
 
     tables = None
@@ -362,36 +445,26 @@ def run_pretrain(
         raise SystemExit("no training samples (empty labels or token mismatch)")
 
     pillar_cfg = pillar_cfg or PillarConfig()
-    opt = make_optimizer(learning_rate, total_steps=steps, schedule=lr_schedule,
-                         warmup_steps=warmup_steps, grad_clip=grad_clip)
-    aug_cfg = AugmentConfig() if augment else None
-    step_kw = dict(ema_decay=ema_decay, augment=aug_cfg, aug_seed=seed)
     if use_camera:
-        from cm3d_tpu_torch.train.bevfusion import (
-            BevFusionConfig,
-            FusionBatch,
-            init_fusion_state,
-            make_fusion_train_step,
-        )
+        from cm3d_tpu_torch.train.bevfusion import BevFusionConfig, FusionBatch
 
         fusion_cfg = fusion_cfg or BevFusionConfig(
             centerpoint=model_cfg or CenterPointConfig(),
             camera_backbone=camera_backbone,
             camera_bf16=camera_bf16, camera_remat=camera_remat,
         )
-        n_cams = len(data[0][5][0])
-        state, model, tx = init_fusion_state(
-            seed, pillar_cfg, fusion_cfg, image_hw, n_cams=n_cams, tx=opt,
-            ema=ema_decay > 0, device=device,
-        )
-        step_fn = make_fusion_train_step(model, tx, pillar_cfg, **step_kw)
-        ckpt_name = "bevfusion"
+        model_cfg = None
     else:
+        fusion_cfg = None
         model_cfg = model_cfg or CenterPointConfig()
-        state, model, tx = init_state(seed, pillar_cfg, model_cfg, tx=opt,
-                                      ema=ema_decay > 0, device=device)
-        step_fn = make_train_step(model, tx, pillar_cfg, **step_kw)
-        ckpt_name = "centerpoint"
+    setup = TrainSetup(
+        seed=seed, pillar_cfg=pillar_cfg, model_cfg=model_cfg, fusion_cfg=fusion_cfg,
+        image_hw=tuple(image_hw), n_cams=len(data[0][5][0]) if use_camera else 0,
+        learning_rate=learning_rate, steps=steps, lr_schedule=lr_schedule,
+        warmup_steps=warmup_steps, grad_clip=grad_clip, ema_decay=ema_decay,
+        augment=augment, data_parallel=bool(data_parallel),
+    )
+    state, step_fn, ckpt_name = build_training(setup, device)
     start = 0
     if init_from:
         like = {"params": state.params, "batch_stats": state.batch_stats}
@@ -449,7 +522,17 @@ def run_pretrain(
 
     t0 = time.perf_counter()
     last = {}
-    with deterministic_training():
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(deterministic_training())
+        if data_parallel:
+            group = stack.enter_context(dp_mesh(
+                data_parallel, batch_size, device,
+                Program(f"{__name__}:data_parallel_train_program", (setup,))))
+            broadcast_state(state)
+            local_step = step_fn
+
+            def step_fn(state, batch):
+                return group.run(lambda rows: local_step(state, rows), (batch,), gather=False)
         for s in range(start, steps):
             pick = np.random.default_rng((seed, s)).integers(0, len(data), batch_size)
             # the batch goes up through pinned memory, non-blocking
@@ -513,7 +596,8 @@ def main(argv=None):
                    help="resume from the latest state_* under --out")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP.md A14): any N > 0 raises")
+                   help="split each global batch over N cards, one process a card "
+                   "(N must divide --batch_size; 0 = single device)")
     p.add_argument("--use_camera", action="store_true",
                    help="train the BEVFusion-lite camera+LiDAR detector "
                    "(ring images + lift-splat BEV branch); checkpoint "

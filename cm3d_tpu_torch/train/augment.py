@@ -42,9 +42,13 @@ class AffineParams(NamedTuple):
     shift: torch.Tensor  # [B, 3] f32
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of global step `step` of a run seeded `seed`."""
+def step_generator(seed: int, step: int, rank: Optional[int] = None) -> torch.Generator:
+    """The CPU generator of global step `step` of a run seeded `seed`;
+    with `rank`, folded with the rank (the `axis_name` train step, as JAX
+    folds in `axis_index`), so that each replica draws its own transforms."""
     mixed = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9 + 1) % (2 ** 63)
+    if rank is not None:
+        mixed = (mixed * 0x94D049BB133111EB + int(rank) + 1) % (2 ** 63)
     return torch.Generator().manual_seed(mixed)
 
 
@@ -107,9 +111,18 @@ def apply_affine(params: AffineParams, points: torch.Tensor, boxes: torch.Tensor
 
 def augment_batch(generator: torch.Generator, points: torch.Tensor, boxes: torch.Tensor,
                   cfg: AugmentConfig, cam_to_ego: Optional[torch.Tensor] = None,
+                  shard: Optional[Tuple[int, int]] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Per-sample random global transform; returns (points, boxes,
     cam_to_ego' or None). Validity masks are unaffected (the transform moves
-    points, it never drops them)."""
-    params = sample_affine(generator, points.shape[0], cfg, device=points.device)
+    points, it never drops them). shard=(rank, world): the batch is rank's
+    rows of a global batch `world` times its size; the draw is the global
+    batch's and each row takes its global row's transform."""
+    n = points.shape[0]
+    if shard is None:
+        params = sample_affine(generator, n, cfg, device=points.device)
+    else:
+        rank, world = shard
+        params = sample_affine(generator, n * world, cfg)
+        params = AffineParams(*(t[rank * n:(rank + 1) * n].to(points.device) for t in params))
     return apply_affine(params, points, boxes, cam_to_ego)

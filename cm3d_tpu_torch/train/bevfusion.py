@@ -289,7 +289,7 @@ def init_fusion_state(seed: int, pillar_cfg: PillarConfig, cfg: BevFusionConfig,
 
 def make_fusion_train_step(model: BevFusionDetector, tx: Optimizer, pillar_cfg: PillarConfig,
                            axis_name: Optional[str] = None, ema_decay: float = 0.0,
-                           augment=None, aug_seed: int = 0):
+                           augment=None, aug_seed: int = 0, data_parallel: bool = False):
     """Fusion instance of train.make_train_step_impl: voxelize + camera
     splat -> fused heads; targets / losses / optimizer are the SHARED
     step code (one copy to keep in sync)."""
@@ -299,4 +299,4 @@ def make_fusion_train_step(model: BevFusionDetector, tx: Optimizer, pillar_cfg: 
 
     return make_train_step_impl(forward_fn, model, model.cfg.centerpoint, tx, pillar_cfg,
                                 axis_name, ema_decay=ema_decay, augment=augment,
-                                aug_seed=aug_seed)
+                                aug_seed=aug_seed, data_parallel=data_parallel)

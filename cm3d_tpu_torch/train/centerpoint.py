@@ -44,7 +44,14 @@ class BatchNorm(nn.Module):
     """Batch normalisation over [B, H, W, C] maps with flax's running
     statistics: `running = 0.99 * running + 0.01 * batch`, the batch
     variance the BIASED one (torch.nn.BatchNorm2d folds the unbiased
-    variance in), eps 1e-5. Computes in f32 and returns f32."""
+    variance in), eps 1e-5. Computes in f32 and returns f32.
+
+    Inside `parallel.mesh.global_batch()` (the data-parallel train step) the
+    training-mode statistics are those of the global batch, as GSPMD
+    computes them in JAX: the sum over every rank's rows gives the mean,
+    then the sum of squared deviations the variance, each through an
+    all-reduce that autograd differentiates (its backward all-reduces the
+    gradient, as torch.distributed.nn.functional.all_reduce's does). The same statistics update the running ones."""
 
     def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -55,7 +62,15 @@ class BatchNorm(nn.Module):
         self.momentum, self.eps = momentum, eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from cm3d_tpu_torch.parallel.mesh import in_global_batch
+
         x = x.float()
+        if self.training and in_global_batch():
+            y, mean, var = _global_batch_norm(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            return y
         if self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 1, 2), unbiased=False)
@@ -67,6 +82,42 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
         return y.permute(0, 2, 3, 1)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the default group, differentiable: each rank's input
+    reaches every rank's output, so the gradient is the sum of every rank's
+    output gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def _global_batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float):
+    """y, and the global batch mean and biased variance (detached), of
+    [B, H, W, C] rows spread over the default group (every rank holds as
+    many rows). Two passes: E[x^2] - E[x]^2 would cancel."""
+    import torch.distributed as dist
+
+    n = x.shape[0] * x.shape[1] * x.shape[2] * dist.get_world_size()
+    mean = _AllReduceSum.apply(x.sum(dim=(0, 1, 2))) / n
+    d = x - mean
+    var = _AllReduceSum.apply((d * d).sum(dim=(0, 1, 2))) / n
+    y = d * torch.rsqrt(var + eps) * weight + bias
+    return y, mean.detach(), var.detach()
 
 
 class ConvBlock(nn.Module):

@@ -97,6 +97,21 @@ def build_targets(boxes: torch.Tensor, box_valid: torch.Tensor, pillar_cfg: Pill
             reg_mask[:, : h * w].reshape(bsz, h, w))
 
 
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """`count` summed over the default group inside the data-parallel train
+    step (parallel.mesh.global_batch): each rank's loss is then its own
+    numerator over the global batch's denominator, so the ranks' gradients
+    SUM to the single-device gradient. Elsewhere `count` itself."""
+    from cm3d_tpu_torch.parallel.mesh import in_global_batch
+
+    if in_global_batch():
+        import torch.distributed as dist
+
+        count = count.detach().clone()
+        dist.all_reduce(count)
+    return count
+
+
 def focal_loss(pred_logits: torch.Tensor, gt: torch.Tensor,
                alpha: float = 2.0, beta: float = 4.0) -> torch.Tensor:
     """Penalty-reduced pixelwise focal loss (CenterNet eq. 1)."""
@@ -105,11 +120,11 @@ def focal_loss(pred_logits: torch.Tensor, gt: torch.Tensor,
     neg = 1.0 - pos
     pos_loss = -pos * ((1 - p) ** alpha) * torch.log(p.clamp(min=1e-8))
     neg_loss = -neg * ((1 - gt) ** beta) * (p ** alpha) * torch.log((1 - p).clamp(min=1e-8))
-    n_pos = pos.sum().clamp(min=1.0)
+    n_pos = _global_count(pos.sum()).clamp(min=1.0)
     return (pos_loss.sum() + neg_loss.sum()) / n_pos
 
 
 def reg_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked L1 over the 8 regression channels at center cells."""
     m = mask.float()[..., None]
-    return ((pred - gt).abs() * m).sum() / (m.sum() * 8).clamp(min=1.0)
+    return ((pred - gt).abs() * m).sum() / (_global_count(m.sum()) * 8).clamp(min=1.0)

@@ -10,6 +10,7 @@ as device scalars.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -17,13 +18,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from cm3d_tpu_torch.parallel.mesh import all_reduce_sum, global_batch
 from cm3d_tpu_torch.train.centerpoint import CenterPointConfig, CenterPointDetector
 from cm3d_tpu_torch.train.targets import build_targets, focal_loss, reg_loss
 from cm3d_tpu_torch.train.voxelize import PillarConfig, pillarize
-
-DATA_PARALLEL_ITEM = ("data-parallel training is not ported yet "
-                      "(ROADMAP.md A14: parallel/* over torch.distributed)")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -186,7 +184,8 @@ def init_state(seed: int, pillar_cfg: PillarConfig, model_cfg: CenterPointConfig
 
 def make_train_step_impl(forward_fn, model: nn.Module, cfg: CenterPointConfig, tx: Optimizer,
                          pillar_cfg: PillarConfig, axis_name: Optional[str] = None,
-                         ema_decay: float = 0.0, augment=None, aug_seed: int = 0):
+                         ema_decay: float = 0.0, augment=None, aug_seed: int = 0,
+                         data_parallel: bool = False):
     """Shared step constructor for every BEV detector head family (CenterPoint
     and BEVFusion-lite share targets, losses, metrics and the optimizer
     update; only the forward differs). forward_fn(pillars, batch) -> head
@@ -195,9 +194,31 @@ def make_train_step_impl(forward_fn, model: nn.Module, cfg: CenterPointConfig, t
     ema_decay > 0 maintains state.ema_params (init_state(ema=True)).
     augment: an AugmentConfig; the global flip / rotate / scale / shift runs
     inside the step, drawn from a generator seeded by (aug_seed, state.step)
-    so a resumed run replays its augmentation sequence exactly."""
-    if axis_name is not None:
-        raise NotImplementedError(DATA_PARALLEL_ITEM)
+    so a resumed run replays its augmentation sequence exactly.
+
+    Two collective modes over torch.distributed's default group; in both,
+    every rank applies the same AdamW, EMA and clip update (the clip's norm
+    taken after the reduction), so the replicas stay bit-identical:
+    - data_parallel=True (`--data_parallel`, the GSPMD-jit path of JAX):
+      the batch is this rank's rows of one global batch; BatchNorm's
+      statistics and the loss denominators are the global batch's
+      (parallel.mesh.global_batch), the augmentation draw is the global
+      batch's, and the gradients and metrics are SUMMED over the ranks: the
+      single-device step's numbers.
+    - axis_name (JAX's pmap / shard_map form, cm3d_tpu/train/train.py:
+      157-163): the loss is this rank's own; the gradients, the metrics and
+      the BatchNorm running statistics are AVERAGED over the group, and the
+      augmentation generator is folded with the rank. The value of
+      axis_name names the mesh axis in JAX; here the default group is the
+      axis."""
+    import torch.distributed as dist
+
+    if axis_name is not None and data_parallel:
+        raise ValueError("axis_name and data_parallel are two collective modes; pick one")
+    if axis_name is not None and not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"axis_name={axis_name!r} averages over torch.distributed's default process "
+            "group, and none is initialised: call torch.distributed.init_process_group first")
 
     def loss_fn(batch):
         pillars = pillarize(batch.points, batch.point_valid, pillar_cfg)
@@ -223,20 +244,37 @@ def make_train_step_impl(forward_fn, model: nn.Module, cfg: CenterPointConfig, t
                 "would silently freeze at its init values (the deploy "
                 "checkpoint saves the EMA when present)"
             )
+        collective = data_parallel or axis_name is not None
+        rank, world = (dist.get_rank(), dist.get_world_size()) if collective else (0, 1)
         if augment is not None:
             from cm3d_tpu_torch.train.augment import augment_batch, step_generator
 
             cams = getattr(batch, "cam_to_ego", None)
-            pts, boxes, cams = augment_batch(step_generator(aug_seed, state.step),
-                                             batch.points, batch.boxes, augment,
-                                             cam_to_ego=cams)
+            gen = step_generator(aug_seed, state.step,
+                                 rank if axis_name is not None else None)
+            pts, boxes, cams = augment_batch(gen, batch.points, batch.boxes, augment,
+                                             cam_to_ego=cams,
+                                             shard=(rank, world) if data_parallel else None)
             batch = batch._replace(points=pts, boxes=boxes)
             if cams is not None:
                 batch = batch._replace(cam_to_ego=cams)
         model.train()
-        loss, metrics = loss_fn(batch)
         names = list(state.params)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        with global_batch() if data_parallel else contextlib.nullcontext():
+            loss, metrics = loss_fn(batch)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        if collective:
+            keys = list(metrics)
+            summed = all_reduce_sum(list(grads) + [torch.stack([metrics[k] for k in keys])])
+            grads, mvec = summed[:-1], summed[-1]
+            if axis_name is not None:
+                grads = [g / world for g in grads]
+                mvec = mvec / world
+                with torch.no_grad():
+                    stats = list(state.batch_stats.values())
+                    for t, total in zip(stats, all_reduce_sum(stats)):
+                        t.copy_(total / world)
+            metrics = dict(zip(keys, mvec.unbind()))
         tx.update(dict(zip(names, grads)), state.opt_state, state.params)
         if ema_decay:
             with torch.no_grad():
@@ -253,12 +291,13 @@ def make_train_step_impl(forward_fn, model: nn.Module, cfg: CenterPointConfig, t
 
 def make_train_step(model: CenterPointDetector, tx: Optimizer, pillar_cfg: PillarConfig,
                     axis_name: Optional[str] = None, ema_decay: float = 0.0, augment=None,
-                    aug_seed: int = 0):
+                    aug_seed: int = 0, data_parallel: bool = False):
     """Returns step(state, batch) -> (state, metrics); `state` must be the
-    one built over `model` (its tensors are updated in place)."""
+    one built over `model` (its tensors are updated in place). axis_name /
+    data_parallel: the collective modes of make_train_step_impl."""
     return make_train_step_impl(lambda pillars, batch: model(pillars), model, model.cfg, tx,
                                 pillar_cfg, axis_name, ema_decay=ema_decay, augment=augment,
-                                aug_seed=aug_seed)
+                                aug_seed=aug_seed, data_parallel=data_parallel)
 
 
 def decode_detections(out: Dict[str, torch.Tensor], pillar_cfg: PillarConfig, out_stride: int,

@@ -106,6 +106,32 @@ def test_cli_resume_is_idempotent(fake_root, monkeypatch, capsys):
     assert json.load(open(tmp / "cli_resumed.json")) == full
 
 
+def test_cli_parses_the_jax_lift_command_line(monkeypatch, tmp_path):
+    """C1: a command line of the JAX lift CLI (every flag of
+    cm3d_tpu/pipelines/lift.py:175-199) reaches run_lift with its values;
+    --host_shard takes host 1 of 2's stride of the scenes."""
+    import cm3d_tpu_torch.pipelines.lift as lift_mod
+
+    seen = {}
+    monkeypatch.setattr(lift_mod, "run_lift", lambda *args, **kw: seen.update(args=args, kw=kw))
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    priors = tmp_path / "priors.json"
+    main(["--dataroot", "D", "--version", "v1.0-trainval", "--mask_dir", str(tmp_path),
+          "--scenes", "s0,s1,s2,s3", "--out", "o.json", "--batch_size", "16",
+          "--data_parallel", "2", "--resume", "--host_shard", "--profile", "prof",
+          "--drivable_filter", "--lane_dist_filter", "--dataset_priors",
+          "--priors_file", str(priors)])
+    assert seen["args"] == ("D", "v1.0-trainval", str(tmp_path), ["s1", "s3"], "o.json")
+    kw = seen["kw"]
+    assert (kw["batch_size"], kw["data_parallel"], kw["resume"], kw["profile_dir"]) == \
+        (16, 2, True, "prof")
+    cfg = kw["lift_cfg"]
+    assert (cfg.drivable_filter, cfg.lane_dist_filter, cfg.use_chatgpt_priors,
+            cfg.priors_file) == (True, True, False, str(priors))
+    assert kw["device"] == "cuda"
+
+
 def test_port_imports_neither_jax_nor_cm3d_tpu():
     code = (
         "import sys\n"
@@ -125,6 +151,8 @@ def test_port_imports_neither_jax_nor_cm3d_tpu():
         "import cm3d_tpu_torch.datasets.waymo.frame_proto, cm3d_tpu_torch.pipelines.lift_waymo\n"
         "import cm3d_tpu_torch.geometry.boxes, cm3d_tpu_torch.eval.waymo_metrics\n"
         "import cm3d_tpu_torch.native, cm3d_tpu_torch.config\n"
+        "import cm3d_tpu_torch.parallel.multihost, cm3d_tpu_torch.parallel.mesh\n"
+        "import cm3d_tpu_torch.pipelines.pretrain, cm3d_tpu_torch.pipelines.detect\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'flax' or m == 'cm3d_tpu' or m.startswith('cm3d_tpu.'))\n"
         "print(','.join(bad))\n"

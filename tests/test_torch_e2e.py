@@ -308,8 +308,9 @@ def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch
     sub = json.loads(out.read_text())
     assert set(sub) == {"meta", "results"}
     assert MaskArtifactStore(world["tmp"] / "cli_masks").completed_scenes() == {world["scene"]}
+    # --host_shard is ported (A14a): tests/test_torch_multihost.py drives it
     for extra, item in ((["--quant_int8"], "A12"), (["--detector", "gdino"], "A13"),
-                        (["--camera_mesh", "2"], "A14"), (["--host_shard"], "A14")):
+                        (["--camera_mesh", "2"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             e2e.main(argv + extra)
     # the checkpoint flags are ported (A6): without --fake_weights all four

@@ -219,7 +219,7 @@ def test_lift_kitti_cli_writes_jaxs_labels(kitti_world, tmp_path, capsys):
 def test_lift_kitti_cli_flags(kitti_world, tmp_path, capsys, monkeypatch):
     """The CLI's --indices default (the store's frames), --split reaching
     the frontend (tests/test_kitti.py:313 on the port), --data_parallel
-    naming its ROADMAP item."""
+    reaching its validation (tests/test_torch_data_parallel.py runs it)."""
     root, mask_dir = kitti_world
     out = tmp_path / "out"
     # the CLI's production caps (KITTI_LIFT), cut to the fixture's size
@@ -240,9 +240,9 @@ def test_lift_kitti_cli_flags(kitti_world, tmp_path, capsys, monkeypatch):
     lift_kitti.run_lift_kitti(str(root), str(tmp_path / "m2"), [], str(tmp_path / "o"),
                               split="testing", device="cpu")
     assert seen["split"] == "testing"
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(SystemExit, match="must divide --batch_size 8"):
         lift_kitti.main(["--root", str(root), "--mask_dir", str(mask_dir), "--data_parallel",
-                         "2", "--device", "cpu"])
+                         "3", "--device", "cpu"])
 
 
 # --- the mask provider and the fused path ------------------------------------

@@ -120,15 +120,15 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
 
 
 # item None: ported since (the checkpoint flags and --sam_size in A6, Waymo
-# in A8, KITTI in A9); the flag is accepted and the run goes on to read the
-# dataroot
+# in A8, KITTI in A9, --host_shard in A14a); the flag is accepted and the run
+# goes on to read the dataroot
 @pytest.mark.parametrize("extra,item", [
     (["--detic_ckpt", "x.pth"], None), (["--sam_ckpt", "x.pth"], None),
     (["--clip_ckpt", "c.pt"], None), (["--bpe_path", "b.txt.gz"], None),
     (["--sam_size", "vit_l"], None), (["--quant_int8"], "A12"), (["--quant_static"], "A12"),
     (["--use_zoedepth"], "A13"), (["--zoe_ckpt", "z.pt"], "A13"), (["--detector", "gdino"], "A13"),
     (["--gdino_ckpt", "g.pth"], "A13"), (["--gdino_vocab", "v.txt"], "A13"),
-    (["--gdino_bf16"], "A13"), (["--camera_mesh", "2"], "A14"), (["--host_shard"], "A14"),
+    (["--gdino_bf16"], "A13"), (["--camera_mesh", "2"], "A14"), (["--host_shard"], None),
     (["--dataset", "waymo"], None), (["--dataset", "kitti"], None),
 ])
 def test_masks_cli_names_the_roadmap_item_of_a_jax_flag(tmp_path, extra, item):

@@ -165,11 +165,13 @@ def test_label_source_and_flag_validation(dataset, tmp_path):
         _train(root, labels, tmp_path / "x", labels_gt=True)
     with pytest.raises(SystemExit, match="mutually exclusive"):
         _train(root, labels, tmp_path / "x", resume=True, init_from=str(tmp_path / "nowhere"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        _train(root, labels, tmp_path / "x", data_parallel=2)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # --data_parallel (A14a; test_torch_data_parallel.py runs it) is
+    # validated with JAX's words before any work
+    with pytest.raises(SystemExit, match="must divide --batch_size 2"):
+        _train(root, labels, tmp_path / "x", data_parallel=3)
+    with pytest.raises(SystemExit, match="must divide --batch_size 4"):
         tdetect.run_detect(str(root), VERSION, str(tmp_path / "x"), str(tmp_path / "d.json"),
-                           data_parallel=2, device="cpu")
+                           data_parallel=3, device="cpu")
     with pytest.raises(SystemExit, match="require --use_camera"):
         tpretrain.main(["--dataroot", str(root), "--labels", labels, "--camera_bf16"])
     with pytest.raises(SystemExit, match="requires --use_camera"):

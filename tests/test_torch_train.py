@@ -392,7 +392,30 @@ def test_augment_geometry_matches_jax_for_shared_affine_parameters():
     assert g1[2] is None and torch.equal(g1[0][..., 3], torch.from_numpy(pts[..., 3]))
 
 
-def test_train_step_state_validation():
+def _assert_axis_step_of_one_is_the_plain_step(tmp_path):
+    import torch.distributed as dist
+
+    batch = _torch_batch(_make_batch(b=2, n=512, m=2))
+    runs = []
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        for axis_name in (None, "data"):
+            state, model, tx = ttrain.init_state(0, PILLAR, MODEL, device="cpu")
+            step = ttrain.make_train_step(model, tx, PILLAR, axis_name=axis_name)
+            for _ in range(2):
+                state, metrics = step(state, batch)
+            runs.append((state, metrics))
+    finally:
+        dist.destroy_process_group()
+    (a, ma), (b, mb) = runs
+    for key in ("params", "batch_stats"):
+        for name, t in getattr(a, key).items():
+            assert torch.equal(t, getattr(b, key)[name]), name
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+
+
+def test_train_step_state_validation(tmp_path):
     with pytest.raises(ValueError, match="out_stride"):
         CenterPointConfig(out_stride=4)
     model = CenterPointDetector(MODEL)
@@ -403,8 +426,11 @@ def test_train_step_state_validation():
             ttrain.state_for(model, tx, False), batch)
     with pytest.raises(ValueError, match="ema_params but ema_decay"):
         ttrain.make_train_step(model, tx, PILLAR)(ttrain.state_for(model, tx, True), batch)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # the axis_name step (A14a) averages over torch.distributed's default
+    # group: without one it refuses; over a group of one it is the plain step
+    with pytest.raises(RuntimeError, match="init_process_group"):
         ttrain.make_train_step(model, tx, PILLAR, axis_name="data")
+    _assert_axis_step_of_one_is_the_plain_step(tmp_path)
     state, model, tx = ttrain.init_state(0, PILLAR, MODEL, device="cpu")
     assert float(model.heatmap_out.bias.detach()[0]) == pytest.approx(-4.6)
     state, metrics = ttrain.make_train_step(model, tx, PILLAR, augment=taug.AugmentConfig(),

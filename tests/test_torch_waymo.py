@@ -277,9 +277,10 @@ def test_lift_waymo_cli_writes_jaxs_objects(fake_waymo, tmp_path, capsys):
         assert (a.box.width, a.box.length, a.box.height) == \
             (b.box.width, b.box.length, b.box.height)
         assert abs(a.box.heading - b.box.heading) < 1e-5
-    with pytest.raises(NotImplementedError, match="A14"):
+    # --data_parallel reaches its validation (test_torch_data_parallel.py runs it)
+    with pytest.raises(SystemExit, match="must divide --batch_size 8"):
         lift_waymo.main(["--frames_root", str(frames), "--mask_dir", str(mask_dir),
-                         "--data_parallel", "2", "--device", "cpu"])
+                         "--data_parallel", "3", "--device", "cpu"])
 
 
 def test_raw_segment_and_gt_bin_match_the_npz_path(fake_waymo, tmp_path):
@@ -398,7 +399,7 @@ def test_e2e_cli_waymo_gets_the_waymo_vocabulary(monkeypatch, tmp_path):
     seen = {}
 
     def fake_run(frames_root, scenes, out, models, **kw):
-        seen.update(root=frames_root, scenes=scenes, models=models, **kw)
+        seen.update(root=frames_root, scenes=scenes, out=out, models=models, **kw)
         return 0
 
     monkeypatch.setattr(e2e, "run_e2e_waymo", fake_run)
@@ -406,12 +407,21 @@ def test_e2e_cli_waymo_gets_the_waymo_vocabulary(monkeypatch, tmp_path):
               "--out", str(tmp_path / "o.bin"), "--fake_weights", "--device", "cpu"])
     assert tuple(seen["models"].vocabulary) == tuple(CUSTOM_VOCABULARY_WAYMO)
     assert seen["scenes"] == ["s0", "s1"] and seen["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="A14"):
-        e2e.main(["--dataset", "waymo", "--dataroot", str(tmp_path), "--scenes", "s0",
-                  "--fake_weights", "--device", "cpu", "--host_shard"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        e2e.merge_host_outputs([str(tmp_path / "o.bin.host0")], str(tmp_path / "o.bin"),
-                               dataset="waymo")
+    # --host_shard (A14a): host 1 of 2 keeps the stride [1::2] and writes
+    # {out}.host1; merge_host_outputs concatenates the hosts' .bin files
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    e2e.main(["--dataset", "waymo", "--dataroot", str(tmp_path), "--scenes", "s0,s1,s2",
+              "--out", str(tmp_path / "o.bin"), "--fake_weights", "--device", "cpu",
+              "--host_shard"])
+    assert seen["scenes"] == ["s1"] and seen["out"] == str(tmp_path / "o.bin") + ".host1"
+    (tmp_path / "o.bin.host0").write_bytes(b"\x0a\x01a")
+    (tmp_path / "o.bin.host1").write_bytes(b"\x0a\x01b")
+    e2e.merge_host_outputs([str(tmp_path / "o.bin.host0"), str(tmp_path / "o.bin.host1")],
+                           str(tmp_path / "o.bin"), dataset="waymo")
+    assert (tmp_path / "o.bin").read_bytes() == b"\x0a\x01a\x0a\x01b"
+    monkeypatch.delenv("RANK")
+    monkeypatch.delenv("WORLD_SIZE")
     # KITTI (ported in A9) keeps the nuScenes vocabulary, as in JAX
     monkeypatch.setattr(e2e, "run_e2e_kitti",
                         lambda root, indices, out, models, **kw: seen.update(
