@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times   # timings only, see kernel_times
+    python3 chip_smoke.py --host-benches   # end-to-end timings only, see host_benches
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -182,7 +183,27 @@ Phases 15-17 run after phase 9, before the training phases.
    cuDNN's) through the group against the plain step's from the same
    weights, then a training step with and without the group, in turns. The card's name and
    power limit beside the times.
-19. One JSON line per kernel summary, then the card's name and power limit,
+19. Deploy and serve (deploy_serve_phase): the op dispatch's host cost a
+   compaction call (through the op against its CUDA implementation called
+   directly, in turns); the lift step exported at LiftStageConfig(), batch
+   8, on the card, saved and loaded (bytes, export and load seconds): tracing
+   launches nothing, a call of the loaded program launches 3 + 1 and is
+   bit-equal (every leaf of LiftOutputs and BoxOutputs) to the in-process
+   step on bench_lift's keyframes, ms a step of both in turns; the same for
+   WAYMO_LIFT and KITTI_LIFT on phase 16 / 17's batches against
+   make_keyframe_step_fn(preset); /v1/lift over localhost with buckets 1
+   and 8, 16 keyframes at a concurrency of 8, every response equal to the
+   in-process step's slot, each device call 3 + 1 launches (keyframes/s,
+   latency p50 / p99); the detect step exported at the defaults (batch 4,
+   32768 points, top_k 128) with seeded weights as inputs, CenterPoint and
+   BEVFusion-lite with the conv and the Swin-T camera: the program holds no
+   parameter, each call equal to make_detect_fn's with 1 segment_sum_max (+ 1
+   segment_sum with a camera, + 12 + 12 window attention with Swin-T);
+   /v1/detect with 16 clouds likewise; conform --fake_weights --skip_eval on
+   the port's nuScenes fixture, tests/torch_nusc_fixture.py (exit 0, its
+   report, e2e on the card launching the compaction and the medoid).
+   Each line beside the card's name and power limit; the phase's seconds.
+20. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -232,6 +253,7 @@ TRAIN_LOSS_RTOL = 1e-3  # training card vs CPU: loss of each of 3 steps
 TRAIN_GRAD_TOL = 1e-3  # first-step gradients, x the tensor's largest |gradient|
 DETERMINISTIC_FLAG = "--deterministic-phases"  # the child process of phase 14
 KERNEL_TIMES_FLAG = "--kernel-times"  # kernel_times alone
+HOST_BENCHES_FLAG = "--host-benches"  # host_benches alone
 DETERMINISTIC_WORKSPACE = ":4096:8"  # what deterministic cuBLAS asks for
 
 
@@ -1551,6 +1573,35 @@ def kernel_times(torch) -> dict:
     return out
 
 
+def host_benches(torch) -> dict:
+    """Timings alone, no checks, of the package beside this script: the
+    host-bound end-to-end benchmarks as phases 3, 12 and 8 run them,
+    bench_lift (batch 8, 10 steps) 5 times, bench_train (batch 8, 20 steps)
+    3 times and the fused bench_e2e (12 keyframes in batches of 4) twice.
+    Two trees compare on one card when this script is copied into the other
+    tree's checkout and run there and here in turns, in one call."""
+    from cm3d_tpu_torch.benchmarks import (
+        _realistic_load,
+        bench_e2e,
+        bench_lift,
+        bench_train,
+        build_production_fake_models,
+    )
+    from cm3d_tpu_torch.kernels import build
+
+    build.build_all()
+    out = {"cwd": os.getcwd(), "card": card_line()}
+    out["bench_lift"] = [bench_lift(8, 10, device="cuda")["value"] for _ in range(5)]
+    out["bench_train"] = [bench_train(TRAIN_BATCH, 20, device="cuda")["value"]
+                          for _ in range(3)]
+    torch.cuda.empty_cache()
+    models = _realistic_load(build_production_fake_models("bfloat16", device="cuda",
+                                                          fused_window_attn=True))
+    out["bench_e2e_fused"] = [bench_e2e("bfloat16", n_frames=12, batch_size=4, models=models,
+                                        device="cuda")["value"] for _ in range(2)]
+    return out
+
+
 def capture_swin_t_inputs(torch):
     """A seed-0 Swin-T camera trunk at full width, a batch-8 ring of images,
     and the window-attention wrapper's inputs at the trunk's 7 shapes."""
@@ -2336,7 +2387,7 @@ def dataset_step_phase(torch, dataset: str, step, cpu_step, frames, cpu_frames,
     return out
 
 
-def waymo_phase(torch) -> dict:
+def waymo_phase(torch, batches: dict) -> dict:
     """The Waymo path on the card at real geometry (fabricate_waymo):
     the frontend (range image unprojected on the card) against its CPU run,
     B1 / B2 held to their plain versions on a batch-8 Waymo step's inputs,
@@ -2400,6 +2451,7 @@ def waymo_phase(torch) -> dict:
         # B1 / B2 at Waymo's shapes, the step counted and timed, 2 keyframes
         # against the CPU lift
         host = stack_keyframes([kf for kf, _ in built])
+        batches["waymo"] = host.frames  # phase 19's Waymo lift artifact
         frames = to_device(host.frames, dev)
         out.update(dataset_step_phase(
             torch, "Waymo", make_keyframe_step_fn(WAYMO_LIFT, device=dev),
@@ -2677,7 +2729,7 @@ def fabricate_kitti(torch, root, mask_dir, n_frames, seed=0):
     store.mark_scene_complete("kitti", n_frames)
 
 
-def kitti_phase(torch) -> dict:
+def kitti_phase(torch, batches: dict) -> dict:
     """The KITTI path on the card at real geometry (fabricate_kitti): the
     calibration chain (the frontend's keyframes projected on the card)
     against the CPU and the f64 host chain; B1 / B2 held to their plain
@@ -2743,6 +2795,7 @@ def kitti_phase(torch) -> dict:
         check(all(100_000 < n < KITTI_LIFT.max_points for n in out["points_per_keyframe"]),
               f"about 120k points a sweep, under the cap: {out['points_per_keyframe']}")
         host = stack_keyframes([kf for kf, _ in built])
+        batches["kitti"] = host.frames  # phase 19's KITTI lift artifact
         frames = to_device(host.frames, dev)
         cpu_frames = to_device(host.frames, "cpu")
         pix = {}
@@ -3324,6 +3377,400 @@ def data_parallel_phase_in_child() -> dict:
     return json.loads(lines[-1])
 
 
+# --- 19. deploy and serve ------------------------------------------------------
+
+SERVE_REQUESTS = 16  # requests a route, sent SERVE_CONCURRENCY at a time
+SERVE_CONCURRENCY = 8
+SERVE_CLOUD_POINTS = 20000  # points a served detect cloud (capacity 32768)
+DISPATCH_CALLS = 200  # back-to-back calls a side when timing the ops' dispatch
+
+
+def _launch_counts() -> dict:
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.kernels.segment import segment_sum, segment_sum_bwd, segment_sum_max
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+
+    return {f.__name__: f.launches for f in (
+        compact_rows, medoid_distance_sums_rows, segment_sum_max, segment_sum, segment_sum_bwd,
+        window_attn_heads, window_attn_proj)}
+
+
+def _launched(before: dict) -> dict:
+    """The launches since `before`, by kernel, those above 0."""
+    return {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+
+
+def _save_and_load(torch, program, path) -> tuple:
+    from cm3d_tpu_torch import deploy
+
+    deploy.save_artifact(program, path)
+    t0 = time.perf_counter()
+    loaded = deploy.load_artifact(path)
+    return loaded, {"bytes": os.path.getsize(path), "load_s": time.perf_counter() - t0}
+
+
+def lift_artifact_phase(torch, name: str, cfg, host, tmp, card: str, frame=None):
+    """The lift step of `cfg` exported at `host`'s batch on the card
+    (`frame` fixes the per-frame shapes; None: the synthetic frame, as the
+    JAX package does), saved and loaded: tracing launches nothing, a call
+    of the loaded program launches 3 compactions and 1 medoid and is bit-equal
+    to the in-process step on `host`, ms a step of both in turns."""
+    from cm3d_tpu_torch import deploy
+    from cm3d_tpu_torch.datasets.types import to_device
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+
+    dev = torch.device("cuda")
+    frames = to_device(host, dev)
+    batch = frames.points.shape[0]
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    program = deploy.export_lift_step(cfg, batch_size=batch, device=dev, frame=frame)
+    out = {"export_s": time.perf_counter() - t0}
+    check(not _launched(before), f"{name}: tracing the lift step launches no kernel")
+    loaded, sizes = _save_and_load(torch, program, os.path.join(tmp, f"lift_{name}.pt2"))
+    out.update(sizes)
+    step = make_keyframe_step_fn(cfg, device=dev)
+    want = step(frames)
+    before = _launch_counts()
+    got = loaded.call(frames)
+    _sync(torch, dev)
+    out["launches_per_call"] = _launched(before)
+    check(out["launches_per_call"] == {"compact_rows": 3, "medoid_distance_sums_rows": 1},
+          f"{name}: the loaded lift program launches 3 + 1, got {out['launches_per_call']}")
+    check(type(got[0]).__name__ == "LiftOutputs" and type(got[1]).__name__ == "BoxOutputs"
+          and _tensors_equal(torch, got, want),
+          f"{name}: the loaded lift program's LiftOutputs / BoxOutputs bit-equal to the "
+          "in-process step's")
+    out["kept_boxes"] = int(got[1].keep.sum())
+    check(out["kept_boxes"] > 0, f"{name}: the artifact keeps boxes")
+    out.update(_in_turns(torch, dev, {"in_process": lambda: step(frames),
+                                      "artifact": lambda: loaded.call(frames)}))
+    print(f"[{card}] {name} lift artifact, batch {batch}: {out['bytes']} bytes, export "
+          f"{out['export_s']:.2f} s, load {out['load_s']:.2f} s, bit-equal, launches "
+          f"{out['launches_per_call']} a call; ms a step in-process {out['in_process_ms']}, "
+          f"artifact {out['artifact_ms']}", flush=True)
+    return out, loaded, step
+
+
+def _detect_inputs(torch, batch: int, n_points: int, image_hw, use_camera: bool, seed=0):
+    """A batch of clouds over the pillar grid (the first `n_points` of
+    each valid) and, with a camera, images with the ring's extrinsics, on
+    the card."""
+    from cm3d_tpu_torch.train import PillarConfig
+
+    pc = PillarConfig()
+    rng = np.random.default_rng(seed)
+    pts = np.zeros((batch, 32768, 4), np.float32)
+    pts[..., 0] = rng.uniform(pc.x_min, pc.x_max, (batch, 32768))
+    pts[..., 1] = rng.uniform(pc.y_min, pc.y_max, (batch, 32768))
+    pts[..., 2] = rng.uniform(-2.0, 1.0, (batch, 32768))
+    pts[..., 3] = rng.uniform(0.0, 1.0, (batch, 32768))
+    valid = np.zeros((batch, 32768), bool)
+    valid[:, :n_points] = True
+    dev = torch.device("cuda")
+    out = [torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)]
+    if use_camera:
+        ih, iw = image_hw
+        k = np.array([[100.0, 0.0, iw / 2], [0.0, 100.0, ih / 2], [0.0, 0.0, 1.0]], np.float32)
+        out += [torch.from_numpy(rng.uniform(0, 255, (batch, N_CAMERAS, ih, iw, 3))
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(np.tile(k, (batch, N_CAMERAS, 1, 1))).to(dev),
+                torch.from_numpy(ring_extrinsics(batch)).to(dev)]
+    return out
+
+
+def detect_artifact_phase(torch, name: str, use_camera: bool, backbone: str, tmp, card: str):
+    """The detect step exported at the defaults (batch 4, 32768 points,
+    top_k 128, 6 x 144 x 256 images) with seeded weights as inputs, saved
+    and loaded: a call equal to make_detect_fn's on the same batch, its
+    launches (1 segment_sum_max; + 1 segment_sum with a camera; + 12 + 12
+    window attention with Swin-T), ms a call of both in turns."""
+    from cm3d_tpu_torch import deploy
+    from cm3d_tpu_torch.config import class_arrays
+    from cm3d_tpu_torch.pipelines.detect import make_detect_fn
+    from cm3d_tpu_torch.train import PillarConfig
+    from cm3d_tpu_torch.train.train import model_tensors
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    model = deploy.detect_model(use_camera, backbone).to(dev)
+    with torch.no_grad():  # a heatmap prior of 0.5, not 0.01: the 0.1 threshold keeps boxes
+        (model.centerpoint if use_camera else model).heatmap_out.bias.zero_()
+    params, stats = model_tensors(model)
+    params = {k: v.detach() for k, v in params.items()}
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    program = deploy.export_detect_step(use_camera=use_camera, camera_backbone=backbone,
+                                        device=dev)
+    out = {"export_s": time.perf_counter() - t0}
+    check(not _launched(before), f"{name}: tracing the detect step launches no kernel")
+    check(dict(program.state_dict) == {}, f"{name}: the program holds no parameter")
+    path = os.path.join(tmp, f"detect_{name}.pt2")
+    loaded, sizes = _save_and_load(torch, program, path)
+    out.update(sizes)
+    out["parameter_bytes"] = sum(v.numel() * v.element_size()
+                                 for v in [*params.values(), *stats.values()])
+    inputs = _detect_inputs(torch, 4, 30000, TRAIN_IMAGE_HW, use_camera)
+    _, _, radii = class_arrays()
+    detect = make_detect_fn(model, PillarConfig(), radii[:10], fusion=use_camera)
+    want = detect(*inputs)
+    before = _launch_counts()
+    got = loaded.call(params, stats, *inputs)
+    _sync(torch, dev)
+    out["launches_per_call"] = _launched(before)
+    expect = {"segment_sum_max": 1}
+    if use_camera:
+        expect["segment_sum"] = 1
+    if backbone == "swin_t" and use_camera:
+        expect.update(window_attn_heads=SWIN_T_BLOCKS, window_attn_proj=SWIN_T_BLOCKS)
+    check(out["launches_per_call"] == expect,
+          f"{name}: the loaded detect program launches {expect}, got {out['launches_per_call']}")
+    out["max_abs_err"] = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{name}: the loaded detect program equal to make_detect_fn ({out['max_abs_err']:.3g})")
+    out["kept"] = int(got[3].sum())
+    check(out["kept"] > 0, f"{name}: the detect artifact keeps boxes")
+    out.update(_in_turns(torch, dev, {"in_process": lambda: detect(*inputs),
+                                      "artifact": lambda: loaded.call(params, stats, *inputs)}))
+    print(f"[{card}] {name} detect artifact, batch 4: {out['bytes']} bytes (parameters "
+          f"{out['parameter_bytes']} bytes, passed in), export {out['export_s']:.2f} s, load "
+          f"{out['load_s']:.2f} s, equal, launches {out['launches_per_call']} a call; ms a call "
+          f"in-process {out['in_process_ms']}, artifact {out['artifact_ms']}", flush=True)
+    return out, path, params, stats, detect
+
+
+def _serve(torch, server, route: str, bodies, expected, per_call: dict, card: str) -> dict:
+    """Post `bodies` to `route` SERVE_CONCURRENCY at a time; every response
+    must equal its `expected` answer, and each device call must launch
+    `per_call`. Keyframes (or clouds) a second and request latency
+    percentiles."""
+    import concurrent.futures
+    import threading
+    import urllib.request
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d%s" % (server.server_address[1], route)
+
+    def post(body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url, data=body,
+                                     headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            resp = json.loads(r.read())
+        return resp, time.perf_counter() - t0
+
+    try:
+        post(bodies[0])  # warm the route
+        batches0 = server.backend.stats["batches"]
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+            results = list(pool.map(post, bodies))
+        wall = time.perf_counter() - t0
+        batches = server.backend.stats["batches"] - batches0
+        launches = _launched(before)
+    finally:
+        server.shutdown()
+        server.backend.close()
+        server.server_close()
+    for i, ((resp, _), want) in enumerate(zip(results, expected)):
+        check(resp == want, f"{route}: response {i} equal to its in-process slot")
+    check(sum(want["n_kept"] for want in expected) > 0, f"{route}: the answers hold boxes")
+    check(launches == {k: v * batches for k, v in per_call.items()},
+          f"{route}: {per_call} launches in each of {batches} device calls, got {launches}")
+    lat = np.array([t for _, t in results]) * 1e3
+    out = {"requests": len(bodies), "concurrency": SERVE_CONCURRENCY, "device_calls": batches,
+           "launches": launches,
+           "per_s": len(bodies) / wall, "latency_ms_p50": float(np.percentile(lat, 50)),
+           "latency_ms_p99": float(np.percentile(lat, 99)),
+           "body_bytes": int(np.mean([len(b) for b in bodies]))}
+    print(f"[{card}] {route}: {out['requests']} requests at concurrency {SERVE_CONCURRENCY} in "
+          f"{batches} device calls, {out['per_s']:.2f} a second, latency p50 "
+          f"{out['latency_ms_p50']:.1f} ms, p99 {out['latency_ms_p99']:.1f} ms, "
+          f"{out['body_bytes']} bytes a body; every response equal to its slot; launches "
+          f"{launches}", flush=True)
+    return out
+
+
+def _lift_answer(lift, boxes, j) -> dict:
+    """The /v1/lift response for slot j of an in-process step."""
+    k = boxes.keep[j].cpu().numpy()
+    rows = np.concatenate([boxes.centers[j].cpu().numpy()[k], boxes.sizes[j].cpu().numpy()[k],
+                           boxes.yaws[j].cpu().numpy()[k][:, None]], axis=1)
+    return {"boxes": rows.tolist(), "scores": boxes.scores[j].cpu().numpy()[k].tolist(),
+            "classes": boxes.labels[j].cpu().numpy()[k].tolist(), "n_kept": int(k.sum()),
+            "n_masks_with_points": int(lift.has_points[j].sum()),
+            "n_truncated": int(lift.truncated[j].sum())}
+
+
+def serve_lift_phase(torch, cfg, host, b8_path, tmp, card: str) -> dict:
+    """/v1/lift over localhost with batch buckets 1 and 8: SERVE_REQUESTS
+    keyframes (`host`'s 8 and 8 more synthetic ones) as .npz bodies, every
+    response equal to the in-process step's slot."""
+    import io
+
+    from cm3d_tpu_torch import deploy
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+    from cm3d_tpu_torch.serve import _keyframe_fields, make_lift_server
+
+    dev = torch.device("cuda")
+    frame = map_fields(lambda x: x[0], host)
+    b1_path = os.path.join(tmp, "lift_b1.pt2")
+    deploy.save_artifact(deploy.export_lift_step(cfg, batch_size=1, device=dev, frame=frame),
+                         b1_path)
+    rng = np.random.default_rng(1)
+    more = stack_keyframes([make_keyframe(SyntheticConfig(), cfg, rng)
+                            for _ in range(8)]).frames
+    step = make_keyframe_step_fn(cfg, device=dev)
+    bodies, expected = [], []
+    for batch in (host, more):
+        lift, boxes = step(to_device(batch, dev))
+        for j in range(batch.points.shape[0]):
+            buf = io.BytesIO()
+            np.savez(buf, **_keyframe_fields(map_fields(lambda x: x[j], batch)))
+            bodies.append(buf.getvalue())
+            expected.append(_lift_answer(lift, boxes, j))
+    server = make_lift_server([b1_path, b8_path], port=0, verbose=False)
+    check(server.backend.bucket_sizes == [1, 8], "lift buckets 1 and 8")
+    return _serve(torch, server, "/v1/lift", bodies, expected,
+                  {"compact_rows": 3, "medoid_distance_sums_rows": 1}, card)
+
+
+def serve_detect_phase(torch, path, params, stats, detect, card: str) -> dict:
+    """/v1/detect over localhost: SERVE_REQUESTS clouds of
+    SERVE_CLOUD_POINTS points as .npy bodies, every response equal to the
+    in-process detect with the cloud alone in slot 0."""
+    import io
+
+    from cm3d_tpu_torch.serve import make_server
+
+    dev = torch.device("cuda")
+    points, _ = _detect_inputs(torch, SERVE_REQUESTS, SERVE_CLOUD_POINTS, None, False, seed=2)
+    clouds = points[:, :SERVE_CLOUD_POINTS].cpu().numpy()
+    bodies, expected = [], []
+    for cloud in clouds:
+        buf = io.BytesIO()
+        np.save(buf, cloud)
+        bodies.append(buf.getvalue())
+        pts = torch.zeros((4, 32768, 4), device=dev)
+        val = torch.zeros((4, 32768), dtype=torch.bool, device=dev)
+        pts[0, :len(cloud)] = torch.from_numpy(cloud).to(dev)
+        val[0, :len(cloud)] = True
+        boxes, scores, classes, keep = (x[0].cpu().numpy() for x in detect(pts, val))
+        expected.append({"boxes": boxes[keep].tolist(), "scores": scores[keep].tolist(),
+                         "classes": classes[keep].tolist(), "n_kept": int(keep.sum())})
+    server = make_server(path, params, stats, port=0, verbose=False)
+    return _serve(torch, server, "/v1/detect", bodies, expected, {"segment_sum_max": 1}, card)
+
+
+def conform_phase(torch, tmp, card: str) -> dict:
+    """cm3d_tpu_torch.conform with --fake_weights --skip_eval on the port's
+    nuScenes fixture (tests/torch_nusc_fixture.py make_fake_nuscenes): exit
+    0, its report written, the e2e phase's 2 samples on the card (its lift
+    launches the compaction and the medoid)."""
+    from pathlib import Path
+
+    from cm3d_tpu_torch import conform
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_nusc_fixture import VERSION, make_fake_nuscenes
+
+    root, out = os.path.join(tmp, "nusc"), os.path.join(tmp, "conform")
+    make_fake_nuscenes(Path(root), Path(tmp) / "planted", n_frames=2, n_objects=6)
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    rc = conform.main(["--fake_weights", "--skip_eval", "--dataroot", root, "--version", VERSION,
+                       "--scenes", "scene-0001", "--out", out, "--device", "cuda"])
+    res = {"rc": rc, "s": time.perf_counter() - t0, "launches": _launched(before)}
+    report = json.load(open(os.path.join(out, "conform_report.json")))
+    res.update(n_samples=report["e2e"].get("n_samples"), n_boxes=report["e2e"].get("n_boxes"))
+    check(rc == 0 and report["ok"] and res["n_samples"] == 2
+          and report["e2e"]["argv"][-2:] == ["--device", "cuda"]
+          and res["launches"].get("compact_rows", 0) > 0
+          and res["launches"].get("medoid_distance_sums_rows", 0) > 0,
+          f"conform --fake_weights --skip_eval exits 0 with its report, the e2e phase on the "
+          f"card: {res}")
+    print(f"[{card}] conform --fake_weights --skip_eval on the fixture dataroot: exit {rc}, "
+          f"{res['n_samples']} samples, {res['n_boxes']} boxes, launches {res['launches']}, "
+          f"{res['s']:.2f} s", flush=True)
+    return res
+
+
+def dispatch_cost_phase(torch, card: str) -> dict:
+    """The dispatcher op's host cost a call: DISPATCH_CALLS back-to-back
+    compaction calls at a small shape (host-bound) through the wrapper and
+    its op, and through the op's CUDA implementation called directly, in
+    turns; microseconds a call."""
+    from cm3d_tpu_torch.kernels import compact
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sel = torch.rand((8, 4096), generator=gen, device=dev) < 0.3
+    values = torch.rand((8, 5, 4096), generator=gen, device=dev)
+    check(torch.equal(compact.compact_rows(sel, values, 1024),
+                      compact._compact_rows_cuda(sel, values, 1024)),
+          "the op and its CUDA implementation agree")
+    runs = {"op": lambda: compact.compact_rows(sel, values, 1024),
+            "direct": lambda: compact._compact_rows_cuda(sel, values, 1024)}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+    out = {"op_us": times["op"], "direct_us": times["direct"],
+           "dispatch_us": [a - b for a, b in zip(times["op"], times["direct"])],
+           "shape": "sel [8, 4096], values [8, 5, 4096], limit 1024"}
+    print(f"[{card}] op dispatch a compaction call: through the op {out['op_us']} us, the "
+          f"CUDA implementation called directly {out['direct_us']} us", flush=True)
+    return out
+
+
+def deploy_serve_phase(torch, host, card: str, batches: dict) -> dict:
+    """Phase 19: the lift and detect steps as artifacts, served over HTTP,
+    and the conformance runbook, on the card. `host`: bench_lift's batch-8
+    host keyframes; `batches`: phase 16 / 17's Waymo and KITTI batch-8 host
+    keyframes."""
+    import tempfile
+
+    from cm3d_tpu_torch.config import KITTI_LIFT, WAYMO_LIFT, LiftStageConfig
+    from cm3d_tpu_torch.datasets.types import map_fields
+
+    t_phase = time.perf_counter()
+    cfg = LiftStageConfig()
+    out = {"dispatch": dispatch_cost_phase(torch, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, preset, batch in (("nuscenes", cfg, host),
+                                    ("waymo", WAYMO_LIFT, batches["waymo"]),
+                                    ("kitti", KITTI_LIFT, batches["kitti"])):
+            out[f"lift_{name}"], _, _ = lift_artifact_phase(
+                torch, name, preset, batch, tmp, card, frame=map_fields(lambda x: x[0], batch))
+        out["serve_lift"] = serve_lift_phase(torch, cfg, host,
+                                             os.path.join(tmp, "lift_nuscenes.pt2"), tmp, card)
+        served = None
+        for name, camera, backbone in (("centerpoint", False, "conv"),
+                                       ("bevfusion_conv", True, "conv"),
+                                       ("bevfusion_swin_t", True, "swin_t")):
+            res = detect_artifact_phase(torch, name, camera, backbone, tmp, card)
+            out[f"detect_{name}"] = res[0]
+            if name == "centerpoint":
+                served = res[1:]
+            del res
+        out["serve_detect"] = serve_detect_phase(torch, *served, card)
+        out["conform"] = conform_phase(torch, tmp, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] deploy and serve: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3340,6 +3787,9 @@ def main(argv) -> int:
         return 0
     if argv == [KERNEL_TIMES_FLAG]:
         print(json.dumps(kernel_times(torch)), flush=True)
+        return 0
+    if argv == [HOST_BENCHES_FLAG]:
+        print(json.dumps(host_benches(torch)), flush=True)
         return 0
     if argv == [DATA_PARALLEL_FLAG]:
         print(json.dumps(data_parallel_phase(torch)), flush=True)
@@ -3489,8 +3939,9 @@ def main(argv) -> int:
 
     # --- 15. released checkpoints, 16. the Waymo path, 17. the KITTI path ---
     released = released_weights_phase(torch)
-    waymo = waymo_phase(torch)
-    kitti = kitti_phase(torch)
+    batches = {}  # phase 16 / 17's host keyframes, for phase 19
+    waymo = waymo_phase(torch, batches)
+    kitti = kitti_phase(torch, batches)
 
     # --- 10.-14. the training path ---
     seg = segment_phase(torch, *capture_segment_inputs(torch))
@@ -3503,7 +3954,20 @@ def main(argv) -> int:
     # --- 18. every data-parallel path at world size 1, over NCCL ---
     data_parallel = data_parallel_phase_in_child()
 
-    # --- 19. summary ---
+    # --- 19. the lift and detect steps as artifacts, served over HTTP; conform ---
+    deploy_serve = deploy_serve_phase(torch, host.frames, card, batches)
+    lift_artifact_launches = {
+        name: deploy_serve[f"lift_{name}"]["launches_per_call"]
+        for name in ("nuscenes", "waymo", "kitti")}
+    detect_artifact_launches = {
+        name: deploy_serve[f"detect_{name}"]["launches_per_call"]
+        for name in ("centerpoint", "bevfusion_conv", "bevfusion_swin_t")}
+
+    def artifact_launches(kernel, table):
+        """A kernel's launches a call of each artifact that runs it."""
+        return {name: n[kernel] for name, n in table.items() if kernel in n}
+
+    # --- 20. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -3592,7 +4056,11 @@ def main(argv) -> int:
 
     def segment_entry(name, key, replaces, launches):
         rec = seg[key]
+        extra = {"artifact_launches": artifact_launches(name, detect_artifact_launches)}
+        if name == "segment_sum_max":
+            extra["served_launches"] = deploy_serve["serve_detect"]["launches"][name]
         return {
+            **extra,
             "name": name,
             "route": "cuda",
             "source": "cm3d_tpu_torch/csrc/segment.cu",
@@ -3617,6 +4085,8 @@ def main(argv) -> int:
             "source": "cm3d_tpu_torch/csrc/window_attn.cu",
             "replaces": "cm3d_tpu/kernels/window_attn_pallas.py:303",
             "launches": train["bench_fusion_train swin_t"]["launches"][f"window_attn_{name}"],
+            "artifact_launches": artifact_launches(f"window_attn_{name}",
+                                                   detect_artifact_launches),
             "max_abs_err": max(r["f32_max_abs_err"] for r in swin_t),
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
@@ -3653,6 +4123,9 @@ def main(argv) -> int:
             # the KITTI lift: run_lift_kitti's launches, a step's shapes
             "kitti_launches": kitti["run_lift_kitti_launches"]["compact_rows"],
             "kitti_stages": kitti["compaction_shapes"],
+            # a call of each exported lift program, and the served lift
+            "artifact_launches": artifact_launches("compact_rows", lift_artifact_launches),
+            "served_launches": deploy_serve["serve_lift"]["launches"]["compact_rows"],
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -3669,6 +4142,10 @@ def main(argv) -> int:
             "waymo_max_rel_err": waymo["medoid"]["max_rel_err"],
             "kitti_launches": kitti["run_lift_kitti_launches"]["medoid_distance_sums_rows"],
             "kitti_max_rel_err": kitti["medoid"]["max_rel_err"],
+            "artifact_launches": artifact_launches("medoid_distance_sums_rows",
+                                                   lift_artifact_launches),
+            "served_launches":
+                deploy_serve["serve_lift"]["launches"]["medoid_distance_sums_rows"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
@@ -3697,7 +4174,7 @@ def main(argv) -> int:
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
                       "train_cpu_check": train_check, "deterministic": deterministic,
                       "released_weights": released, "waymo": waymo, "kitti": kitti,
-                      "data_parallel": data_parallel}),
+                      "data_parallel": data_parallel, "deploy_serve": deploy_serve}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,8 +11,9 @@ csrc/compact.cu says what the design does about that: each row is cut into
 tiles (`plan_tiles`), and a call queues two kernels, a count over the tiles
 and a scatter that takes its tile's first slot from the counts.
 
-Dispatch: a CPU tensor runs `compact_rows_plain`; a CUDA tensor launches
-the kernels or raises. `compact_rows.launches` counts launcher calls.
+Dispatch: the dispatcher op `cm3d_torch::compact_rows` (kernels/ops.py): a
+CPU tensor runs `compact_rows_plain`; a CUDA tensor launches the kernels or
+raises. `compact_rows.launches` counts launcher calls.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import functools
 
 import torch
 
-from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels import build, ops
 
 
 def compact_rows_plain(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.Tensor:
@@ -69,10 +70,10 @@ def compact_rows(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.T
     out [R, D, limit] of values' dtype. Bit-exact equivalent of the JAX
     package's `_compact_topk` + take_along_axis."""
     _check(sel, values, limit)
-    if values.device.type == "cpu":
-        return compact_rows_plain(sel, values, limit)
-    if values.device.type != "cuda":
-        raise ValueError(f"compact_rows: unsupported device {values.device}")
+    return _op(sel, values, limit)
+
+
+def _compact_rows_cuda(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.Tensor:
     if values.element_size() != 4:
         raise TypeError(f"compact_rows: CUDA path moves 32-bit words, got {values.dtype}")
     r, d, s = values.shape
@@ -93,6 +94,11 @@ def compact_rows(sel: torch.Tensor, values: torch.Tensor, limit: int) -> torch.T
 
 
 compact_rows.launches = 0
+
+_op = ops.define(
+    "compact_rows(Tensor sel, Tensor values, int limit) -> Tensor",
+    cpu=compact_rows_plain, cuda=_compact_rows_cuda,
+    fake=lambda sel, values, limit: values.new_empty((values.shape[0], values.shape[1], limit)))
 
 
 @functools.cache

@@ -19,10 +19,12 @@ only sums over the first count_r = valid[r].sum() points. Sums at invalid i
 differ between the kernel (0) and the plain version; mask them before an
 argmin.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernels or raises. `medoid_distance_sums_rows.launches` counts launcher
-calls (both entry points launch through it; one a call unless the rows'
-partial sums exceed `SCRATCH_BYTES`).
+Dispatch: the dispatcher op `cm3d_torch::medoid_sums` (kernels/ops.py), one
+call for all of a call's launches: a CPU tensor runs the plain version; a
+CUDA tensor launches the kernels or raises.
+`medoid_distance_sums_rows.launches` counts launcher calls (both entry
+points launch through it; one a call unless the rows' partial sums exceed
+`SCRATCH_BYTES`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import ctypes
 
 import torch
 
-from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels import build, ops
 
 # pairwise block of the plain version: ~2^26 f32 per [R, chunk, K] temporary
 _PLAIN_BLOCK = 1 << 26
@@ -74,10 +76,11 @@ def medoid_distance_sums_rows(rows: torch.Tensor, valid: torch.Tensor) -> torch.
                         f"got {rows.dtype} and {valid.dtype}")
     if rows.device != valid.device:
         raise ValueError("medoid sums: rows and valid on different devices")
-    if rows.device.type == "cpu":
-        return medoid_distance_sums_rows_plain(rows, valid)
-    if rows.device.type != "cuda":
-        raise ValueError(f"medoid sums: unsupported device {rows.device}")
+    return _op(rows, valid)
+
+
+def _medoid_sums_cuda(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The whole row-chunk loop of launcher calls, one op call."""
     r, _, k = rows.shape
     if r > 65535:
         raise ValueError(f"medoid sums: at most 65535 rows per launch, got {r}")
@@ -105,6 +108,11 @@ def medoid_distance_sums_rows(rows: torch.Tensor, valid: torch.Tensor) -> torch.
 
 
 medoid_distance_sums_rows.launches = 0
+
+_op = ops.define(
+    "medoid_sums(Tensor rows, Tensor valid) -> Tensor",
+    cpu=medoid_distance_sums_rows_plain, cuda=_medoid_sums_cuda,
+    fake=lambda rows, valid: rows.new_empty((rows.shape[0], rows.shape[2]), dtype=torch.float32))
 
 
 def medoid_distance_sums(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

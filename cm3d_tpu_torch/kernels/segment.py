@@ -25,9 +25,11 @@ card's path calls them.
 fixed cells is the gather dvalues[r, :, i] = g[r, :, cell[r, i]] (0 at sink
 ids), a kernel of the same source on the card (`segment_sum_bwd`).
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises. Sortedness is the caller's contract and is not checked on
-the hot path. Each wrapper's `.launches` counts its kernel launches.
+Dispatch: the dispatcher ops `cm3d_torch::segment_sum_max`, `segment_sum`
+and `segment_sum_bwd` (kernels/ops.py): a CPU tensor runs the plain
+version; a CUDA tensor launches the kernel or raises. Sortedness is the
+caller's contract and is not checked on the hot path. Each wrapper's
+`.launches` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import functools
 
 import torch
 
-from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels import build, ops
 
 _MAX_GRID = 65535  # rows and channel chunks ride gridDim.z / gridDim.y
 
@@ -55,7 +57,7 @@ def segment_sum_plain(cell: torch.Tensor, values: torch.Tensor, n_cells: int) ->
     r, d, _ = values.shape
     out = torch.zeros((r, d, n_cells + 1), dtype=values.dtype, device=values.device)
     out = out.scatter_add(2, _scatter_index(cell, n_cells, d), values)
-    return out[:, :, :n_cells]
+    return out[:, :, :n_cells].contiguous()
 
 
 def segment_sum_max_plain(cell: torch.Tensor, values: torch.Tensor, maxvals: torch.Tensor,
@@ -67,7 +69,7 @@ def segment_sum_max_plain(cell: torch.Tensor, values: torch.Tensor, maxvals: tor
     maxs = torch.full((r, n_cells + 1), float("-inf"), dtype=maxvals.dtype,
                       device=maxvals.device)
     maxs = maxs.scatter_reduce(1, idx, maxvals, "amax", include_self=True)
-    return sums, maxs[:, :n_cells]
+    return sums, maxs[:, :n_cells].contiguous()
 
 
 def segment_sum_bwd_plain(cell: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -115,8 +117,10 @@ def segment_sum_max(cell: torch.Tensor, values: torch.Tensor, maxvals: torch.Ten
     (sums [R, D, n_cells], maxs [R, n_cells]). Not differentiable (pillars
     do not depend on parameters)."""
     _check(cell, values, n_cells, "segment_sum_max", maxvals)
-    if cell.device.type == "cpu":
-        return segment_sum_max_plain(cell, values, maxvals, n_cells)
+    return _sum_max_op(cell, values, maxvals, n_cells)
+
+
+def _segment_sum_max_cuda(cell, values, maxvals, n_cells: int):
     _check_cuda(cell, values, n_cells, "segment_sum_max")
     r, d, n = values.shape
     sums = torch.empty((r, d, n_cells), dtype=torch.float32, device=cell.device)
@@ -125,8 +129,7 @@ def segment_sum_max(cell: torch.Tensor, values: torch.Tensor, maxvals: torch.Ten
         return sums, maxs
     if d == 0 or n == 0:  # nothing to walk: every cell is empty
         return sums.zero_(), maxs.fill_(float("-inf"))
-    cell, values, maxvals = cell.contiguous(), values.detach().contiguous(), \
-        maxvals.detach().contiguous()
+    cell, values, maxvals = cell.contiguous(), values.contiguous(), maxvals.contiguous()
     err = _lib().segment_sum_max_launch(
         cell.data_ptr(), values.data_ptr(), maxvals.data_ptr(), sums.data_ptr(),
         maxs.data_ptr(), r, n, d, n_cells,
@@ -139,9 +142,7 @@ def segment_sum_max(cell: torch.Tensor, values: torch.Tensor, maxvals: torch.Ten
 segment_sum_max.launches = 0
 
 
-def _forward(cell: torch.Tensor, values: torch.Tensor, n_cells: int) -> torch.Tensor:
-    if cell.device.type == "cpu":
-        return segment_sum_plain(cell, values, n_cells)
+def _segment_sum_cuda(cell: torch.Tensor, values: torch.Tensor, n_cells: int) -> torch.Tensor:
     _check_cuda(cell, values, n_cells, "segment_sum")
     r, d, n = values.shape
     sums = torch.empty((r, d, n_cells), dtype=torch.float32, device=cell.device)
@@ -164,8 +165,10 @@ def segment_sum_bwd(cell: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if g.ndim != 3 or cell.ndim != 2 or g.shape[0] != cell.shape[0]:
         raise ValueError(f"segment_sum_bwd: cell [R, N] and g [R, D, n_cells] expected, got "
                          f"{tuple(cell.shape)} and {tuple(g.shape)}")
-    if cell.device.type == "cpu":
-        return segment_sum_bwd_plain(cell, g)
+    return _bwd_op(cell, g)
+
+
+def _segment_sum_bwd_cuda(cell: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if cell.dtype != torch.int32 or g.dtype != torch.float32:
         raise TypeError(f"segment_sum_bwd: int32 cell and float32 g expected, got "
                         f"{cell.dtype} and {g.dtype}")
@@ -194,7 +197,7 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cell, values, n_cells):
         ctx.save_for_backward(cell)
-        return _forward(cell, values, n_cells)
+        return _sum_op(cell, values, n_cells)
 
     @staticmethod
     def backward(ctx, g):
@@ -210,6 +213,22 @@ def segment_sum(cell: torch.Tensor, values: torch.Tensor, n_cells: int) -> torch
 
 
 segment_sum.launches = 0
+
+_sum_max_op = ops.define(
+    "segment_sum_max(Tensor cell, Tensor values, Tensor maxvals, int n_cells) -> (Tensor, Tensor)",
+    cpu=segment_sum_max_plain, cuda=_segment_sum_max_cuda,
+    fake=lambda cell, values, maxvals, n_cells: (
+        values.new_empty((values.shape[0], values.shape[1], n_cells)),
+        maxvals.new_empty((maxvals.shape[0], n_cells))))
+_sum_op = ops.define(
+    "segment_sum(Tensor cell, Tensor values, int n_cells) -> Tensor",
+    cpu=segment_sum_plain, cuda=_segment_sum_cuda,
+    fake=lambda cell, values, n_cells: values.new_empty(
+        (values.shape[0], values.shape[1], n_cells)))
+_bwd_op = ops.define(
+    "segment_sum_bwd(Tensor cell, Tensor g) -> Tensor",
+    cpu=segment_sum_bwd_plain, cuda=_segment_sum_bwd_cuda,
+    fake=lambda cell, g: g.new_empty((g.shape[0], g.shape[1], cell.shape[1])))
 
 
 @functools.cache

@@ -30,9 +30,10 @@ GEMM behind both (wgmma on TMA tiles, sm_90a) takes C % 8 == 0 and 16-byte
 aligned tensors; `window_attn_qkv` runs the qkv product alone, off the main
 path, for tests and measurement.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
-wproj [C, C].
+Dispatch: each launcher is a dispatcher op (`cm3d_torch::window_attn_heads`,
+`window_attn_qkv`, `window_attn_proj`; kernels/ops.py): a CPU tensor runs
+the plain version; a CUDA tensor launches the kernels or raises. Weights
+are torch `nn.Linear` layouts: wqkv [3C, C], wproj [C, C].
 
 Which kernel serves which model: `window_attn_heads` here holds windows of
 at most 64 tokens and heads of at most 64 channels, which is every Swin
@@ -51,7 +52,7 @@ import functools
 import numpy as np
 import torch
 
-from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels import build, ops
 
 EPS = 1e-5  # torch Swin LayerNorm default
 MAX_TOKENS = 64  # window^2 the kernel holds per block
@@ -256,9 +257,11 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
     """LN + qkv + per-head window attention -> o [B * nW * n, C] of
     `dtype` (see `window_attn_heads_plain`)."""
     _check(x, wqkv, table, heads, window, shift)
-    if x.device.type == "cpu":
-        return window_attn_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, table, heads=heads,
-                                       window=window, shift=shift, dtype=dtype, eps=eps)
+    return _heads_op(x, ln_weight, ln_bias, wqkv, bqkv, table, heads, window, shift, dtype, eps)
+
+
+def _window_attn_heads_cuda(x, ln_weight, ln_bias, wqkv, bqkv, table, heads: int, window: int,
+                            shift: int, dtype, eps: float) -> torch.Tensor:
     flag = _cuda_dtype_flag(dtype)
     _check_cuda_x(x, dtype, heads, window)
     b, h, w, c = x.shape
@@ -290,6 +293,23 @@ def window_attn_heads(x, ln_weight, ln_bias, wqkv, bqkv, table, *, heads: int, w
 window_attn_heads.launches = 0
 
 
+def _padded_rows(x, window: int) -> int:
+    b, h, w, _ = x.shape
+    hp, wp = padded_hw(h, w, window)
+    return b * hp * wp
+
+
+_heads_op = ops.define(
+    "window_attn_heads(Tensor x, Tensor ln_weight, Tensor ln_bias, Tensor wqkv, Tensor bqkv, "
+    "Tensor table, int heads, int window, int shift, ScalarType dtype, float eps) -> Tensor",
+    cpu=lambda x, lnw, lnb, wqkv, bqkv, table, heads, window, shift, dtype, eps:
+        window_attn_heads_plain(x, lnw, lnb, wqkv, bqkv, table, heads=heads, window=window,
+                                shift=shift, dtype=dtype, eps=eps),
+    cuda=_window_attn_heads_cuda,
+    fake=lambda x, lnw, lnb, wqkv, bqkv, table, heads, window, shift, dtype, eps:
+        x.new_empty((_padded_rows(x, window), x.shape[-1]), dtype=dtype))
+
+
 def ln_stats_scratch(x: torch.Tensor, dtype):
     """The f32 launches' per-token mean | rstd scratch [2, B * H * W]; the
     bf16 launches need none (None)."""
@@ -310,9 +330,11 @@ def window_attn_qkv(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: in
     [B, H, W, C] -> qkv [B * nW * n, 3C] of `dtype` in window order (see
     `window_attn_qkv_plain`). Off the main path, which runs these kernels
     inside `window_attn_heads`: for tests and measurement."""
-    if x.device.type == "cpu":
-        return window_attn_qkv_plain(x, ln_weight, ln_bias, wqkv, bqkv, window=window,
-                                     shift=shift, dtype=dtype, eps=eps)
+    return _qkv_op(x, ln_weight, ln_bias, wqkv, bqkv, window, shift, dtype, eps)
+
+
+def _window_attn_qkv_cuda(x, ln_weight, ln_bias, wqkv, bqkv, window: int, shift: int, dtype,
+                          eps: float) -> torch.Tensor:
     flag = _cuda_dtype_flag(dtype)
     c = x.shape[-1]
     if x.ndim != 4 or tuple(wqkv.shape) != (3 * c, c):
@@ -344,22 +366,31 @@ def window_attn_qkv(x, ln_weight, ln_bias, wqkv, bqkv, *, window: int, shift: in
 
 window_attn_qkv.launches = 0
 
+_qkv_op = ops.define(
+    "window_attn_qkv(Tensor x, Tensor ln_weight, Tensor ln_bias, Tensor wqkv, Tensor bqkv, "
+    "int window, int shift, ScalarType dtype, float eps) -> Tensor",
+    cpu=lambda x, lnw, lnb, wqkv, bqkv, window, shift, dtype, eps: window_attn_qkv_plain(
+        x, lnw, lnb, wqkv, bqkv, window=window, shift=shift, dtype=dtype, eps=eps),
+    cuda=_window_attn_qkv_cuda,
+    fake=lambda x, lnw, lnb, wqkv, bqkv, window, shift, dtype, eps:
+        x.new_empty((_padded_rows(x, window), 3 * x.shape[-1]), dtype=dtype))
 
-def _proj(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype,
-          counter) -> torch.Tensor:
-    """The projection launch behind `window_attn_proj` and
-    `window_attn_relpos_proj`; a launch is counted on `counter`."""
+
+def check_proj(o, wproj, out_shape, window: int) -> None:
+    """The projection's shapes: o [B * nW * n, C] and wproj [C, C] of out_shape."""
     b, h, w, c = out_shape
     hp, wp = padded_hw(h, w, window)
     if tuple(o.shape) != (b * hp * wp, c) or tuple(wproj.shape) != (c, c):
         raise ValueError(f"window_attn_proj: o {tuple(o.shape)} / wproj "
                          f"{tuple(wproj.shape)} do not fit out_shape {tuple(out_shape)}")
-    if o.device.type == "cpu":
-        return window_attn_proj_plain(o, wproj, bproj, out_shape=out_shape, window=window,
-                                      shift=shift, dtype=dtype)
+
+
+def proj_cuda(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype,
+              counter) -> torch.Tensor:
+    """The projection launch behind the ops `window_attn_proj` and
+    `window_attn_relpos_proj`; a launch is counted on `counter`."""
+    b, h, w, c = out_shape
     flag = _cuda_dtype_flag(dtype)
-    if o.device.type != "cuda":
-        raise ValueError(f"window_attn_proj: unsupported device {o.device}")
     if o.dtype != dtype or not o.is_contiguous():
         raise TypeError(f"window_attn_proj: o must be contiguous {dtype}, got {o.dtype}")
     dev = o.device
@@ -379,14 +410,30 @@ def _proj(o, wproj, bproj, out_shape, heads: int, window: int, shift: int, dtype
     return out
 
 
+def proj_fake(o, wproj, bproj, out_shape, *geo) -> torch.Tensor:
+    """The projection ops' fake implementation; their last argument is the
+    dtype."""
+    return o.new_empty(tuple(out_shape), dtype=geo[-1])
+
+
 def window_attn_proj(o, wproj, bproj, *, out_shape, heads: int, window: int, shift: int,
                      dtype) -> torch.Tensor:
     """o [B * nW * n, C] -> out [B, H, W, C] of `dtype` (see
     `window_attn_proj_plain`)."""
-    return _proj(o, wproj, bproj, out_shape, heads, window, shift, dtype, window_attn_proj)
+    check_proj(o, wproj, out_shape, window)
+    return _proj_op(o, wproj, bproj, list(out_shape), heads, window, shift, dtype)
 
 
 window_attn_proj.launches = 0
+
+_proj_op = ops.define(
+    "window_attn_proj(Tensor o, Tensor wproj, Tensor bproj, int[] out_shape, int heads, "
+    "int window, int shift, ScalarType dtype) -> Tensor",
+    cpu=lambda o, wproj, bproj, out_shape, heads, window, shift, dtype: window_attn_proj_plain(
+        o, wproj, bproj, out_shape=out_shape, window=window, shift=shift, dtype=dtype),
+    cuda=lambda o, wproj, bproj, out_shape, heads, window, shift, dtype: proj_cuda(
+        o, wproj, bproj, out_shape, heads, window, shift, dtype, window_attn_proj),
+    fake=proj_fake)
 
 
 def _launch_branch(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, table, *, heads: int,

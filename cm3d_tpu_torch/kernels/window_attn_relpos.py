@@ -31,8 +31,10 @@ most 80 channels) and `window_attn_relpos_proj` (the projection kernel of
 csrc/window_attn.cu with shift 0, which has no such cap).
 `window_attn_relpos` composes the two.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
+Dispatch: each launcher is a dispatcher op
+(`cm3d_torch::window_attn_relpos_heads`, `window_attn_relpos_proj`;
+kernels/ops.py): a CPU tensor runs the plain version; a CUDA tensor
+launches the kernels or raises. Weights are torch `nn.Linear` layouts: wqkv [3C, C],
 wproj [C, C]; the tables are [2 * window - 1, C / heads].
 """
 
@@ -44,17 +46,20 @@ import functools
 import numpy as np
 import torch
 
-from cm3d_tpu_torch.kernels import build
+from cm3d_tpu_torch.kernels import build, ops
 from cm3d_tpu_torch.kernels.window_attn import (
     _check_cuda_x,
     _cuda_dtype_flag,
     _f32,
-    _proj,
+    _padded_rows,
     _rounded,
     check_bf16_gemm,
+    check_proj,
     ln_stats_scratch,
     needs_graph,
     padded_hw,
+    proj_cuda,
+    proj_fake,
     ptr,
     window_attn_proj_plain,
     window_ln_rows_plain,
@@ -127,9 +132,11 @@ def window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, *,
     """LN + qkv + per-head rel-pos window attention -> o [B * nW * n, C] of
     `dtype` (see `window_attn_relpos_heads_plain`)."""
     _check(x, wqkv, rel_h, rel_w, heads, window)
-    if x.device.type == "cpu":
-        return window_attn_relpos_heads_plain(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w,
-                                              heads=heads, window=window, dtype=dtype, eps=eps)
+    return _heads_op(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, heads, window, dtype, eps)
+
+
+def _window_attn_relpos_heads_cuda(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w,
+                                   heads: int, window: int, dtype, eps: float) -> torch.Tensor:
     flag = _cuda_dtype_flag(dtype)
     _check_cuda_x(x, dtype, heads, window, MAX_WINDOW ** 2, MAX_HEAD_DIM)
     b, h, w, c = x.shape
@@ -161,15 +168,36 @@ def window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, *,
 
 window_attn_relpos_heads.launches = 0
 
+_heads_op = ops.define(
+    "window_attn_relpos_heads(Tensor x, Tensor ln_weight, Tensor ln_bias, Tensor wqkv, "
+    "Tensor bqkv, Tensor rel_h, Tensor rel_w, int heads, int window, ScalarType dtype, "
+    "float eps) -> Tensor",
+    cpu=lambda x, lnw, lnb, wqkv, bqkv, rel_h, rel_w, heads, window, dtype, eps:
+        window_attn_relpos_heads_plain(x, lnw, lnb, wqkv, bqkv, rel_h, rel_w, heads=heads,
+                                       window=window, dtype=dtype, eps=eps),
+    cuda=_window_attn_relpos_heads_cuda,
+    fake=lambda x, lnw, lnb, wqkv, bqkv, rel_h, rel_w, heads, window, dtype, eps:
+        x.new_empty((_padded_rows(x, window), x.shape[-1]), dtype=dtype))
+
 
 def window_attn_relpos_proj(o, wproj, bproj, *, out_shape, heads: int, window: int,
                             dtype) -> torch.Tensor:
     """o [B * nW * n, C] -> out [B, H, W, C] of `dtype`: the projection
     launch of `kernels/window_attn.py` with no shift, counted here."""
-    return _proj(o, wproj, bproj, out_shape, heads, window, 0, dtype, window_attn_relpos_proj)
+    check_proj(o, wproj, out_shape, window)
+    return _proj_op(o, wproj, bproj, list(out_shape), heads, window, dtype)
 
 
 window_attn_relpos_proj.launches = 0
+
+_proj_op = ops.define(
+    "window_attn_relpos_proj(Tensor o, Tensor wproj, Tensor bproj, int[] out_shape, int heads, "
+    "int window, ScalarType dtype) -> Tensor",
+    cpu=lambda o, wproj, bproj, out_shape, heads, window, dtype: window_attn_proj_plain(
+        o, wproj, bproj, out_shape=out_shape, window=window, shift=0, dtype=dtype),
+    cuda=lambda o, wproj, bproj, out_shape, heads, window, dtype: proj_cuda(
+        o, wproj, bproj, out_shape, heads, window, 0, dtype, window_attn_relpos_proj),
+    fake=proj_fake)
 
 
 def refuse_graph_on_card(x, *params) -> None:
@@ -188,8 +216,13 @@ def window_attn_relpos(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, r
                        heads: int, window: int, dtype, eps: float = EPS) -> torch.Tensor:
     """The attention branch of a windowed SAM block, [B, H, W, C] ->
     [B, H, W, C] of `dtype` (pre-residual): `window_attn_relpos_heads` then
-    `window_attn_relpos_proj`."""
-    refuse_graph_on_card(x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w)
+    `window_attn_relpos_proj`. Under autograd on the CPU it is the plain
+    version itself (the ops register no autograd kernel)."""
+    tensors = (x, ln_weight, ln_bias, wqkv, bqkv, wproj, bproj, rel_h, rel_w)
+    refuse_graph_on_card(*tensors)
+    if needs_graph(*tensors):
+        return window_attn_relpos_plain(*tensors, heads=heads, window=window, dtype=dtype,
+                                        eps=eps)
     o = window_attn_relpos_heads(x, ln_weight, ln_bias, wqkv, bqkv, rel_h, rel_w, heads=heads,
                                  window=window, dtype=dtype, eps=eps)
     return window_attn_relpos_proj(o, wproj, bproj, out_shape=tuple(x.shape), heads=heads,

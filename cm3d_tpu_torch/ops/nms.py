@@ -31,9 +31,23 @@ def _greedy_keep_fixpoint(overlap: torch.Tensor, valid_sorted: torch.Tensor) -> 
     n = overlap.shape[-1]
     upper = torch.ones((n, n), dtype=torch.bool, device=overlap.device).triu(1)
     ov = overlap & upper & valid_sorted[..., :, None]
+
+    def sweep(keep):
+        return valid_sorted & ~(ov & keep[..., :, None]).any(dim=-2)
+
+    if torch.compiler.is_compiling():
+        # traced (torch.export, deploy.py): the same sweeps as a while_loop
+        # over (keep, previous keep), as the JAX package's lax.while_loop
+        from torch._higher_order_ops.while_loop import while_loop
+
+        keep, _ = while_loop(lambda keep, prev: (keep != prev).any(),
+                             lambda keep, prev: (sweep(keep), keep.clone()),
+                             (sweep(valid_sorted), valid_sorted.clone()))
+        return keep
+    # eager: one host sync a sweep
     keep = valid_sorted
     while True:
-        new = valid_sorted & ~(ov & keep[..., :, None]).any(dim=-2)
+        new = sweep(keep)
         if torch.equal(new, keep):
             return keep
         keep = new

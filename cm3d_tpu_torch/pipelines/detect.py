@@ -58,6 +58,18 @@ def make_detect_fn(model, pillar_cfg, radius_sq: np.ndarray, top_k: int = 128,
     return detect
 
 
+def build_detector(pillar_cfg, model_cfg, fusion_cfg=None):
+    """The CenterPoint detector of `model_cfg`, or BEVFusion-lite when
+    `fusion_cfg` is given, on the CPU with the port's initialisation."""
+    if fusion_cfg is not None:
+        from cm3d_tpu_torch.train.bevfusion import BevFusionDetector
+
+        return BevFusionDetector(fusion_cfg, pillar_cfg)
+    from cm3d_tpu_torch.train.centerpoint import CenterPointDetector
+
+    return CenterPointDetector(model_cfg, in_channels=pillar_cfg.num_features)
+
+
 def load_detect_fn(ckpt_dir: str, pillar_cfg, model_cfg, fusion_cfg, classes,
                    top_k: int, score_thresh: float, device):
     """make_detect_fn over the checkpoint `ckpt_dir` on `device`: the
@@ -67,20 +79,13 @@ def load_detect_fn(ckpt_dir: str, pillar_cfg, model_cfg, fusion_cfg, classes,
     (parallel.dp_step)."""
     from cm3d_tpu_torch.models.checkpoints import load_params
     from cm3d_tpu_torch.parallel.mesh import Program
+    from cm3d_tpu_torch.train.train import model_tensors
 
+    model = build_detector(pillar_cfg, model_cfg, fusion_cfg)
     if fusion_cfg is not None:
-        from cm3d_tpu_torch.train.bevfusion import BevFusionDetector
-
         model_cfg = fusion_cfg.centerpoint
-        model = BevFusionDetector(fusion_cfg, pillar_cfg)
-    else:
-        from cm3d_tpu_torch.train.centerpoint import CenterPointDetector
-
-        model = CenterPointDetector(model_cfg, in_channels=pillar_cfg.num_features)
-    stats = {k: b for k, b in model.named_buffers()
-             if k.endswith(("running_mean", "running_var"))}
-    like = {"params": dict(model.named_parameters()), "batch_stats": stats}
-    restored = load_params(ckpt_dir, like=like)
+    params, stats = model_tensors(model)
+    restored = load_params(ckpt_dir, like={"params": params, "batch_stats": stats})
     model.load_state_dict({**restored["params"], **restored["batch_stats"]}, strict=True)
     model.to(device).eval()
 

@@ -154,10 +154,16 @@ def make_optimizer(learning_rate: float = 1e-3, total_steps: Optional[int] = Non
                      weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def model_tensors(model: nn.Module) -> Tuple[dict, dict]:
+    """(params, batch_stats): `model`'s parameters and BatchNorm running
+    statistics by state-dict name, its live tensors."""
+    stats = {k: b for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    return dict(model.named_parameters()), stats
+
+
 def state_for(model: nn.Module, tx: Optimizer, ema: bool) -> TrainState:
     """A step-0 train state over `model`'s own tensors."""
-    params = dict(model.named_parameters())
-    stats = {k: b for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    params, stats = model_tensors(model)
     return TrainState(
         params=params, batch_stats=stats, opt_state=tx.init(params), step=0,
         ema_params={k: p.detach().clone() for k, p in params.items()} if ema else None,

@@ -153,6 +153,28 @@ def test_port_imports_neither_jax_nor_cm3d_tpu():
         "import cm3d_tpu_torch.native, cm3d_tpu_torch.config\n"
         "import cm3d_tpu_torch.parallel.multihost, cm3d_tpu_torch.parallel.mesh\n"
         "import cm3d_tpu_torch.pipelines.pretrain, cm3d_tpu_torch.pipelines.detect\n"
+        "import cm3d_tpu_torch.deploy, cm3d_tpu_torch.serve, cm3d_tpu_torch.conform\n"
+        "import cm3d_tpu_torch.kernels.ops, cm3d_tpu_torch.ops.erosion\n"
+        "cm3d_tpu_torch.deploy._register_serializations()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'flax' or m == 'cm3d_tpu' or m.startswith('cm3d_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
+def test_port_fixtures_import_neither_jax_nor_cm3d_tpu():
+    """The dataroots `chip_smoke.py` and the card tests fabricate
+    (tests/torch_nusc_fixture.py, tests/kitti_fixture.py) load no JAX."""
+    import os
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{tests!r}, {os.path.dirname(tests)!r}]\n"
+        "import torch_nusc_fixture, kitti_fixture\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'flax' or m == 'cm3d_tpu' or m.startswith('cm3d_tpu.'))\n"
         "print(','.join(bad))\n"

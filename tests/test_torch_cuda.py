@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_op_cases
+
 from cm3d_tpu_torch.kernels.compact import compact_rows, compact_rows_plain
 from cm3d_tpu_torch.kernels.medoid import (
     medoid_distance_sums,
@@ -646,10 +648,8 @@ def test_e2e_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     window-attention kernels, the lift through compaction and medoid; f32
     with TF32 off) writes the CPU run's submission: the same samples, names
     and counts, centres within 1e-3 m, scores within 1e-4. The dataroot is
-    the JAX package's test fixture, so this one test needs that package
-    importable; the port itself still imports none of it."""
-    pytest.importorskip("jax", reason="the fabricated dataroot comes from tests/nusc_fixture.py")
-    from nusc_fixture import VERSION, make_fake_nuscenes
+    the port's nuScenes fixture (tests/torch_nusc_fixture.py, no JAX)."""
+    from torch_nusc_fixture import VERSION, make_fake_nuscenes
 
     from cm3d_tpu_torch.config import LiftStageConfig
     from cm3d_tpu_torch.kernels.window_attn_relpos import window_attn_relpos_heads
@@ -1091,3 +1091,91 @@ def test_released_checkpoints_load_at_full_size_on_card(cuda, tmp_path):
                                .to(got["roi_heads.box_head.0.fc1.weight"].dtype).float())
     boxes = models.detic(models.prepare([np.full((576, 1024, 3), 100, np.uint8)] * 2))[0]
     assert bool(torch.isfinite(boxes).all())
+
+
+# ---- the kernels as dispatcher ops, and through an exported program ------
+
+
+@pytest.mark.parametrize("case", torch_op_cases.case_ids())
+def test_opcheck_every_op_on_card(cuda, case):
+    """torch.library.opcheck on CUDA tensors: the CUDA implementation (the
+    launcher) against the op's schema, its fake implementation's shapes,
+    dtypes and strides, and AOT dispatch with dynamic shapes."""
+    op, dtype = torch_op_cases.CASES[torch_op_cases.case_ids().index(case)]
+    overload, args = torch_op_cases.op_and_args(op, dtype, cuda)
+    torch.library.opcheck(overload, args)
+    torch.cuda.synchronize()
+
+
+def _small_lift(cuda, batch):
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+
+    cfg = LiftStageConfig(num_sweeps=1, max_points=2048, max_masks=16, max_points_per_mask=256,
+                          max_points_per_camera=1024, max_points_in_masks=512,
+                          max_lane_points=64)
+    rng = np.random.default_rng(0)
+    syn = SyntheticConfig(points_per_frame=1500, objects_per_frame=6)
+    host = stack_keyframes([make_keyframe(syn, cfg, rng) for _ in range(batch)])
+    return cfg, to_device(host.frames, cuda)
+
+
+def test_exported_lift_step_launches_through_the_ops(cuda, tmp_path):
+    """The lift step exported on the card: tracing launches nothing; the
+    saved and loaded program launches 3 compactions and 1 medoid a call,
+    counted by the ops, and is bit-equal to the in-process step."""
+    import torch.utils._pytree as pytree
+
+    from cm3d_tpu_torch import deploy
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+
+    cfg, frames = _small_lift(cuda, 2)
+
+    def counts():
+        return compact_rows.launches, medoid_distance_sums_rows.launches
+
+    before = counts()
+    program = deploy.export_lift_step(cfg, batch_size=2, device=cuda)
+    assert counts() == before  # the fake implementations ran
+    loaded = deploy.load_artifact(deploy.save_artifact(program, tmp_path / "lift.pt2"))
+    assert loaded.platforms == ["cuda"]
+    before = counts()
+    got = loaded.call(frames)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 3, before[1] + 1)
+    want = make_keyframe_step_fn(cfg, device=cuda)(frames)
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert int(got[1].keep.sum()) > 0
+
+
+def test_exported_detect_step_on_card(cuda, tmp_path):
+    """The detect step exported on the card with its parameters as inputs:
+    one segment_sum_max launch a call through the loaded program, equal to
+    make_detect_fn on the same weights."""
+    from cm3d_tpu_torch import deploy
+    from cm3d_tpu_torch.config import class_arrays
+    from cm3d_tpu_torch.pipelines.detect import make_detect_fn
+    from cm3d_tpu_torch.train import PillarConfig
+    from cm3d_tpu_torch.train.train import model_tensors
+
+    torch.manual_seed(0)
+    model = deploy.detect_model().to(cuda)
+    before = segment_sum_max.launches
+    program = deploy.export_detect_step(batch_size=2, max_points=4096, top_k=32,
+                                        score_thresh=0.0, device=cuda)
+    assert segment_sum_max.launches == before
+    loaded = deploy.load_artifact(deploy.save_artifact(program, tmp_path / "d.pt2"))
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(-40, 40, (2, 4096, 4)).astype(np.float32)).to(cuda)
+    valid = torch.ones((2, 4096), dtype=torch.bool, device=cuda)
+    params, stats = model_tensors(model)
+    got = loaded.call({k: v.detach() for k, v in params.items()}, stats, pts, valid)
+    torch.cuda.synchronize()
+    assert segment_sum_max.launches == before + 1
+    _, _, radii = class_arrays()
+    want = make_detect_fn(model, PillarConfig(), radii[:10], top_k=32, score_thresh=0.0)(
+        pts, valid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_op_cases
+
 from cm3d_tpu.kernels.compact_pallas import compact_rows_pallas
 from cm3d_tpu.kernels.medoid_pallas import (
     medoid_distance_sums_pallas,
@@ -342,3 +344,143 @@ def test_circle_nms_keep_matches_jax(seed):
                           torch.from_numpy(radii)).numpy()
     assert 0 < want.sum() < valid.sum()  # suppression happened
     np.testing.assert_array_equal(got, want)
+
+
+# ---- the kernels as dispatcher ops (kernels/ops.py) ---------------------
+
+
+@pytest.mark.parametrize("case", torch_op_cases.case_ids())
+def test_opcheck_every_registered_op(case):
+    """torch.library.opcheck on the CPU: the schema (no input mutated or
+    aliased), no autograd kernel behind a backend key, the fake
+    implementation's shapes, dtypes and strides against the plain
+    version's, and AOT dispatch with dynamic shapes."""
+    op, dtype = torch_op_cases.CASES[torch_op_cases.case_ids().index(case)]
+    overload, args = torch_op_cases.op_and_args(op, dtype, "cpu")
+    torch.library.opcheck(overload, args)
+
+
+def test_every_launcher_is_an_op():
+    """The namespace holds exactly the launchers of the five kernel modules
+    (every one with an opcheck case), and each wrapper's CPU call goes
+    through its op and launches nothing."""
+    import cm3d_tpu_torch.kernels.window_attn_relpos  # noqa: F401
+    from cm3d_tpu_torch.kernels import ops
+
+    defined = {name.split("::")[1].split(".")[0]
+               for name in torch._C._dispatch_get_all_op_names()
+               if name.startswith(f"{ops.NAMESPACE}::")}
+    assert defined == {op for op, _ in torch_op_cases.CASES}
+
+
+def _greedy_keep_loop(overlap, valid_sorted):
+    """The fixpoint as it was written before the traced form: whole-vector
+    sweeps until one changes nothing."""
+    n = overlap.shape[-1]
+    upper = torch.ones((n, n), dtype=torch.bool).triu(1)
+    ov = overlap & upper & valid_sorted[..., :, None]
+    keep = valid_sorted
+    while True:
+        new = valid_sorted & ~(ov & keep[..., :, None]).any(dim=-2)
+        if torch.equal(new, keep):
+            return keep
+        keep = new
+
+
+def _greedy_keep_sequential(overlap, valid_sorted):
+    """Greedy NMS one box at a time (the definition)."""
+    ov, val = overlap.numpy(), valid_sorted.numpy()
+    keep = np.zeros_like(val)
+    for idx in np.ndindex(val.shape[:-1]):
+        for j in range(val.shape[-1]):
+            keep[idx + (j,)] = val[idx + (j,)] and not any(
+                keep[idx + (i,)] and ov[idx + (i, j)] for i in range(j))
+    return torch.from_numpy(keep)
+
+
+class _Fixpoint(torch.nn.Module):
+    def forward(self, overlap, valid_sorted):
+        from cm3d_tpu_torch.ops.nms import _greedy_keep_fixpoint
+
+        return _greedy_keep_fixpoint(overlap, valid_sorted)
+
+
+def _overlaps(seed, batch=3, n=24):
+    """Random overlap matrices with chains of suppression: box i overlaps
+    i + 1 along a chain (keep alternates down it) beside random pairs."""
+    rng = np.random.default_rng(seed)
+    ov = rng.random((batch, n, n)) < 0.08
+    for b in range(batch):
+        start = int(rng.integers(0, n // 2))
+        for i in range(start, n - 1):
+            ov[b, i, i + 1] = True
+    valid = rng.random((batch, n)) < 0.9
+    return torch.from_numpy(ov), torch.from_numpy(valid)
+
+
+def test_greedy_keep_fixpoint_traced_equals_the_loop():
+    """The exported form (torch.export, a while_loop over (keep, previous
+    keep)) keeps exactly the boxes the eager sweep loop and the one-at-a-
+    time definition keep, on chains of suppression up to n long; the eager
+    form is the loop itself."""
+    from cm3d_tpu_torch.ops.nms import _greedy_keep_fixpoint
+
+    ov, valid = _overlaps(0)
+    with torch.no_grad():
+        traced = torch.export.export(_Fixpoint(), (ov, valid)).module()
+    for seed in range(6):
+        ov, valid = _overlaps(seed)
+        want = _greedy_keep_loop(ov, valid)
+        torch.testing.assert_close(want, _greedy_keep_sequential(ov, valid))
+        torch.testing.assert_close(_greedy_keep_fixpoint(ov, valid), want)
+        torch.testing.assert_close(traced(ov, valid), want)
+    # a chain over the whole axis: n - 1 suppressions, n / 2 kept
+    full = torch.zeros(3, 24, 24, dtype=torch.bool)
+    full[:, torch.arange(23), torch.arange(1, 24)] = True
+    every = torch.ones(3, 24, dtype=torch.bool)
+    assert traced(full, every).sum(-1).tolist() == [12, 12, 12]
+    torch.testing.assert_close(traced(full, every), _greedy_keep_loop(full, every))
+
+
+class _CircleNms(torch.nn.Module):
+    def forward(self, xy, scores, labels, valid, radii):
+        return circle_nms_keep(xy, scores, labels, valid, radii)
+
+
+def test_exported_circle_nms_matches_jax():
+    """circle_nms_keep traced by torch.export against the JAX package's
+    circle_nms_keep (a lax.while_loop) on dense clusters with tied scores."""
+    radii = torch.tensor([4.0, 12.0, 10.0, 10.0, 12.0, 0.175, 0.85, 0.85, 0.175, 1.0])
+    n = 60
+
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        return (rng.uniform(0, 6, (2, n, 2)).astype(np.float32),
+                rng.choice([0.3, 0.5, 0.7, 0.9], (2, n)).astype(np.float32),
+                rng.integers(0, 10, (2, n)).astype(np.int32), rng.random((2, n)) < 0.85)
+
+    with torch.no_grad():
+        traced = torch.export.export(
+            _CircleNms(), (*map(torch.from_numpy, inputs(0)), radii)).module()
+    for seed in range(3):
+        xy, scores, labels, valid = inputs(seed)
+        want = np.stack([np.asarray(jax_circle_nms_keep(
+            jnp.asarray(xy[b]), jnp.asarray(scores[b]), jnp.asarray(labels[b]),
+            jnp.asarray(valid[b]), jnp.asarray(radii.numpy()))) for b in range(2)])
+        got = traced(*map(torch.from_numpy, (xy, scores, labels, valid)), radii).numpy()
+        assert 0 < want.sum() < valid.sum()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_erode3x3_matches_jax():
+    """The unpacked 3x3 erosion against the JAX package's erode3x3 on the
+    masks of tests/test_ops.py (uint8) and as bool: exact, dtype kept."""
+    from cm3d_tpu.ops.erosion import erode3x3 as jax_erode3x3
+
+    from cm3d_tpu_torch.ops.erosion import erode3x3
+
+    masks = (np.random.default_rng(42).random((5, 64, 48)) > 0.4).astype(np.uint8)
+    for m in (masks, masks.astype(bool), masks[0]):
+        got = erode3x3(torch.from_numpy(m))
+        assert got.dtype == torch.from_numpy(m).dtype
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_erode3x3(jnp.asarray(m))))
