@@ -203,7 +203,26 @@ Phases 15-17 run after phase 9, before the training phases.
    the port's nuScenes fixture, tests/torch_nusc_fixture.py (exit 0, its
    report, e2e on the card launching the compaction and the medoid).
    Each line beside the card's name and power limit; the phase's seconds.
-20. One JSON line per kernel summary, then the card's name and power limit,
+20. int8 and ZoeDepth (quant_zoe_phase; `chip_smoke.py --quant-zoe-phase`
+   runs it alone): dynamic_int8_matmul / static_int8_matmul at ViT-H's four
+   layer shapes (4096 tokens, bf16), the card's rows bit-equal to the CPU
+   path's, ms of torch._int_mm alone, of each op and of F.linear in bf16,
+   the kernels an op queues; full-width Detic and SAM built once, their
+   int8 twins from the same weights; a ViT-H encode in bf16, int8 and int8
+   static (calibrated in place on another camera), ms a camera in turns,
+   the int8 embeddings within the JAX package's envelopes (rel < 0.1, corr
+   > 0.995; static rel < 0.15, corr > 0.99); Detic Swin-B bf16 and with
+   int8 MLPs, B3 counted from 0 (24 + 24 launches a forward), the
+   detections in tests/test_quant.py's envelope, ms a forward;
+   bench_mask_stage bf16 / int8 / int8 static and bench_e2e bf16 / int8
+   (the int8 models built by the benches' quant_int8 / quant_static;
+   launches checked as in phase 8) in turns, keyframes/s, the first ring's
+   calibration seconds; ZoeDepth ZOE_N with flip averaging on the six
+   1024x576 cameras (ms a camera), run_mask_stage with use_zoedepth on the
+   full-width models and cameras (keyframes/s, the [M, 576, 1024] f32
+   payload read back, finite, its bytes a frame), ZOE_TEST card vs CPU on
+   depth maps and payloads, with the cell where they differ most.
+21. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -1184,10 +1203,13 @@ def encode_ab_phase(torch, unfused, fused, frame):
     return rec
 
 
-def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 4):
+def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 4,
+              label: str = "bf16", quant_int8: bool = False):
     """bench_e2e with every launch count set to 0 just before it and read
     just after; the counts must fit the keyframes, Detic forwards and lift
-    steps the run made."""
+    steps the run made. `label` names the models in the printed line.
+    `models` None: bench_e2e builds them (`quant_int8`), and the Detic
+    forwards are read from B3's launches."""
     from cm3d_tpu_torch.benchmarks import bench_e2e
     from cm3d_tpu_torch.kernels.compact import compact_rows
     from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
@@ -1200,22 +1222,27 @@ def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 
     wrappers = (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj,
                 window_attn_relpos_heads, window_attn_relpos_proj)
     forwards = [0]
-    raw = models.detic
+    built = models is None
+    if not built:
+        raw = models.detic
 
-    def counted(frame):
-        forwards[0] += 1
-        return raw(frame)
+        def counted(frame):
+            forwards[0] += 1
+            return raw(frame)
 
-    models = dataclasses.replace(models, detic=counted)
+        models = dataclasses.replace(models, detic=counted)
     for wr in wrappers:
         wr.launches = 0
     bench = bench_e2e("bfloat16", n_frames=n_frames, batch_size=batch_size, models=models,
-                      device="cuda")
+                      device="cuda", quant_int8=quant_int8)
     launches = {wr.__name__: wr.launches for wr in wrappers}
+    if built:
+        check(bench["quant_int8"] is quant_int8, f"bench_e2e built quant_int8={quant_int8}")
+        forwards[0] = launches["window_attn_heads"] // SWIN_BLOCKS_PER_FORWARD
     frames = batch_size + n_frames  # the warm-up run, then the timed one
     steps = 1 + -(-n_frames // batch_size)
     bench.update(fused_window_attn=fused, keyframes=frames, detic_forwards=forwards[0],
-                 lift_steps=steps, launches=launches)
+                 lift_steps=steps, launches=launches, models=label)
     print(json.dumps(bench), flush=True)
     check(forwards[0] == frames and bench["n_frames"] == n_frames,
           f"{frames} keyframes, one Detic forward each, saw {forwards[0]}")
@@ -3771,6 +3798,455 @@ def deploy_serve_phase(torch, host, card: str, batches: dict) -> dict:
     return out
 
 
+# --- phase 20: the int8 speed modes (A12) and ZoeDepth (A13b) ---
+
+QUANT_ZOE_FLAG = "--quant-zoe-phase"  # phase 20 alone (after the kernel build)
+PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+# ViT-H's quantized layers as (K, N) of [tokens, K] x [K, N]
+VIT_H_LINEARS = {"qkv": (1280, 3840), "proj": (1280, 1280), "lin1": (1280, 5120),
+                 "lin2": (5120, 1280)}
+INT8_TOKENS = 4096  # one square 1024 ViT-H encode: 64 x 64 tokens
+INT8_CPU_ROWS = 256  # rows held card vs CPU: each row's quantization is its own
+# int8 against bf16, the JAX package's envelopes (tests/test_quant.py:134-150
+# dynamic, :574-600 static)
+QUANT_DYN_REL, QUANT_DYN_CORR = 0.1, 0.995
+QUANT_STATIC_REL, QUANT_STATIC_CORR = 0.15, 0.99
+# ZoeDepth card vs CPU (f32, TF32 off): rtol at 99.9% of the pixels, and at
+# all of them. On the x10 synthetic weights the head's last layer reaches
+# about 2.4e3 at the image border and p = pt0 / (pt0 + pt1) lies within 1e-3
+# of 1, so log(1 - p) carries pt1's absolute rounding: the card's and the
+# CPU's f32 model outputs differ by about 1% at one cell, and after the
+# resize and the flip average one pixel of 345,600 read 1.81e-3
+# (zoe_worst_cell prints the cell's head outputs, 1 - p, temperature and
+# top bin logits on both)
+ZOE_RTOL, ZOE_RTOL_ALL = 1e-4, 5e-3
+ZOE_SMALL_WH = (320, 180)  # camera size of the ZOE_TEST card-vs-CPU run
+ZOE_FRAMES = 2  # full-width use_zoedepth frames (each payload about 300 MB)
+
+
+def _rel_corr(torch, got, ref):
+    g, r = got.float().flatten(), ref.float().flatten()
+    rel = float((g - r).norm() / r.norm())
+    corr = float(torch.corrcoef(torch.stack([g, r]))[0, 1])
+    return rel, corr
+
+
+def int8_op_phase(torch, card: str) -> dict:
+    """dynamic_int8_matmul / static_int8_matmul at ViT-H's four layer shapes,
+    4096 tokens, bf16: the card's rows bit-equal to the port's CPU path on
+    the same inputs; ms of torch._int_mm alone, of each whole op, and of
+    F.linear in bf16 on the same shapes; the kernels one op queues."""
+    import torch.nn.functional as F
+
+    from cm3d_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name, (k, n) in VIT_H_LINEARS.items():
+        x = torch.randn(INT8_TOKENS, k, generator=gen).to(torch.bfloat16)
+        w = torch.randn(n, k, generator=gen) * k ** -0.5
+        b = torch.randn(n, generator=gen) * 0.1
+        w_q, w_s = quant.quantize_weight(w)
+        s = x.float().abs().max() / 127 * 0.8  # static: the top fifth of |x| clips
+        xd, wqd, wsd, bd, sd = (t.cuda() for t in (x, w_q, w_s, b, s))
+        dyn = quant.dynamic_int8_matmul(xd, wqd, wsd, bd)
+        sta = quant.static_int8_matmul(xd, wqd, wsd, sd, bd)
+        rows = slice(0, INT8_CPU_ROWS)
+        check(torch.equal(dyn[rows].cpu(), quant.dynamic_int8_matmul(x[rows], w_q, w_s, b)),
+              f"int8 {name}: dynamic op card == CPU, bit for bit")
+        check(torch.equal(sta[rows].cpu(), quant.static_int8_matmul(x[rows], w_q, w_s, s, b)),
+              f"int8 {name}: static op card == CPU, bit for bit")
+        x_q = torch.round(xd.float() / (xd.float().abs().amax(-1, keepdim=True) / 127)).to(
+            torch.int8)
+        wb, bb = w.to(torch.bfloat16).cuda(), bd.to(torch.bfloat16)
+        prof = profiled_kernels(torch, lambda: quant.dynamic_int8_matmul(xd, wqd, wsd, bd), reps=5)
+        ops = 2 * INT8_TOKENS * k * n
+        rec = {
+            "shape": [INT8_TOKENS, k, n],
+            "int_mm_ms": time_ms(torch, lambda: quant.int_mm(x_q, wqd)),
+            "dynamic_ms": time_ms(torch, lambda: quant.dynamic_int8_matmul(xd, wqd, wsd, bd)),
+            "static_ms": time_ms(torch, lambda: quant.static_int8_matmul(xd, wqd, wsd, sd, bd)),
+            "linear_bf16_ms": time_ms(torch, lambda: F.linear(xd, wb, bb)),
+            # int8 product alone: x_q and w_q read once, the int32 sums written once
+            "int_mm_bound_ms": 1e3 * max(ops / PEAK_INT8_OPS_PER_S,
+                                         (INT8_TOKENS * k + k * n + 4 * INT8_TOKENS * n)
+                                         / PEAK_BYTES_PER_S),
+            "linear_bf16_bound_ms": 1e3 * max(ops / PEAK_BF16_OPS_PER_S,
+                                              2 * (INT8_TOKENS * k + k * n + INT8_TOKENS * n)
+                                              / PEAK_BYTES_PER_S),
+            "kernels_per_dynamic_op": sum(c for _, c in prof.values()) / 5,
+            "dynamic_kernels_ms": sum(ms for ms, _ in prof.values()) / 5 if prof else None,
+        }
+        out[name] = rec
+        print(f"[{card}] int8 {name} [{INT8_TOKENS}, {k}] x [{k}, {n}] bf16: _int_mm "
+              f"{rec['int_mm_ms']:.4f} ms (bound {rec['int_mm_bound_ms']:.4f}), dynamic op "
+              f"{rec['dynamic_ms']:.4f} ms ({rec['kernels_per_dynamic_op']:.0f} kernels, "
+              f"{_ms_text(rec['dynamic_kernels_ms'])} of them), static op "
+              f"{rec['static_ms']:.4f} ms, F.linear bf16 {rec['linear_bf16_ms']:.4f} ms "
+              f"(bound {rec['linear_bf16_bound_ms']:.4f}); card rows == CPU rows", flush=True)
+        del x, xd, x_q, dyn, sta
+    # a shape cuBLASLt's int8 path refuses: few rows are padded, an odd K raises
+    xs = torch.randn(5, 64, device="cuda")
+    wq, ws = quant.quantize_weight(torch.randn(24, 64, device="cuda"))
+    check(torch.equal(quant.dynamic_int8_matmul(xs, wq, ws).cpu(),
+                      quant.dynamic_int8_matmul(xs.cpu(), wq.cpu(), ws.cpu())),
+          "int8 at 5 rows (padded to 17 on the card) == CPU")
+    try:
+        quant.int_mm(torch.zeros(32, 12, dtype=torch.int8, device="cuda"),
+                     torch.zeros(8, 12, dtype=torch.int8, device="cuda"))
+        check(False, "int_mm raises on K = 12")
+    except ValueError:
+        pass
+    return out
+
+
+def sam_quant_phase(torch, ring, sam, qsam, ssam, card: str) -> dict:
+    """A full-width ViT-H encode of one camera in bf16 (`sam`), int8 dynamic
+    (`qsam`) and int8 static (`ssam`, calibrated here in place on another
+    camera of the ring): ms a camera in turns, the int8 embeddings against
+    bf16 held to the JAX package's envelopes, kernels an encode queues and
+    the top ones."""
+    from cm3d_tpu_torch.models.common import calibrate_act_scales_
+    from cm3d_tpu_torch.models.sam import preprocess_image
+
+    x = torch.from_numpy(preprocess_image(ring[0], sam.cfg.img_size))[None].cuda()
+    x_cal = torch.from_numpy(preprocess_image(ring[1], sam.cfg.img_size))[None].cuda()
+    t0 = time.perf_counter()
+    calibrate_act_scales_(ssam, lambda: ssam.encode_image(x_cal))
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    models = {"bf16": sam, "int8": qsam, "int8_static": ssam}
+    with torch.inference_mode():
+        emb = {k: m.encode_image(x) for k, m in models.items()}
+        times = {k: [] for k in models}
+        for k in ("bf16", "int8", "int8_static", "int8_static", "int8", "bf16"):
+            times[k].append(time_ms(torch, lambda: models[k].encode_image(x), reps=3))
+        kernels = {}
+        for k in ("bf16", "int8"):
+            prof = profiled_kernels(torch, lambda: models[k].encode_image(x), reps=1)
+            top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
+            kernels[k] = {"count": sum(c for _, c in prof.values()),
+                          "kernels_ms": sum(ms for ms, _ in prof.values()) if prof else None,
+                          "top": [[key[:80], ms, c] for key, (ms, c) in top]}
+    rec = {"ms_per_camera": times, "calibration_s": cal_s, "kernels": kernels}
+    for k, (rel_tol, corr_tol) in (("int8", (QUANT_DYN_REL, QUANT_DYN_CORR)),
+                                   ("int8_static", (QUANT_STATIC_REL, QUANT_STATIC_CORR))):
+        check(bool(torch.isfinite(emb[k]).all()), f"ViT-H {k} embeddings finite")
+        rel, corr = _rel_corr(torch, emb[k], emb["bf16"])
+        rec[f"{k}_rel"], rec[f"{k}_corr"] = rel, corr
+        check(rel < rel_tol and corr > corr_tol,
+              f"ViT-H {k} vs bf16: rel {rel:.4g} < {rel_tol}, corr {corr:.5f} > {corr_tol}")
+    print(f"[{card}] ViT-H encode (1024 square, one camera): ms {times}; int8 vs bf16 rel "
+          f"{rec['int8_rel']:.4g} corr {rec['int8_corr']:.5f}; static rel "
+          f"{rec['int8_static_rel']:.4g} corr {rec['int8_static_corr']:.5f}; one-camera "
+          f"calibration {cal_s:.3f} s; kernels an encode: "
+          f"{ {k: v['count'] for k, v in kernels.items()} }", flush=True)
+    for k, v in kernels.items():
+        for key, ms, c in v["top"][:6]:
+            print(f"  {k}: {ms:8.3f} ms x{c:<4d} {key}", flush=True)
+    return rec
+
+
+def detic_quant_phase(torch, ring, prod, prod_q, card: str) -> dict:
+    """A full-width Detic Swin-B forward on the 6-camera ring in bf16 and with
+    int8 MLPs (the same weights): B3 counted from 0 on the int8 forward (24
+    launches of each kernel), the detections held to tests/test_quant.py:
+    232-272's envelope, ms a forward in turns."""
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+
+    frame = prod.prepare(ring)
+    ref = [t.float().cpu() for t in prod.detic(frame)]
+    window_attn_heads.launches = 0
+    window_attn_proj.launches = 0
+    got = [t.float().cpu() for t in prod_q.detic(frame)]
+    launches = {"window_attn_heads": window_attn_heads.launches,
+                "window_attn_proj": window_attn_proj.launches}
+    for name, count in launches.items():
+        check(count == SWIN_BLOCKS_PER_FORWARD, f"int8 Detic forward: {SWIN_BLOCKS_PER_FORWARD} "
+              f"{name} launches, got {count}")
+    s_ref, s_q = ref[1], got[1]
+    v_ref, v_q = ref[3] > 0, got[3] > 0
+    worst = 0.0
+    for cam in range(v_ref.shape[0]):
+        check(int(v_ref[cam].sum()) == int(v_q[cam].sum()),
+              f"int8 Detic camera {cam}: {int(v_q[cam].sum())} detections, bf16 "
+              f"{int(v_ref[cam].sum())}")
+        both = v_ref[cam] & v_q[cam]
+        if both.any():
+            sr, sq = s_ref[cam][both], s_q[cam][both]
+            spread = max(1e-6, float(sr.max() - sr.min()), 0.05)
+            err = float((sr - sq).abs().max())
+            worst = max(worst, err / (0.05 + 0.1 * spread))
+            check(err < 0.05 + 0.1 * spread, f"int8 Detic camera {cam}: score drift {err:.4g}")
+    times = {"bf16": [], "int8": []}
+    for k, m in (("bf16", prod), ("int8", prod_q), ("int8", prod_q), ("bf16", prod)):
+        times[k].append(time_ms(torch, lambda: m.detic(frame), reps=3))
+    rec = {"launches": launches, "ms_per_forward": times, "detections": int(v_ref.sum()),
+           "score_drift_over_envelope": worst}
+    print(f"[{card}] Detic Swin-B forward (6 x {IMG_W}x{IMG_H}): ms {times}; int8 MLPs "
+          f"launch B3 {launches}; {int(v_q.sum())} detections (bf16 {int(v_ref.sum())}), "
+          f"worst score drift {worst:.3f} of its envelope", flush=True)
+    return rec
+
+
+def quant_stage_phase(torch, real_bf16, card: str) -> dict:
+    """bench_mask_stage (no IO stand-in) bf16 / int8 / int8 static and
+    bench_e2e bf16 / int8, in turns. The bf16 runs take `real_bf16`; each
+    int8 run builds its models in the bench (`quant_int8` / `quant_static`),
+    so a static run calibrates on its warm-up ring once (its seconds read
+    back). The launch counts of each e2e run are checked."""
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W, bench_mask_stage
+
+    modes = {"bf16": {}, "int8": {"quant_int8": True},
+             "int8_static": {"quant_int8": True, "quant_static": True}}
+    mask = {k: [] for k in modes}
+    cal = []
+    for k in ("bf16", "int8", "int8_static", "int8_static", "int8", "bf16"):
+        b = bench_mask_stage("bfloat16", n_frames=4, models=real_bf16 if k == "bf16" else None,
+                             io_sleep=0.0, device="cuda", **modes[k])
+        b["models"] = k
+        print(json.dumps(b), flush=True)
+        mask[k].append(b["value"])
+        if k == "int8_static":
+            check(b["quant_static"] and b["calibration_s"] > 0,
+                  "bench_mask_stage built static int8 models that calibrated once")
+            cal.append(b["calibration_s"])
+        elif k == "int8":
+            check(b["quant_int8"] and b["calibration_s"] is None,
+                  "bench_mask_stage built dynamic int8 models")
+    e2e = {"bf16": [], "int8": []}
+    e2e_launches = {}
+    for k in ("bf16", "int8", "int8", "bf16"):
+        b = e2e_phase(torch, real_bf16 if k == "bf16" else None, fused=False, n_frames=4,
+                      batch_size=4, label=k, quant_int8=k == "int8")
+        e2e[k].append(b["value"])
+        e2e_launches[k] = b["launches"]
+    rec = {"mask_stage_kf_per_s": mask, "e2e_kf_per_s": e2e, "e2e_launches": e2e_launches,
+           "calibration_s": cal}
+    print(f"[{card}] mask stage keyframes/s (io 0, 6 x {IMG_W}x{IMG_H}): {mask}; fused e2e "
+          f"keyframes/s: {e2e}; first-ring calibration {cal} s", flush=True)
+    return rec
+
+
+def zoe_worst_cell(torch, sd_t, images) -> dict:
+    """Where ZOE_TEST's own depth outputs (flip pass included) differ most
+    between the card and the CPU: that cell's head outputs (the four
+    pre-softplus values of conditional_log_binomial), 1 - p, the
+    temperature t and the two top bin logits (the softmax input, log_binom
+    / t) on each device."""
+    import math
+
+    from cm3d_tpu_torch.models.zoedepth import ZOE_TEST, ZoeDepth, preprocess_zoe
+
+    n = ZOE_TEST.n_bins
+    k = np.arange(n, dtype=np.float64)
+    log_coef = np.array([math.lgamma(n) - math.lgamma(i + 1) - math.lgamma(n - i) for i in k])
+    depth, head = {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            model = ZoeDepth(ZOE_TEST)
+        model.load_state_dict(sd_t)
+        model.eval()
+        outs = []
+        hook = model.conditional_log_binomial.register_forward_hook(
+            lambda m, i, o: outs.append(o.double().cpu().numpy()))
+        maps = []
+        with torch.inference_mode():
+            for im in images:
+                x = torch.as_tensor(preprocess_zoe(im, ZOE_TEST.img_hw), device=dev)[None]
+                for xx in (x, x.flip(2)):
+                    maps.append(model(xx)[0].double().cpu().numpy())
+        hook.remove()
+        depth[dev], head[dev] = np.concatenate(maps), np.concatenate(outs)
+    rel = np.abs(depth["cuda"] - depth["cpu"]) / depth["cpu"]
+    at = np.unravel_index(int(np.argmax(rel)), rel.shape)
+    rec = {"cell": [int(a) for a in at], "max_rel": float(rel[at])}
+    for dev in ("cuda", "cpu"):
+        pt = np.logaddexp(0.0, head[dev][at]) + 1e-4  # softplus, as the head
+        p, t = pt[0] / (pt[0] + pt[1]), pt[2] / (pt[2] + pt[3])
+        p = np.clip(p, 1e-8, 1 - 1e-8)
+        logits = (log_coef + k * np.log(p) + (n - 1 - k) * np.log(1 - p)) / t
+        top = np.argsort(-logits)[:2]
+        rec[dev] = {"depth": float(depth[dev][at]), "head": [float(v) for v in head[dev][at]],
+                    "one_minus_p": float(1 - p), "t": float(t),
+                    "top_bins": [int(b) for b in top],
+                    "top_logits": [float(logits[b]) for b in top]}
+    return rec
+
+
+def zoe_phase(torch, ring, prod, card: str) -> dict:
+    """ZoeDepth: ZOE_N (synthetic weights) attached to the full-width bf16
+    models: ms a 1024x576 camera with flip averaging; run_mask_stage with
+    use_zoedepth on the six 1024x576 cameras (ZOE_FRAMES frames, realistic
+    load), keyframes/s, the depth payload read back ([M, 576, 1024] f32,
+    finite) and its bytes a frame, one frame's time split (dispatch, device,
+    masked_depth_images, one payload's write); ZOE_TEST (x10 synthetic weights) card vs
+    CPU on depth maps and through run_mask_stage at 320x180 with the tiny
+    models, and the cell where the two differ most (zoe_worst_cell)."""
+    import pathlib
+    import tempfile
+
+    from PIL import Image
+
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W, _realistic_load
+    from cm3d_tpu_torch.config import MaskStageConfig
+    from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
+    from cm3d_tpu_torch.models.zoedepth import (
+        ZOE_N, ZOE_TEST, synth_zoedepth_state_dict, zoedepth_state_dict_from_released)
+    from cm3d_tpu_torch.pipelines.masks import (
+        attach_zoedepth, build_fake_models, masked_depth_images, run_mask_stage,
+        start_frame_masks)
+
+    def released(cfg, scale, seed):
+        sd = synth_zoedepth_state_dict(cfg, np.random.default_rng(seed))
+        return zoedepth_state_dict_from_released(
+            {k: torch.from_numpy(v * scale) for k, v in sd.items()}, cfg)
+
+    t0 = time.perf_counter()
+    sd_n = released(ZOE_N, 1.0, 0)
+    models = attach_zoedepth(prod, device="cuda", state_dict=sd_n)
+    del sd_n
+    build_s = time.perf_counter() - t0
+    dispatch = models.predict_depth.dispatch
+    depths = [dispatch(im) for im in ring]
+    torch.cuda.synchronize()
+    for d in depths:
+        check(tuple(d.shape) == (IMG_H, IMG_W) and bool(torch.isfinite(d).all())
+              and bool((d > 0).all()), "ZOE_N depth: [576, 1024], finite, positive")
+    ms = time_ms(torch, lambda: [dispatch(im) for im in ring], reps=2) / len(ring)
+    prof = profiled_kernels(torch, lambda: dispatch(ring[0]), reps=1)
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:6]
+    zoe_kernels = {"count": sum(c for _, c in prof.values()),
+                   "kernels_ms": sum(t for t, _ in prof.values()) if prof else None,
+                   "top": [[key[:80], t, c] for key, (t, c) in top]}
+    cfg = MaskStageConfig(use_zoedepth=True)
+    out = {"zoe_n_ms_per_camera": ms, "build_s": build_s, "zoe_n_kernels": zoe_kernels}
+    rings = [ring, ring[::-1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the production path: full-width Detic / SAM, 12 ZOE_N forwards a
+        # keyframe, the [M, 576, 1024] payload built and pickled on the finisher
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real = _realistic_load(models)
+        run_mask_stage(real, lambda s, f: rings[f % 2], ["z"],
+                       lambda s: ZOE_FRAMES, f"{tmp}/n", cfg, verbose=False)
+        torch.cuda.synchronize()
+        kf_s = ZOE_FRAMES / (time.perf_counter() - t0)
+        store = MaskArtifactStore(f"{tmp}/n")
+        n_masks, payload_bytes = 0, []
+        for f in range(ZOE_FRAMES):
+            data, dep = store.read_frame_depths("z", f)
+            check(isinstance(dep, np.ndarray) and dep.dtype == np.float32
+                  and dep.shape == (len(data["labels"]), IMG_H, IMG_W) and np.isfinite(dep).all()
+                  and (dep >= 0).all() and (dep > 0).any(),
+                  f"ZOE_N depth payload of frame {f}: [M, {IMG_H}, {IMG_W}] f32, finite")
+            n_masks += dep.shape[0]
+            payload_bytes.append(
+                next(pathlib.Path(tmp, "n").rglob(f"{f}_masks.pkl")).stat().st_size)
+            if f == 0:  # the finisher's last step alone: pickle + write
+                t0 = time.perf_counter()
+                MaskArtifactStore(f"{tmp}/w").write_frame_depths(
+                    "z", f, data["labels"], data["detection_scores"], data["cam_nums"], dep)
+                write_s = time.perf_counter() - t0
+            del dep
+        check(n_masks > 0, "the depth payload holds masks")
+        # one frame's split: the main thread's dispatch (ZOE_N's host
+        # preprocessing included), the device's remainder, then the
+        # finisher's masked_depth_images alone
+        prepared = real.prepare(ring)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = start_frame_masks(real, None, cfg, prepared=prepared)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        masked = masked_depth_images(handle)
+        split = {"dispatch_s": t1 - t0, "device_tail_s": t2 - t1,
+                 "masked_depth_images_s": time.perf_counter() - t2, "write_s": write_s}
+        check(masked.shape == (len(handle["labels"]), IMG_H, IMG_W), "one frame's payload shape")
+        del masked, handle, prepared
+        out.update(use_zoedepth_kf_per_s=kf_s, payload_masks=n_masks,
+                   payload_bytes_per_frame=payload_bytes, frame_split=split)
+        # ZOE_TEST, x10 weights and the tiny models, on the card and the CPU
+        small = [np.asarray(Image.fromarray(im).resize(ZOE_SMALL_WH, Image.BILINEAR))
+                 for im in ring]
+        frames = [small, small[::-1]]
+        sd_t = released(ZOE_TEST, 10.0, 1)
+        maps, payload = {}, {}
+        for dev in ("cuda", "cpu"):
+            m = attach_zoedepth(build_fake_models(seed=0, device=dev), test=True, device=dev,
+                                state_dict=sd_t)
+            maps[dev] = [m.predict_depth(im) for im in small]
+            run_mask_stage(m, lambda s, f: frames[f], ["z"], lambda s: 2, f"{tmp}/{dev}", cfg,
+                           verbose=False)
+            payload[dev] = [MaskArtifactStore(f"{tmp}/{dev}").read_frame_depths("z", f)
+                            for f in range(2)]
+        worst = zoe_worst_cell(torch, sd_t, small)
+        print(f"[{card}] ZOE_TEST cell of the largest card-vs-CPU model output difference: "
+              f"{json.dumps(worst)}", flush=True)
+        err = np.concatenate([np.abs(a - b).ravel() / b.ravel()
+                              for a, b in zip(maps["cuda"], maps["cpu"])])
+        check(np.mean(err <= ZOE_RTOL) >= 0.999 and err.max() <= ZOE_RTOL_ALL,
+              f"ZOE_TEST depth card vs CPU: rtol {ZOE_RTOL} at 99.9% (got "
+              f"{np.mean(err <= ZOE_RTOL):.5f}), {ZOE_RTOL_ALL} at all (max {err.max():.3g})")
+        support = 0
+        for (dc, pc), (dg, pg) in zip(payload["cuda"], payload["cpu"]):
+            check(dc["labels"] == dg["labels"] and pc.shape == pg.shape,
+                  "ZOE_TEST depth payload: the card's labels and shape are the CPU's")
+            both = (pc > 0) & (pg > 0)
+            support += int(((pc > 0) != (pg > 0)).sum())
+            check(np.all(np.abs(pc[both] - pg[both]) <= ZOE_RTOL_ALL * pg[both]),
+                  "ZOE_TEST depth payload card vs CPU on the common mask support")
+        out.update(zoe_test_max_rel_err=float(err.max()), payload_support_diff_px=support,
+                   zoe_test_worst_cell=worst)
+    print(f"[{card}] ZoeDepth ZOE_N (f32, flip averaging) {ms:.2f} ms a 1024x576 camera "
+          f"(built in {build_s:.1f} s); use_zoedepth mask stage at full width: {kf_s:.3f} "
+          f"keyframes/s over {ZOE_FRAMES} frames (pipeline fill included), {n_masks} masks, "
+          f"payload bytes a frame {payload_bytes}, finite; one frame's split (s): "
+          f"{json.dumps(split)}; ZOE_TEST card vs CPU: depth max "
+          f"rel err {err.max():.3g}, payload masks differ in {support} px; a camera's "
+          f"kernels: {zoe_kernels['count']} launches, {_ms_text(zoe_kernels['kernels_ms'])}",
+          flush=True)
+    for key, t, c in zoe_kernels["top"]:
+        print(f"  ZOE_N: {t:8.3f} ms x{c:<4d} {key}", flush=True)
+    return out
+
+
+def quant_zoe_phase(torch, card: str) -> dict:
+    """Phase 20: the int8 speed modes (A12) and ZoeDepth (A13b) on the card.
+    The full-width float Detic and SAM are built once; their int8 twins
+    come from the same weights (quantized_models)."""
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W, _realistic_load, production_fake_modules
+    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns, quantized_models
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
+    out = {"ops": int8_op_phase(torch, card)}
+    t0 = time.perf_counter()
+    detic, clf, sam = production_fake_modules("bfloat16", device="cuda")
+    qdetic, qsam = quantized_models(detic, sam, True)
+    ssam = quantized_models(detic, sam, True, quant_static=True)[1]
+    prod = _batched_model_fns(detic, clf, sam, VOCAB, device="cuda")
+    prod_q = _batched_model_fns(qdetic, clf, qsam, VOCAB, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{card}] full-width Detic + SAM bf16, their int8 twins and a static SAM: "
+          f"{time.perf_counter() - t0:.1f} s to build", flush=True)
+    out["sam"] = sam_quant_phase(torch, ring, sam, qsam, ssam, card)
+    out["detic"] = detic_quant_phase(torch, ring, prod, prod_q, card)
+    del prod_q, qdetic, qsam, ssam
+    torch.cuda.empty_cache()
+    out["stages"] = quant_stage_phase(torch, _realistic_load(prod), card)
+    out["zoe"] = zoe_phase(torch, ring, prod, card)
+    del prod, detic, sam
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] int8 and ZoeDepth: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -3793,6 +4269,14 @@ def main(argv) -> int:
         return 0
     if argv == [DATA_PARALLEL_FLAG]:
         print(json.dumps(data_parallel_phase(torch)), flush=True)
+        return 0
+    if argv == [QUANT_ZOE_FLAG]:
+        from cm3d_tpu_torch.kernels import build
+
+        card = card_line()
+        print(card, flush=True)
+        build.build_all()
+        print(json.dumps(quant_zoe_phase(torch, card)), flush=True)
         return 0
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
@@ -3963,11 +4447,15 @@ def main(argv) -> int:
         name: deploy_serve[f"detect_{name}"]["launches_per_call"]
         for name in ("centerpoint", "bevfusion_conv", "bevfusion_swin_t")}
 
+    # --- 20. the int8 speed modes and ZoeDepth ---
+    quant_zoe = quant_zoe_phase(torch, card)
+    quant_e2e_launches = quant_zoe["stages"]["e2e_launches"]["int8"]
+
     def artifact_launches(kernel, table):
         """A kernel's launches a call of each artifact that runs it."""
         return {name: n[kernel] for name, n in table.items() if kernel in n}
 
-    # --- 20. summary ---
+    # --- 21. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -4001,6 +4489,9 @@ def main(argv) -> int:
                 kitti["full_width_fused_launches"][f"window_attn_{name}"],
             "kitti_full_width_max_rel_err": max(
                 r["max_rel_err"] for r in kitti["full_width_window_attn"]),
+            # Detic with int8 MLPs: one forward, and the int8 fused e2e run
+            "int8_detic_launches": quant_zoe["detic"]["launches"][f"window_attn_{name}"],
+            "int8_e2e_launches": quant_e2e_launches[f"window_attn_{name}"],
             **_per_forward_extras(wa, name, "blocks_per_forward"),
         }
 
@@ -4126,6 +4617,7 @@ def main(argv) -> int:
             # a call of each exported lift program, and the served lift
             "artifact_launches": artifact_launches("compact_rows", lift_artifact_launches),
             "served_launches": deploy_serve["serve_lift"]["launches"]["compact_rows"],
+            "int8_e2e_launches": quant_e2e_launches["compact_rows"],
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -4146,6 +4638,7 @@ def main(argv) -> int:
                                                    lift_artifact_launches),
             "served_launches":
                 deploy_serve["serve_lift"]["launches"]["medoid_distance_sums_rows"],
+            "int8_e2e_launches": quant_e2e_launches["medoid_distance_sums_rows"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
@@ -4174,7 +4667,8 @@ def main(argv) -> int:
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,
                       "train_cpu_check": train_check, "deterministic": deterministic,
                       "released_weights": released, "waymo": waymo, "kitti": kitti,
-                      "data_parallel": data_parallel, "deploy_serve": deploy_serve}),
+                      "data_parallel": data_parallel, "deploy_serve": deploy_serve,
+                      "quant_zoe": quant_zoe}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -79,18 +79,13 @@ def bench_lift(batch_size: int = 8, n_iters: int = 10, device=None) -> dict:
     }
 
 
-def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0,
-                                 fused_window_attn: bool = False, vocabulary=None):
-    """Full-width Detic Swin-B + SAM ViT-H (square encode) with random
-    weights drawn from a torch.Generator seeded with `seed` (the FLOPs of
-    converted checkpoints), built on `device` behind the standard batched
-    wrappers. `fused_window_attn` runs SAM's 28 windowed blocks through the
-    fused kernels (same weights from the same seed). `vocabulary` is the
-    nuScenes one unless given."""
+def production_fake_modules(dtype: str = "bfloat16", device=None, seed: int = 0,
+                            fused_window_attn: bool = False, vocabulary=None):
+    """The modules of `build_production_fake_models`, float, unwrapped:
+    (Detic Swin-B, classifier [embed_dim, len(vocabulary)], SAM ViT-H)."""
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
     from cm3d_tpu_torch.models.sam import SAM_VIT_H, Sam
-    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns
     from cm3d_tpu_torch.utils.device import resolve_device
     from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES
 
@@ -105,6 +100,28 @@ def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int
         gen = torch.Generator(device=device)
         detic = init_weights(Detic(detic_cfg), gen.manual_seed(seed))
         sam = init_weights(Sam(sam_cfg), gen.manual_seed(seed + 1))
+    return detic, clf, sam
+
+
+def build_production_fake_models(dtype: str = "bfloat16", device=None, seed: int = 0,
+                                 fused_window_attn: bool = False, vocabulary=None,
+                                 quant_int8: bool = False, quant_static: bool = False):
+    """Full-width Detic Swin-B + SAM ViT-H (square encode) with random
+    weights drawn from a torch.Generator seeded with `seed` (the FLOPs of
+    converted checkpoints), built on `device` behind the standard batched
+    wrappers. `fused_window_attn` runs SAM's 28 windowed blocks through the
+    fused kernels (same weights from the same seed); `quant_int8` /
+    `quant_static` the int8 twins of the same weights
+    (`pipelines.masks.quantized_models`). `vocabulary` is the nuScenes one
+    unless given."""
+    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns, quantized_models
+    from cm3d_tpu_torch.utils.device import resolve_device
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES
+
+    device = resolve_device(device)
+    vocabulary = vocabulary or CUSTOM_VOCABULARY_NUSCENES
+    detic, clf, sam = production_fake_modules(dtype, device, seed, fused_window_attn, vocabulary)
+    detic, sam = quantized_models(detic, sam, quant_int8, quant_static)
     return _batched_model_fns(detic, clf, sam, vocabulary, device=device)
 
 
@@ -163,7 +180,8 @@ def _realistic_load(models, boxes_per_cam: int = 25, seed: int = 0):
 
 
 def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
-                     io_sleep: float = 0.15, device=None) -> dict:
+                     io_sleep: float = 0.15, device=None, quant_int8: bool = False,
+                     quant_static: bool = False) -> dict:
     """Pipelined 2D-stage throughput: run_mask_stage (IO prefetch + device
     pipeline + host RLE writes) at production geometry, 6 cameras at
     1024x576.
@@ -173,7 +191,9 @@ def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
     then `n_frames` pipelined frames (`pipelined_ms`, the reported rate).
     The provider sleeps `io_sleep` s per frame as a stand-in for 6 JPEG
     reads + thumbnails, which caps the rate at 1 / io_sleep. The device is
-    synchronised before every clock read."""
+    synchronised before every clock read. `quant_int8` / `quant_static`
+    pick the int8 models when they are built here (a static model
+    calibrates on the warm-up frame)."""
     import shutil
     import tempfile
 
@@ -182,8 +202,10 @@ def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
     from cm3d_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    if models is None:
-        models = _realistic_load(build_production_fake_models(dtype, device=device))
+    built = models is None
+    if built:
+        models = _realistic_load(build_production_fake_models(
+            dtype, device=device, quant_int8=quant_int8, quant_static=quant_static))
 
     def sync():
         if device.type == "cuda":
@@ -230,11 +252,17 @@ def bench_mask_stage(dtype: str = "bfloat16", n_frames: int = 8, models=None,
         "io_sleep": io_sleep,
         "warmup_masks": n_warm,
         "dtype": dtype,
+        # the modes the models were built with here; None for passed models
+        "quant_int8": quant_int8 if built else None,
+        "quant_static": quant_static if built else None,
+        # a static model's first-ring calibration (the warm-up frame), once
+        "calibration_s": getattr(models.sam_encode, "calibration", {}).get("seconds"),
     }
 
 
 def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, models=None,
-              fused_window_attn: bool = False, device=None) -> dict:
+              fused_window_attn: bool = False, device=None, quant_int8: bool = False,
+              quant_static: bool = False) -> dict:
     """Fused end-to-end throughput: images -> Detic -> SAM -> bit-planes ->
     lift step -> boxes, through pipelines.e2e.run_fused (the production
     fused loop; planes stay on the device). The synthetic keyframes carry
@@ -243,8 +271,9 @@ def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, 
 
     Protocol (the JAX package's): one warm-up run of `batch_size` frames,
     then `n_frames` timed frames in batches of `batch_size`, the device
-    synchronised before each clock read. `fused_window_attn` sets SAM's
-    config when the models are built here; passed `models` run as built."""
+    synchronised before each clock read. `fused_window_attn`, `quant_int8`
+    and `quant_static` set the configs when the models are built here;
+    passed `models` run as built."""
     from cm3d_tpu_torch.config import CLASS_TO_ID, LiftStageConfig, MaskStageConfig
     from cm3d_tpu_torch.datasets.nuscenes.frontend import get_detection_name
     from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
@@ -259,9 +288,11 @@ def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, 
         raise ValueError("the fused path needs MaskStageConfig.max_masks_total == "
                          "LiftStageConfig.max_masks")
     rng = np.random.default_rng(0)
-    if models is None:
+    built = models is None
+    if built:
         models = _realistic_load(build_production_fake_models(
-            dtype, device=device, fused_window_attn=fused_window_attn))
+            dtype, device=device, fused_window_attn=fused_window_attn,
+            quant_int8=quant_int8, quant_static=quant_static))
 
     def sync():
         if device.type == "cuda":
@@ -333,6 +364,9 @@ def bench_e2e(dtype: str = "bfloat16", n_frames: int = 12, batch_size: int = 4, 
         "batch_size": batch_size,
         "boxes_kept": boxes_seen[0],
         "dtype": dtype,
+        # the modes the models were built with here; None for passed models
+        "quant_int8": quant_int8 if built else None,
+        "quant_static": quant_static if built else None,
     }
 
 

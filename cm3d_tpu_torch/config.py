@@ -202,6 +202,10 @@ class MaskStageConfig:
     # camera; always padding to 128 wastes ~4x decode time)
     prompt_buckets: tuple = (32,)
     dtype: str = "bfloat16"  # model compute dtype ("float32" for strict parity)
+    # reference gen_2d_masks_detic.py:408 `use_zoedepth = False`: when on
+    # (and MaskModels.predict_depth is set), the artifact payload becomes
+    # per-mask masked metric depth instead of RLE masks (:412-451,484-486)
+    use_zoedepth: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

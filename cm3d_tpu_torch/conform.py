@@ -20,9 +20,12 @@ Phases (each recorded in ``{out}/conform_report.json``):
    optional --probe activation stats); full per-model reports land in
    ``{out}/verify_{name}.json``. Already-converted directories skip this.
 2. **convert**: the converted state dicts (models/convert.py: detectron2's
-   fc1 order for Detic, CLIP's text tower keys; a SAM file loads as it is)
-   saved with `models/checkpoints.py save_params` under
-   ``{out}/converted/``, the directories the model CLIs load.
+   fc1 order for Detic, CLIP's text tower keys; a SAM file loads as it is;
+   ZoeDepth's relative-position tables at the config's grid) saved with
+   `models/checkpoints.py save_params` under ``{out}/converted/``, the
+   directories the model CLIs load; with --quant_int8 also the int8 SAM and
+   Detic state dicts under ``*_int8`` beside them, which the e2e phase then
+   loads.
 3. **e2e**: the fused images->masks->boxes pipeline (pipelines/e2e.py)
    over ``--scenes`` of the given dataroot, LOADING THE CONVERTED TREES,
    writing ``{out}/pseudolabels.json``.
@@ -35,9 +38,8 @@ Phases (each recorded in ``{out}/conform_report.json``):
 Exit code: 1 if any verify phase found tree problems or a phase raised;
 0 otherwise. ``--skip_pipeline`` / ``--skip_eval`` run the earlier
 phases only (e.g. checkpoints present but no dataroot yet). Not ported:
-``--quant_int8`` raises, naming ROADMAP A12; the ZoeDepth / GroundingDINO
-checkpoints (``--zoe``, ``--gdino``) fail their verify phase, naming A13.
-``--device`` (CUDA unless it says otherwise) is where verify and e2e run.
+a GroundingDINO checkpoint (``--gdino``) fails its verify phase, naming
+ROADMAP A13. ``--device`` (CUDA unless it says otherwise) is where verify and e2e run.
 
 Tested in tests/test_torch_conform.py with fixture-scale checkpoints and
 stubbed pipeline phases.
@@ -52,9 +54,6 @@ import os
 import traceback
 from pathlib import Path
 
-QUANT_ITEM = "ROADMAP A12 (int8 w8a8)"
-
-
 def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, device=None):
     """Per-family (load, verify, convert, save-name) wiring. cfg_overrides
     maps family name -> model config, used by tests to run the real
@@ -64,8 +63,8 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
         detic_state_dict_from_released,
         load_torch_state_dict,
     )
-    from cm3d_tpu_torch.models.detic import DETIC_SWINB
-    from cm3d_tpu_torch.models.sam import sam_config_for
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, quantize_detic_state_dict
+    from cm3d_tpu_torch.models.sam import quantize_sam_state_dict, sam_config_for
     from cm3d_tpu_torch.models.verify_convert import (
         verify_clip,
         verify_detic,
@@ -73,6 +72,7 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
         verify_sam,
         verify_zoe,
     )
+    from cm3d_tpu_torch.models.zoedepth import ZOE_N, zoedepth_state_dict_from_released
 
     ov = cfg_overrides or {}
 
@@ -84,6 +84,7 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
             load=load_torch_state_dict,
             verify=verify(verify_sam, "sam", sam_config_for(sam_size)),
             convert=lambda sd: sd,  # a released SAM file loads as it is
+            quantize=quantize_sam_state_dict,
             save=f"sam_{sam_size}",
         ),
         "detic": dict(
@@ -91,23 +92,32 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
             verify=verify(verify_detic, "detic"),
             convert=functools.partial(detic_state_dict_from_released,
                                       cfg=ov.get("detic", DETIC_SWINB)),
+            quantize=quantize_detic_state_dict,
             save="detic_swinb",
         ),
         "clip": dict(
             load=load_torch_state_dict,
             verify=verify(verify_clip, "clip"),
             convert=clip_state_dict_from_released,
+            quantize=None,
             save="clip_text",
         ),
+        "zoe": dict(
+            load=load_torch_state_dict,
+            verify=verify(verify_zoe, "zoe", ZOE_N),
+            convert=functools.partial(zoedepth_state_dict_from_released,
+                                      cfg=ov.get("zoe", ZOE_N)),
+            quantize=None,
+            save="zoedepth_n",
+        ),
         # not ported (ROADMAP A13): the first phase raises, naming the item
-        "zoe": dict(load=verify_zoe, verify=verify_zoe, convert=None, save="zoedepth_n"),
-        "gdino": dict(load=verify_gdino, verify=verify_gdino, convert=None,
+        "gdino": dict(load=verify_gdino, verify=verify_gdino, convert=None, quantize=None,
                       save="gdino_swint"),
     }
 
 
 def _verify_and_convert(name: str, path: str, spec: dict, out: Path,
-                        probe: bool) -> dict:
+                        probe: bool, quant_int8: bool = False) -> dict:
     """Phases 1+2 for one checkpoint. Returns the report entry; raises
     nothing (failures are captured as entry['error'])."""
     from cm3d_tpu_torch.models.checkpoints import save_params
@@ -142,6 +152,10 @@ def _verify_and_convert(name: str, path: str, spec: dict, out: Path,
         conv_dir = out / "converted" / spec["save"]
         save_params(params, str(conv_dir), overwrite=True)
         entry["converted"] = str(conv_dir)
+        if quant_int8 and spec["quantize"] is not None:
+            qdir = out / "converted" / f"{spec['save']}_int8"
+            save_params(spec["quantize"](params), str(qdir), overwrite=True)
+            entry["converted_int8"] = str(qdir)
     except Exception as e:  # a broken checkpoint must not kill the report
         entry["ok"] = False
         entry["error"] = f"{type(e).__name__}: {e}"
@@ -163,8 +177,6 @@ def _eval_main(argv):
 
 
 def run_conform(args, cfg_overrides: dict | None = None) -> tuple[dict, int]:
-    if args.quant_int8:
-        raise NotImplementedError(f"--quant_int8 is not ported yet ({QUANT_ITEM})")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     report: dict = {"out": str(out), "models": {}, "phases": []}
@@ -177,14 +189,18 @@ def run_conform(args, cfg_overrides: dict | None = None) -> tuple[dict, int]:
         ("zoe", args.zoe), ("gdino", args.gdino),
     ] if p]
     for name, path in given:
-        entry = _verify_and_convert(name, path, specs[name], out, args.probe)
+        entry = _verify_and_convert(name, path, specs[name], out, args.probe,
+                                    args.quant_int8)
         report["models"][name] = entry
         if not entry.get("ok", False):
             rc = 1
         report["phases"].append(f"verify+convert:{name}")
 
     def converted(name):
-        return report["models"].get(name, {}).get("converted", "")
+        e = report["models"].get(name, {})
+        if args.quant_int8 and "converted_int8" in e:
+            return e["converted_int8"]
+        return e.get("converted", "")
 
     sub_path = str(out / "pseudolabels.json")
     if args.skip_pipeline or not args.dataroot:
@@ -205,6 +221,8 @@ def run_conform(args, cfg_overrides: dict | None = None) -> tuple[dict, int]:
             ]
             if args.bpe:
                 e2e_argv += ["--bpe_path", args.bpe]
+        if args.quant_int8:
+            e2e_argv += ["--quant_int8"]
         if device:
             e2e_argv += ["--device", device]
         if args.gdino:
@@ -307,7 +325,8 @@ def main(argv=None) -> int:
     p.add_argument("--probe", action="store_true",
                    help="verify with per-module activation stats")
     p.add_argument("--quant_int8", action="store_true",
-                   help=f"not ported yet ({QUANT_ITEM})")
+                   help="also save int8 SAM / Detic state dicts (*_int8) and run the "
+                   "e2e phase on them with --quant_int8")
     p.add_argument("--dataset", default="nuscenes",
                    choices=["nuscenes", "waymo", "kitti"])
     p.add_argument("--dataroot", default="",

@@ -97,19 +97,12 @@ class MaskArtifactStore:
             fm.cam_nums, rle.encode_many(fm.masks),
         )
 
-    def write_frame_rles(
-        self,
-        scene_name: str,
-        frame_num: int,
-        labels: List[str],
-        detection_scores: List[float],
-        cam_nums: List[int],
-        rles: List[dict],
-    ) -> None:
-        """Write a frame from already-encoded COCO RLE dicts: the atomic
-        {frame}_data.json + {frame}_masks.pkl protocol of the reference
-        (gen_2d_masks_detic.py:497-506)."""
-        assert len(labels) == len(detection_scores) == len(cam_nums) == len(rles)
+    def _write_frame_payload(self, scene_name: str, frame_num: int, labels: List[str],
+                             detection_scores: List[float], cam_nums: List[int],
+                             payload) -> None:
+        """The atomic {frame}_data.json + {frame}_masks.pkl protocol of the
+        reference (gen_2d_masks_detic.py:497-506); `payload` is what goes
+        into the pickle (RLE list or depth-image array)."""
         d = self._scene_dir(scene_name)
         d.mkdir(parents=True, exist_ok=True)
         data = {
@@ -123,8 +116,54 @@ class MaskArtifactStore:
         os.replace(tmp, d / f"{frame_num}_data.json")
         tmp = d / f".{frame_num}_masks.pkl.tmp"
         with open(tmp, "wb") as f:
-            pickle.dump(rles, f)
+            pickle.dump(payload, f)
         os.replace(tmp, d / f"{frame_num}_masks.pkl")
+
+    def write_frame_rles(
+        self,
+        scene_name: str,
+        frame_num: int,
+        labels: List[str],
+        detection_scores: List[float],
+        cam_nums: List[int],
+        rles: List[dict],
+    ) -> None:
+        """Write a frame from already-encoded COCO RLE dicts."""
+        assert len(labels) == len(detection_scores) == len(cam_nums) == len(rles)
+        self._write_frame_payload(scene_name, frame_num, labels, detection_scores, cam_nums,
+                                  rles)
+
+    def write_frame_depths(
+        self,
+        scene_name: str,
+        frame_num: int,
+        labels: List[str],
+        detection_scores: List[float],
+        cam_nums: List[int],
+        depth_images,  # [M, H, W] f32 per-mask masked metric depth
+    ) -> None:
+        """use_zoedepth variant: the reference's zoe branch pickles the
+        masked depth images INTO {frame}_masks.pkl in place of the mask
+        payload (gen_2d_masks_detic.py:484-486,505), with the same data.json
+        sidecar; f32, as the JAX package writes them."""
+        depth_images = np.asarray(depth_images, np.float32)
+        assert len(labels) == len(detection_scores) == len(cam_nums)
+        assert depth_images.shape[0] == len(labels)
+        self._write_frame_payload(scene_name, frame_num, labels, detection_scores, cam_nums,
+                                  depth_images)
+
+    def read_frame_depths(self, scene_name: str, frame_num: int):
+        """Read back a use_zoedepth frame: (data dict, [M, H, W] f32), or
+        None if the frame is missing or unreadable."""
+        d = self._scene_dir(scene_name)
+        try:
+            with open(d / f"{frame_num}_data.json") as f:
+                data = json.load(f)
+            with open(d / f"{frame_num}_masks.pkl", "rb") as f:
+                depths = pickle.load(f)
+        except (OSError, json.JSONDecodeError, pickle.UnpicklingError, EOFError):
+            return None
+        return data, depths
 
     def mark_scene_complete(self, scene_name: str, num_frames: int) -> None:
         # the read-modify-write is guarded by an flock: several processes

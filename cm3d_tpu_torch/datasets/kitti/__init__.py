@@ -1,5 +1,5 @@
-"""KITTI dataset frontend. Mirrors `cm3d_tpu/datasets/kitti` (without the
-viz modules).
+"""KITTI dataset frontend. Mirrors `cm3d_tpu/datasets/kitti` (the viz
+modules, `viz` and `viz3d`, import on their own).
 
 Rebuild of the reference's kitti_object / kitti_utils layer
 (src/kitti/kitti_object.py, kitti_utils.py) and the (broken-in-reference,

@@ -12,8 +12,9 @@ f32 and return f32 (flax `nn.LayerNorm` with f32 params).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,88 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class QuantLinear(nn.Module):
+    """`Dense` drop-in with int8 weights and int8 activations (w8a8,
+    `ops/quant.py`): the counterpart of the JAX package's `QuantDense`.
+
+    Buffers: weight_q int8 [out, in], weight_scale f32 [out], bias f32
+    [out], and act_scale f32 [] when `static` (calibrated per-tensor
+    activation scale; else per-token dynamic scales). They come from a float
+    state dict through `ops.quant.quantize_linear_state` at load time. The
+    input is quantized as it arrives (not cast to `dtype` first, as flax's
+    QuantDense does); the output is in `dtype` (None = f32).
+
+    Calibration: inside `record_act_absmax` the module keeps a running max
+    of |input| (`act_absmax`), and runs the dynamic product whatever
+    `static` says (the JAX package's dynamic twin); outside, recording
+    costs nothing."""
+
+    def __init__(self, din: int, dout: int, bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, static: bool = False):
+        super().__init__()
+        self.in_features, self.out_features = din, dout
+        self.compute_dtype = _compute_dtype(dtype)
+        self.static = static
+        self.register_buffer("weight_q", torch.zeros(dout, din, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(dout))
+        self.register_buffer("bias", torch.zeros(dout) if bias else None)
+        if static:
+            self.register_buffer("act_scale", torch.ones(()))
+        self.act_absmax: Optional[torch.Tensor] = None  # set by record_act_absmax
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from cm3d_tpu_torch.ops.quant import dynamic_int8_matmul, static_int8_matmul
+
+        if self.act_absmax is not None:
+            self.act_absmax = torch.maximum(self.act_absmax, x.float().abs().amax())
+            return dynamic_int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
+                                       out_dtype=self.compute_dtype)
+        if self.static:
+            return static_int8_matmul(x, self.weight_q, self.weight_scale, self.act_scale,
+                                      self.bias, out_dtype=self.compute_dtype)
+        return dynamic_int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
+                                   out_dtype=self.compute_dtype)
+
+
+@contextlib.contextmanager
+def record_act_absmax(model: nn.Module):
+    """Calibration record of every QuantLinear of `model`: inside the
+    block each one runs its dynamic product and keeps max |input| over all
+    calls; the yielded dict fills, at the block's end, with {module name:
+    absmax tensor} (the input of `ops.quant.bake_act_scales`)."""
+    mods = {n: m for n, m in model.named_modules() if isinstance(m, QuantLinear)}
+    for m in mods.values():
+        m.act_absmax = torch.zeros((), device=m.weight_scale.device)
+    record: Dict[str, torch.Tensor] = {}
+    try:
+        yield record
+        record.update({n: m.act_absmax for n, m in mods.items()})
+    finally:
+        for m in mods.values():
+            m.act_absmax = None
+
+
+def calibrate_act_scales_(model: nn.Module, run, margin: float = 1.0) -> None:
+    """Calibrate a static int8 `model` in place: `run()` (its forwards over
+    the calibration data) under `record_act_absmax`, where every QuantLinear
+    runs the dynamic product and records its input absmax, then each
+    `act_scale` buffer baked from the record (`ops.quant.bake_act_scales`)."""
+    from cm3d_tpu_torch.ops.quant import bake_act_scales
+
+    with torch.inference_mode(), record_act_absmax(model) as absmax:
+        run()
+    model.load_state_dict(bake_act_scales(model.state_dict(), absmax, margin))
+
+
+def linear(din: int, dout: int, bias: bool = True, dtype: Optional[torch.dtype] = None,
+           quant=False) -> nn.Module:
+    """A `Dense`, or with `quant` a QuantLinear (True: dynamic activation
+    scales, "static": calibrated ones), as the JAX modules' quant= picks."""
+    if quant:
+        return QuantLinear(din, dout, bias=bias, dtype=dtype, static=quant == "static")
+    return Dense(din, dout, bias=bias, dtype=dtype)
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -103,13 +186,14 @@ class LayerNorm2d(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    """lin1 -> exact GELU (or ReLU) -> lin2, in `dtype`."""
+    """lin1 -> exact GELU (or ReLU) -> lin2, in `dtype`; int8 layers with
+    `quant` (False | True | "static", see `linear`)."""
 
     def __init__(self, dim: int, mlp_dim: int, out_dim: int, act: str = "gelu",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, quant=False):
         super().__init__()
-        self.lin1 = Dense(dim, mlp_dim, dtype=dtype)
-        self.lin2 = Dense(mlp_dim, out_dim, dtype=dtype)
+        self.lin1 = linear(dim, mlp_dim, dtype=dtype, quant=quant)
+        self.lin2 = linear(mlp_dim, out_dim, dtype=dtype, quant=quant)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@
    `cm3d_tpu/models/convert_detic.py` and `cm3d_tpu/models/convert_sam.py`
    read, so each function here is the inverse of that converter and a
    Flax tree (nested dicts of numpy arrays) loads with `load_state_dict`.
-   Layouts: Dense kernel [in, out] -> Linear weight [out, in]; Conv kernel
+   Layouts: Dense kernel [in, out] -> Linear weight [out, in] (a QuantDense
+   subtree's int8 kernel_q likewise -> weight_q, with its scales); Conv kernel
    HWIO -> OIHW; Up2x2 kernel [2, 2, O, I] -> ConvTranspose2d weight
    [I, O, 2, 2]; scalar leaves (`scale{li}`, `cls_bias`) -> shape [1], as
    in the released checkpoints.
@@ -50,7 +51,16 @@ def _t(a) -> torch.Tensor:
 
 
 def _dense(out: dict, prefix: str, p: dict) -> None:
-    out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    """A Dense subtree, or a QuantDense one (kernel_q int8 [in, out] ->
+    weight_q [out, in], kernel_scale -> weight_scale, act_scale as it is)."""
+    if "kernel_q" in p:
+        out[f"{prefix}.weight_q"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(p["kernel_q"], np.int8).T))
+        out[f"{prefix}.weight_scale"] = _t(p["kernel_scale"])
+        if "act_scale" in p:
+            out[f"{prefix}.act_scale"] = _t(p["act_scale"]).reshape(())
+    else:
+        out[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         out[f"{prefix}.bias"] = _t(p["bias"])
 

@@ -334,6 +334,16 @@ class Detic(nn.Module):
         return select_detections(boxes, scores, cfg)
 
 
+def quantize_detic_state_dict(sd: dict) -> dict:
+    """Float Detic state dict -> the one Detic with `swin.quant_int8=True`
+    loads: the MLPs of the Swin trunk (`backbone.bottom_up.`) go int8
+    (`models.swin.quantize_swin_state_dict`); FPN, proposal head and the
+    cascade heads stay float. The counterpart of `quantize_detic_params`."""
+    from cm3d_tpu_torch.models.swin import quantize_swin_state_dict
+
+    return quantize_swin_state_dict(sd, "backbone.bottom_up.")
+
+
 # Detic's configs set INPUT.FORMAT: RGB with ImageNet-order statistics; the
 # network always sees RGB (see cm3d_tpu/models/detic.py).
 DETIC_PIXEL_MEAN = np.array([123.675, 116.280, 103.530], np.float32)  # RGB

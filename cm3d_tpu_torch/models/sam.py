@@ -11,8 +11,13 @@ plain PyTorch (matmuls + an f32 softmax), as the JAX package leaves them to
 XLA. With `SamConfig(fused_window_attn=True)` (opt-in, as in the JAX
 package) the windowed blocks' norm1 + qkv + rel-pos attention + proj run
 the hand-written kernels of `kernels/window_attn_relpos.py` instead; the
-parameters and state-dict keys are the same in both modes. The int8 modes
-are not ported.
+parameters and state-dict keys are the same in both modes. With
+`SamConfig(quant_int8=True)` the encoder blocks' qkv / proj / MLP layers are
+int8 w8a8 (`models.common.QuantLinear`, `ops/quant.py`; a load transform,
+`quantize_sam_state_dict`, makes their buffers from a float state dict), with
+per-token dynamic activation scales or, with `quant_static`, calibrated ones
+(`calibrate_sam_act_scales`). int8 and the fused windowed blocks exclude
+each other, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from cm3d_tpu_torch.models.common import (
     LayerNorm2d,
     MLPBlock,
     add_decomposed_rel_pos_bnhc,
+    linear,
     window_partition,
     window_unpartition,
 )
@@ -62,10 +68,28 @@ class SamConfig:
     # proj. Opt-in; same parameters. True / False only: the JAX package's
     # "interpret" names its Pallas interpreter and means nothing here.
     fused_window_attn: bool | str = False
-    # not ported: the int8 w8a8 encoder (ROADMAP A12); building a Sam with
-    # either flag raises
+    # int8 w8a8 qkv / proj / MLP layers in the ENCODER blocks (ops/quant.py):
+    # per-channel int8 weights (load transform `quantize_sam_state_dict`) and
+    # per-token dynamic int8 activations. Patch embed, attention products,
+    # neck and decoder stay in the compute dtype. A documented deviation
+    # from the torch model, opt-in.
     quant_int8: bool = False
+    # calibrated static activation scales (requires quant_int8): act_scale
+    # buffers from `calibrate_sam_act_scales` replace the per-token amax
     quant_static: bool = False
+
+    def __post_init__(self):
+        if self.quant_int8 and self.fused_window_attn:
+            raise ValueError("quant_int8 and fused_window_attn are mutually exclusive: "
+                             "the fused kernel consumes float qkv/proj params")
+        if self.quant_static and not self.quant_int8:
+            raise ValueError("quant_static requires quant_int8")
+
+    def quant_mode(self) -> bool | str:
+        """The encoder layers' quant= value: False | True | "static"."""
+        if self.quant_int8 and self.quant_static:
+            return "static"
+        return self.quant_int8
 
     @property
     def embed_hw(self) -> int:
@@ -101,21 +125,17 @@ def _check_ported(cfg: SamConfig) -> None:
             f"SamConfig.fused_window_attn={cfg.fused_window_attn!r}: the port takes True "
             f"or False; \"interpret\" is the JAX package's Pallas interpreter mode (on a "
             f"CPU tensor the port's fused blocks run the kernel's plain PyTorch version)")
-    if cfg.quant_int8 or cfg.quant_static:
-        raise NotImplementedError(
-            "SamConfig.quant_int8 / quant_static: int8 w8a8 is not ported yet "
-            "(ROADMAP A12)")
 
 
 class Attention(nn.Module):
     """Encoder attention with decomposed relative positions."""
 
-    def __init__(self, dim: int, heads: int, input_hw: Tuple[int, int], dtype):
+    def __init__(self, dim: int, heads: int, input_hw: Tuple[int, int], dtype, quant=False):
         super().__init__()
         self.heads, self.dtype = heads, dtype
         hd = dim // heads
-        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
-        self.proj = Dense(dim, dim, dtype=dtype)
+        self.qkv = linear(dim, 3 * dim, dtype=dtype, quant=quant)
+        self.proj = linear(dim, dim, dtype=dtype, quant=quant)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_hw[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_hw[1] - 1, hd))
 
@@ -135,14 +155,15 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, grid_hw, dtype,
-                 fused: bool = False):
+                 fused: bool = False, quant=False):
         super().__init__()
         self.window = window  # 0 = global attention
         self.fused = bool(fused and window)  # windowed blocks only
         self.norm1 = LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, heads, (window, window) if window else grid_hw, dtype)
+        self.attn = Attention(dim, heads, (window, window) if window else grid_hw, dtype,
+                              quant=quant)
         self.norm2 = LayerNorm(dim, eps=1e-6)
-        self.mlp = MLPBlock(dim, 4 * dim, dim, dtype=dtype)
+        self.mlp = MLPBlock(dim, 4 * dim, dim, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
@@ -182,7 +203,7 @@ class ImageEncoderViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg.encoder_dim, cfg.encoder_heads,
                   0 if i in cfg.encoder_global_attn else cfg.window_size, (hw, hw), dtype,
-                  fused=cfg.fused_window_attn)
+                  fused=cfg.fused_window_attn, quant=cfg.quant_mode())
             for i in range(cfg.encoder_depth)
         )
         self.neck = nn.Sequential(
@@ -432,6 +453,46 @@ class Sam(nn.Module):
             ar = torch.arange(masks.shape[0], device=masks.device)
             return masks[ar, best], iou[ar, best]
         return masks[:, 0], iou[:, 0]
+
+
+_ENCODER_LINEARS = ("attn.qkv", "attn.proj", "mlp.lin1", "mlp.lin2")
+
+
+def quantize_sam_state_dict(sd: dict) -> dict:
+    """Float Sam state dict -> the one `SamConfig(quant_int8=True)` loads:
+    every encoder block's qkv / proj / lin1 / lin2 becomes QuantLinear
+    buffers (`ops.quant.quantize_linear_state`); everything else is the same
+    tensors. The counterpart of `quantize_sam_params`; `sd` is not changed."""
+    from cm3d_tpu_torch.ops.quant import quantize_linear_state
+
+    out = dict(sd)
+    for key in sd:
+        if key.startswith("image_encoder.blocks.") and key.endswith(".attn.qkv.weight"):
+            blk = key[:-len(".attn.qkv.weight")]
+            for name in _ENCODER_LINEARS:
+                quantize_linear_state(out, f"{blk}.{name}")
+    return out
+
+
+def calibrate_sam_act_scales(cfg: SamConfig, sd: dict, images: torch.Tensor,
+                             margin: float = 1.0) -> dict:
+    """Static activation scales for a quantized SAM encoder: `sd` (a
+    `quantize_sam_state_dict` output) loaded into the static model, ONE
+    encode of `images` ([B, H, W, 3] normalized, on the device the caller
+    wants) calibrating it in place (`models.common.calibrate_act_scales_`:
+    the dynamic product, every QuantLinear's input absmax, baked). Returns
+    `sd` with the `act_scale` entries: the state dict for
+    `SamConfig(quant_static=True)`. Calibrate on the deploy distribution:
+    activations past the envelope clip."""
+    from cm3d_tpu_torch.models.common import calibrate_act_scales_
+    from cm3d_tpu_torch.ops.quant import with_act_scale_placeholders
+
+    with torch.device(images.device):
+        model = Sam(dataclasses.replace(cfg, quant_static=True))
+    model.load_state_dict(with_act_scale_placeholders(sd))
+    calibrate_act_scales_(model, lambda: model.encode_image(images), margin)
+    return {**sd, **{k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(".act_scale")}}
 
 
 SAM_PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)

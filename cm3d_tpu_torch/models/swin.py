@@ -8,7 +8,11 @@ feature maps the detector's FPN consumes. Every block's attention branch
 `kernels.window_attn.window_attn`: the hand-written CUDA kernels on a CUDA
 tensor, the plain PyTorch version on a CPU tensor (the JAX package's
 `fused_mode` "on" / "interpret"). Parameter names are the released Swin
-checkpoint's (`layers.{i}.blocks.{j}.attn.qkv.weight`, ...).
+checkpoint's (`layers.{i}.blocks.{j}.attn.qkv.weight`, ...). With
+`SwinConfig(quant_int8=True)` the blocks' MLPs (fc1 / fc2) are int8 w8a8
+(`models.common.QuantLinear`; load transform `quantize_swin_state_dict`);
+qkv / proj stay float, so the quantized model still runs the fused
+window-attention kernels.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cm3d_tpu_torch.kernels.window_attn import window_attn, window_attn_plain
-from cm3d_tpu_torch.models.common import Conv, Dense, LayerNorm
+from cm3d_tpu_torch.models.common import Conv, Dense, LayerNorm, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +47,11 @@ class SwinConfig:
     # instead of holding its activations: memory for FLOPs when TRAINING the
     # backbone. No effect without grad. Same parameters either way.
     remat: bool = False
+    # int8 w8a8 MLPs (fc1 / fc2, dynamic activation scales): the MLPs sit
+    # outside the window-attention kernels, which keep their float qkv /
+    # proj, so this composes with fused_attn. Load transform:
+    # quantize_swin_state_dict. An opt-in documented deviation.
+    quant_int8: bool = False
 
     def stage_dim(self, i: int) -> int:
         return self.embed_dim * (2 ** i)
@@ -91,10 +100,10 @@ class WindowAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype):
+    def __init__(self, dim: int, hidden: int, dtype, quant: bool = False):
         super().__init__()
-        self.fc1 = Dense(dim, hidden, dtype=dtype)
-        self.fc2 = Dense(hidden, dim, dtype=dtype)
+        self.fc1 = linear(dim, hidden, dtype=dtype, quant=quant)
+        self.fc2 = linear(hidden, dim, dtype=dtype, quant=quant)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -102,14 +111,14 @@ class Mlp(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, heads: int, window: int, shift: int, mlp_ratio: float,
-                 dtype: torch.dtype, fused_attn: bool = True):
+                 dtype: torch.dtype, fused_attn: bool = True, quant: bool = False):
         super().__init__()
         self.heads, self.window, self.shift, self.dtype = heads, window, shift, dtype
         self.fused_attn = fused_attn
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, heads, window)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, H, W, C]."""
@@ -157,7 +166,7 @@ class SwinLayer(nn.Module):
         self.blocks = nn.ModuleList(
             SwinBlock(dim, cfg.num_heads[i], cfg.window_size,
                       0 if j % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio, dtype,
-                      cfg.fused_attn)
+                      cfg.fused_attn, cfg.quant_int8)
             for j in range(cfg.depths[i])
         )
         self.downsample = PatchMerging(dim, dtype) if i < len(cfg.depths) - 1 else None
@@ -188,3 +197,20 @@ class SwinTransformer(nn.Module):
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return outs
+
+
+def quantize_swin_state_dict(sd: dict, prefix: str = "") -> dict:
+    """Float Swin state dict (keys under `prefix`) -> the one
+    `SwinConfig(quant_int8=True)` loads: every block's mlp.fc1 / mlp.fc2
+    becomes QuantLinear buffers; attention, norms, patch embed and merges
+    are the same tensors. The counterpart of `quantize_swin_params`; `sd`
+    is not changed."""
+    from cm3d_tpu_torch.ops.quant import quantize_linear_state
+
+    out = dict(sd)
+    for key in sd:
+        if key.startswith(f"{prefix}layers.") and key.endswith(".mlp.fc1.weight"):
+            blk = key[:-len(".fc1.weight")]
+            for name in ("fc1", "fc2"):
+                quantize_linear_state(out, f"{blk}.{name}")
+    return out

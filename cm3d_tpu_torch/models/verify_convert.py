@@ -4,7 +4,8 @@
 One command that, pointed at REAL torch checkpoints (the contracts the
 reference loads: SAM `sam_vit_h_4b8939.pth`, the Detic
 LCOCOI21k_CLIP_SwinB model and CLIP's text tower,
-gen_2d_masks_detic.py:30-41,112), reports BEFORE any pipeline run exactly
+gen_2d_masks_detic.py:30-41,112, and ZoeD_N for its depth branch :117),
+reports BEFORE any pipeline run exactly
 where a load would go wrong:
 
 1. **Key coverage**: how many checkpoint keys the port's module reads, and
@@ -20,7 +21,7 @@ where a load would go wrong:
 Usage:
   python -m cm3d_tpu_torch.models.verify_convert --sam sam_vit_h_4b8939.pth \\
       [--sam_size vit_h] [--detic Detic_...pth] [--clip clip_text.pth] \\
-      [--probe] [--out rpt.json] [--device cpu]
+      [--zoe ZoeD_M12_N.pt] [--probe] [--out rpt.json] [--device cpu]
 
 Exit code 1 if any tree-conformance problem exists (ignored checkpoint keys
 are reported but not fatal: torch checkpoints carry optimizer/EMA extras).
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-ZOE_GDINO_ITEM = "ROADMAP A13 (ZoeDepth / GroundingDINO are not ported yet)"
+GDINO_ITEM = "ROADMAP A13 (GroundingDINO is not ported yet)"
 
 
 def key_coverage(sd: Dict[str, torch.Tensor], module: nn.Module) -> dict:
@@ -164,12 +165,29 @@ def verify_clip(sd: Dict[str, torch.Tensor], probe: bool = False, cfg=None,
     return report
 
 
-def verify_zoe(*args, **kwargs) -> dict:
-    raise NotImplementedError(f"verify_zoe: {ZOE_GDINO_ITEM}")
+def verify_zoe(sd: Dict[str, torch.Tensor], probe: bool = False, cfg=None,
+               device=None) -> dict:
+    from cm3d_tpu_torch.models.zoedepth import ZOE_N, ZoeDepth, zoedepth_state_dict_from_released
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32_scope
+
+    cfg = cfg or ZOE_N
+    device = resolve_device(device)
+    with torch.device(device):
+        model = ZoeDepth(cfg).eval()
+    converted = zoedepth_state_dict_from_released(sd, cfg)
+    report = _report(model, sd, converted)
+    if probe and not has_problems(report):
+        _load(model, converted)
+        rng = np.random.default_rng(0)
+        x = torch.as_tensor(rng.standard_normal((1, *cfg.img_hw, 3)).astype(np.float32),
+                            device=device)
+        with strict_f32_scope():
+            report["activations"] = activation_stats(model, lambda: model(x))
+    return report
 
 
 def verify_gdino(*args, **kwargs) -> dict:
-    raise NotImplementedError(f"verify_gdino: {ZOE_GDINO_ITEM}")
+    raise NotImplementedError(f"verify_gdino: {GDINO_ITEM}")
 
 
 def has_problems(report: dict) -> bool:
@@ -190,7 +208,7 @@ def main(argv=None) -> int:
                    help="SAM encoder scale matching --sam")
     p.add_argument("--detic", default="")
     p.add_argument("--clip", default="")
-    p.add_argument("--zoe", default="", help="not ported yet (ROADMAP A13)")
+    p.add_argument("--zoe", default="", help="ZoeD_N checkpoint")
     p.add_argument("--gdino", default="", help="not ported yet (ROADMAP A13)")
     p.add_argument("--probe", action="store_true",
                    help="also dump per-module activation stats")
@@ -198,8 +216,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
     args = p.parse_args(argv)
 
-    if args.zoe:
-        verify_zoe()
     if args.gdino:
         verify_gdino()
     full = {}
@@ -208,6 +224,7 @@ def main(argv=None) -> int:
         ("sam", args.sam, functools.partial(verify_sam, cfg=sam_config_for(args.sam_size))),
         ("detic", args.detic, verify_detic),
         ("clip", args.clip, verify_clip),
+        ("zoe", args.zoe, verify_zoe),
     ]:
         if not path:
             continue

@@ -1,7 +1,7 @@
 """Flags the masks and e2e CLIs share: the model flags (`--fake_weights`
 or the four released checkpoints; `pipelines/masks.py build_models` reads
-them), `--run_nms`'s dataset default, `--host_shard`, and the JAX CLIs'
-flags whose feature the port has not ported yet.
+them), the int8 flags, `--run_nms`'s dataset default, `--host_shard`, and
+the JAX CLIs' flags whose feature the port has not ported yet.
 
 The CLIs accept the unported flags, so that a JAX command line fails with a
 NotImplementedError naming its ROADMAP item instead of argparse's usage
@@ -12,16 +12,12 @@ from __future__ import annotations
 
 # flag -> the ROADMAP item that ports its feature
 UNPORTED_FLAGS = {
-    "quant_int8": "A12 (int8 w8a8)",
-    "quant_static": "A12 (int8 w8a8)",
-    "use_zoedepth": "A13 (ZoeDepth)",
-    "zoe_ckpt": "A13 (ZoeDepth)",
     "gdino_ckpt": "A13 (GroundingDINO)",
     "gdino_vocab": "A13 (GroundingDINO)",
     "gdino_bf16": "A13 (GroundingDINO)",
     "camera_mesh": "A14e (model parallel)",
 }
-_SWITCHES = ("quant_int8", "quant_static", "use_zoedepth", "gdino_bf16")
+_SWITCHES = ("gdino_bf16",)
 
 
 def add_model_flags(p) -> None:
@@ -36,6 +32,18 @@ def add_model_flags(p) -> None:
     p.add_argument("--bpe_path", default="", help="CLIP's bpe_simple_vocab_16e6.txt.gz")
     p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"],
                    help="SAM encoder scale matching --sam_ckpt (vit_h is the reference's)")
+
+
+def add_quant_flags(p) -> None:
+    """`--quant_int8` (int8 w8a8 SAM encoder and Detic Swin MLPs) and
+    `--quant_static` (SAM's activation scales calibrated on the first ring),
+    as the JAX CLIs spell them."""
+    p.add_argument("--quant_int8", action="store_true",
+                   help="int8 w8a8 layers in the SAM encoder and Detic's Swin MLPs "
+                   "(a documented deviation; ops/quant.py)")
+    p.add_argument("--quant_static", action="store_true",
+                   help="with --quant_int8: calibrated static SAM activation scales; the "
+                   "first keyframe ring calibrates (one dynamic encode)")
 
 
 def add_unported_flags(p) -> None:

@@ -39,7 +39,7 @@ from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_unported_flags, refuse_unported, run_nms)
+    add_model_flags, add_quant_flags, add_unported_flags, refuse_unported, run_nms)
 from cm3d_tpu_torch.pipelines.masks import (
     MaskModels, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
@@ -564,6 +564,7 @@ def main(argv=None):
                    "-1 dataset default (off for kitti, the reference's 'wo_2d_nms'; "
                    "on otherwise; as the masks CLI)")
     add_model_flags(p)
+    add_quant_flags(p)
     p.add_argument("--rect_encode", action="store_true",
                    help="SAM rectangle encode (faster; small deviation)")
     p.add_argument("--encode_chunk", type=int, default=1,

@@ -16,9 +16,15 @@ the main thread as soon as their producer is queued (pinned memory, a CUDA
 event), so a waiting thread blocks only on that producer, not on the work
 queued after it.
 
+With `--quant_int8` the SAM encoder and Detic's Swin MLPs run int8 w8a8
+(`ops/quant.py`; `--quant_static` calibrates SAM's activation scales on the
+first camera ring); with `--use_zoedepth` each mask's payload is the masked
+ZoeDepth metric depth instead of its RLE (`models/zoedepth.py`).
+
     python -m cm3d_tpu_torch.pipelines.masks --dataroot ROOT --out_dir OUT \\
         [--dataset waymo|kitti] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
-        --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--device cpu]
+        --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--quant_int8 \\
+        [--quant_static]] [--use_zoedepth [--zoe_ckpt Z]] [--device cpu]
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_unported_flags, refuse_unported, run_nms)
+    add_model_flags, add_quant_flags, add_unported_flags, refuse_unported, run_nms)
 from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
@@ -55,6 +61,11 @@ class MaskModels:
         num_words, layout="xy"|"yx") -> [W, H, num_words] (xy) or
         [H, W, num_words] (yx) int32 bit-planes (device).
     vocabulary: detector vocabulary strings (class_ids index this)
+    predict_depth: optional ZoeDepth metric depth, image_u8 [H, W, 3] ->
+        depth [H, W] f32 meters (reference predict_depth,
+        gen_2d_masks_detic.py:121-124), with a `dispatch` attribute that
+        returns the device tensor; used when MaskStageConfig.use_zoedepth
+        is on (`attach_zoedepth`).
     """
 
     prepare: Callable
@@ -62,6 +73,7 @@ class MaskModels:
     sam_encode: Callable
     sam_decode_planes: Callable
     vocabulary: Tuple[str, ...] = CUSTOM_VOCABULARY_NUSCENES
+    predict_depth: Optional[Callable] = None
 
 
 def planes_numpy(handle: dict) -> np.ndarray:
@@ -128,6 +140,13 @@ def start_frame_masks(
     # the host waits for the boxes only, and runs NMS under the encode
     det = HostCopy(list(models.detic(frame_inputs)))
     emb = models.sam_encode(frame_inputs)
+    depths = None
+    if cfg.use_zoedepth and models.predict_depth is not None:
+        # reference zoe branch (:412-414): one depth map per camera image,
+        # queued on the device here; their copy to the host starts at once
+        # and the finisher waits for it (masked_depth_images)
+        depth_fn = getattr(models.predict_depth, "dispatch", models.predict_depth)
+        depths = HostCopy([torch.as_tensor(depth_fn(im)) for im in images])
     boxes_b, scores_b, cids_b, valid_b = det.get()
     n_cams = len(cam_hw)
 
@@ -193,8 +212,31 @@ def start_frame_masks(
         "planes_host": HostCopy([planes]) if total and copy_planes else None,
         "layout": plane_layout,
         "labels": all_labels, "scores": all_scores, "cams": all_cams,
-        "counts": counts,
+        "counts": counts, "depths": depths,
     }
+
+
+def masked_depth_images(handle: dict) -> np.ndarray:
+    """use_zoedepth payload: per-mask masked metric depth [M, H, W] f32
+    (reference :445-451: `depth_image_arr * mask_alpha`). Depth maps are
+    zero-padded to the plane size; each mask crops its camera's map.
+    `handle["depths"]`: the HostCopy start_frame_masks made, or a list of
+    per-camera [h, w] arrays."""
+    plane_w, plane_h = handle["plane_wh"]
+    depths = handle["depths"]
+    if handle["planes"] is None or not handle["labels"]:
+        return np.zeros((0, plane_h, plane_w), np.float32)
+    planes = planes_numpy(handle)
+    if handle["layout"] == "yx":
+        planes = np.ascontiguousarray(np.swapaxes(planes, 0, 1))
+    dense = unpack_masks_np(planes, handle["total"])  # [M, W, H] bool
+    depths = depths.get() if isinstance(depths, HostCopy) else depths
+    pad = np.zeros((len(depths), plane_h, plane_w), np.float32)
+    for c, dm in enumerate(depths):
+        dm = np.asarray(dm, np.float32)
+        pad[c, :dm.shape[0], :dm.shape[1]] = dm
+    cams = np.asarray(handle["cams"], np.int32)
+    return np.swapaxes(dense, 1, 2).astype(np.float32) * pad[cams]
 
 
 def finish_frame_masks(models: MaskModels, handle: dict,
@@ -213,7 +255,13 @@ def finish_frame_masks(models: MaskModels, handle: dict,
 def write_frame_artifacts(store, scene: str, frame_num: int, handle: dict) -> None:
     """Write one frame's mask artifacts straight from a start_frame_masks
     handle via the packed-plane RLE encoder (no dense [M, W, H]
-    intermediate)."""
+    intermediate). With use_zoedepth the masked depth images replace the
+    mask payload (reference :484-486), checked first, so that a frame without
+    detections still writes the depth payload's type ([0, H, W] f32)."""
+    if handle.get("depths") is not None:
+        store.write_frame_depths(scene, frame_num, handle["labels"], handle["scores"],
+                                 handle["cams"], masked_depth_images(handle))
+        return
     if handle["planes"] is None:
         store.write_frame_rles(scene, frame_num, handle["labels"], handle["scores"],
                                handle["cams"], [])
@@ -404,8 +452,27 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
         det = detic_model(x, classifier, hw)
         return det.boxes, det.scores, det.classes, det.valid
 
+    # quant_static: the static encoder's act_scale buffers depend on the
+    # deploy data, so the FIRST ring calibrates: one encode of its cameras
+    # through the dynamic product records each layer's input absmax (the max
+    # over the cameras), bake_act_scales writes the buffers, and every later
+    # ring runs the static path
+    calibration = {"pending": bool(sam_model.cfg.quant_static), "seconds": None}
+
+    def _calibrate_first_ring(frame):
+        from cm3d_tpu_torch.models.common import calibrate_act_scales_
+
+        t0 = time.perf_counter()
+        xs = to_device(np.stack([preprocess_image(im, img_size) for im in frame["images"]]),
+                       device)
+        calibrate_act_scales_(sam_model, lambda: [sam_model.encode_image(xs[i:i + 1])
+                                                  for i in range(xs.shape[0])])
+        calibration.update(pending=False, seconds=time.perf_counter() - t0)
+
     @torch.inference_mode()
     def sam_encode(frame):
+        if calibration["pending"]:
+            _calibrate_first_ring(frame)
         if frame["scale1"]:
             xs = _norm_and_mask(frame["dev"], frame["hw"], sam_stats)
             h, w = xs.shape[1], xs.shape[2]
@@ -435,17 +502,44 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
         post = _postprocess(tuple(map(tuple, cam_hw)), tuple(mask_wh), int(nw), rect, layout)
         return post(logits, [int(n) for n in n_boxes])
 
+    sam_encode.calibration = calibration  # the first ring's calibration seconds
     return MaskModels(prepare, detic, sam_encode, sam_decode_planes, tuple(vocabulary))
+
+
+def quantized_models(detic, sam, quant_int8: bool, quant_static: bool = False):
+    """The int8 twins of float Detic and SAM modules (`quant_int8`): the
+    same weights through `quantize_detic_state_dict` /
+    `quantize_sam_state_dict`, loaded into modules built with the int8
+    configs on the same device. Without `quant_int8`, the modules as they
+    are."""
+    from cm3d_tpu_torch.models.detic import Detic, quantize_detic_state_dict
+    from cm3d_tpu_torch.models.sam import Sam, quantize_sam_state_dict
+    from cm3d_tpu_torch.ops.quant import with_act_scale_placeholders
+
+    if not quant_int8:
+        return detic, sam
+    dev = next(sam.parameters()).device
+    with torch.device(dev):
+        qdetic = Detic(dataclasses.replace(
+            detic.cfg, swin=dataclasses.replace(detic.cfg.swin, quant_int8=True)))
+        qsam = Sam(dataclasses.replace(sam.cfg, quant_int8=True, quant_static=quant_static))
+    qdetic.load_state_dict(quantize_detic_state_dict(detic.state_dict()))
+    qsd = quantize_sam_state_dict(sam.state_dict())
+    # quant_static: placeholders, the first ring calibrates them
+    qsam.load_state_dict(with_act_scale_placeholders(qsd) if quant_static else qsd)
+    return qdetic, qsam
 
 
 def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
                       rect_encode: bool = False, encode_chunk: int = 1,
-                      device=None, fused_window_attn: bool = False) -> MaskModels:
+                      device=None, fused_window_attn: bool = False,
+                      quant_int8: bool = False, quant_static: bool = False) -> MaskModels:
     """Tiny random-weight models (DETIC_TEST, SAM_TEST; weights drawn on the
     CPU from a torch.Generator seeded with `seed`, so every device gets the
     same models) behind the same batched wrappers as the full-size ones.
     `fused_window_attn` runs SAM's windowed blocks through the fused
-    kernels (same weights)."""
+    kernels (same weights); `quant_int8` / `quant_static` run the int8
+    twins of the same weights (`quantized_models`)."""
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
     from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
@@ -458,6 +552,7 @@ def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
     sam = init_weights(Sam(dataclasses.replace(SAM_TEST, rect_encode=rect_encode,
                                                fused_window_attn=fused_window_attn)),
                        gen.manual_seed(seed + 1))
+    detic, sam = quantized_models(detic, sam, quant_int8, quant_static)
     return _batched_model_fns(detic, clf, sam, vocabulary, device=device,
                               encode_chunk=encode_chunk)
 
@@ -487,20 +582,31 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
     from cm3d_tpu_torch.models.convert import (
         clip_state_dict_from_released, detic_state_dict_from_released,
         load_released_state_dict, load_torch_state_dict)
-    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic
-    from cm3d_tpu_torch.models.sam import Sam, sam_config_for
+    from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic, quantize_detic_state_dict
+    from cm3d_tpu_torch.models.sam import Sam, quantize_sam_state_dict, sam_config_for
+    from cm3d_tpu_torch.ops.quant import reconcile_quantization, with_act_scale_placeholders
     from cm3d_tpu_torch.utils.device import resolve_device, strict_f32_scope
 
-    if quant_int8 or quant_static:
-        raise NotImplementedError("--quant_int8 / --quant_static: int8 w8a8 is not ported "
-                                  "yet (ROADMAP A12)")
+    if quant_static and not quant_int8:
+        raise ValueError("quant_static requires quant_int8")
     if not detic_used:
         raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
     device = resolve_device(device)
     detic_cfg = dataclasses.replace(
-        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
+        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype,
+                                                           quant_int8=quant_int8))
     sam_cfg = dataclasses.replace(sam_config_for(sam_size), dtype=dtype,
-                                  rect_encode=rect_encode)
+                                  rect_encode=rect_encode, quant_int8=quant_int8,
+                                  quant_static=quant_static)
+    # a quantized checkpoint (conform --quant_int8's *_int8 directories)
+    # passes through, a float one is quantized at load, and a quantized one
+    # without --quant_int8 raises
+    quant = {
+        "Detic": lambda sd: reconcile_quantization(sd, quantize_detic_state_dict, quant_int8,
+                                                   "Detic"),
+        "SAM": lambda sd: reconcile_quantization(sd, quantize_sam_state_dict, quant_int8, "SAM"),
+        "CLIP": lambda sd: sd,
+    }
     loads = (
         ("Detic", detic_ckpt, lambda: Detic(detic_cfg),
          lambda p: detic_state_dict_from_released(load_torch_state_dict(p), detic_cfg)),
@@ -510,7 +616,9 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
     )
     modules = []
     for name, path, make, convert in loads:
-        sd = load_released_checkpoint(path, convert)
+        sd = quant[name](load_released_checkpoint(path, convert))
+        if name == "SAM" and quant_static:  # the first ring calibrates these
+            sd = with_act_scale_placeholders(sd)
         with torch.device(device):
             module = make()
         load_released_state_dict(module, sd, f"{name} {path}", verbose=verbose)
@@ -531,7 +639,8 @@ def build_models(p, args, vocabulary, device) -> MaskModels:
     JAX)."""
     if args.fake_weights:
         return build_fake_models(vocabulary=vocabulary, rect_encode=args.rect_encode,
-                                 encode_chunk=args.encode_chunk, device=device)
+                                 encode_chunk=args.encode_chunk, device=device,
+                                 quant_int8=args.quant_int8, quant_static=args.quant_static)
     missing = [f"--{f}" for f in ("detic_ckpt", "sam_ckpt", "clip_ckpt", "bpe_path")
                if not getattr(args, f)]
     if missing:
@@ -540,7 +649,44 @@ def build_models(p, args, vocabulary, device) -> MaskModels:
     return build_real_models(args.detic_ckpt, args.sam_ckpt, args.clip_ckpt, args.bpe_path,
                              vocabulary=vocabulary, rect_encode=args.rect_encode,
                              encode_chunk=args.encode_chunk, sam_size=args.sam_size,
+                             quant_int8=args.quant_int8, quant_static=args.quant_static,
                              device=device)
+
+
+def attach_zoedepth(models: MaskModels, ckpt_path: str = "", test: bool = False,
+                    flip_aug: bool = True, seed: int = 0, device=None,
+                    state_dict=None) -> MaskModels:
+    """Set a ZoeDepth `predict_depth` on `models` (the reference's
+    commented-out `torch.hub.load("isl-org/ZoeDepth", ...)`,
+    gen_2d_masks_detic.py:117). test=True builds the tiny ZOE_TEST with
+    random weights (`init_weights`, drawn on the CPU from a torch.Generator
+    seeded with `seed`, so every device gets the same model), else ZOE_N
+    from `ckpt_path`: the released ZoeD_N file or a directory saved with
+    `save_params`. `state_dict` gives the weights instead (tests, the
+    card's smoke run). f32 with TF32 off on the card, as the JAX default."""
+    from cm3d_tpu_torch.models.checkpoints import load_released_checkpoint
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.convert import load_released_state_dict, load_torch_state_dict
+    from cm3d_tpu_torch.models.zoedepth import (
+        ZOE_N, ZOE_TEST, ZoeDepth, make_predict_depth, zoedepth_state_dict_from_released)
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
+
+    device = resolve_device(device)
+    cfg = ZOE_TEST if test else ZOE_N
+    if state_dict is None and test:
+        model = init_weights(ZoeDepth(cfg), torch.Generator().manual_seed(seed)).to(device)
+    else:
+        with torch.device(device):
+            model = ZoeDepth(cfg)
+        if state_dict is None:
+            state_dict = load_released_checkpoint(
+                ckpt_path,
+                lambda p: zoedepth_state_dict_from_released(load_torch_state_dict(p), cfg))
+        load_released_state_dict(model, state_dict, f"ZoeDepth {ckpt_path}", verbose=False)
+    if device.type == "cuda":
+        strict_f32()
+    return dataclasses.replace(
+        models, predict_depth=make_predict_depth(model.eval().requires_grad_(False), flip_aug))
 
 
 def _nuscenes_provider(args):
@@ -620,6 +766,13 @@ def main(argv=None):
     p.add_argument("--run_nms", type=int, default=-1,
                    help="-1 = dataset default (nuscenes / waymo on, kitti off)")
     add_model_flags(p)
+    add_quant_flags(p)
+    p.add_argument("--use_zoedepth", action="store_true",
+                   help="store per-mask masked metric depth instead of RLE masks "
+                   "(reference gen_2d_masks_detic.py:408-451)")
+    p.add_argument("--zoe_ckpt", default="",
+                   help="ZoeD_N torch checkpoint (or a save_params directory) for "
+                   "--use_zoedepth; with --fake_weights the tiny random ZoeDepth")
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--rect_encode", action="store_true",
                    help="SAM encodes without square padding (small documented "
@@ -643,7 +796,11 @@ def main(argv=None):
         scene_names = shard_for_host(scene_names)
     vocab = CUSTOM_VOCABULARY_WAYMO if args.dataset == "waymo" else CUSTOM_VOCABULARY_NUSCENES
     models = build_models(p, args, vocab, args.device)
-    cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail)
+    if args.use_zoedepth:
+        models = attach_zoedepth(models, args.zoe_ckpt, test=args.fake_weights,
+                                 device=args.device)
+    cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail,
+                          use_zoedepth=args.use_zoedepth)
     run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,
                    resume=not args.no_resume)
 

@@ -374,8 +374,16 @@ def test_clean_detic_and_clip_checkpoints_verify():
                       device="cpu")
     assert not has_problems(rep) and rep["coverage"]["ignored"] == []
     assert "ln_final" in rep["activations"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        verify_zoe({})
+    # ZoeDepth is ported (A13b): a clean ZoeD_N-layout file verifies too
+    from cm3d_tpu_torch.models.zoedepth import ZOE_TEST, synth_zoedepth_state_dict
+
+    rep = verify_zoe(_tensors(synth_zoedepth_state_dict(ZOE_TEST, np.random.default_rng(0))),
+                     probe=True, cfg=ZOE_TEST, device="cpu")
+    assert not has_problems(rep), rep["tree"]
+    assert rep["coverage"]["ignored"] == [
+        f"core.core.scratch.refinenet4.resConfUnit1.{c}.{p}"
+        for c in ("conv1", "conv2") for p in ("bias", "weight")]
+    assert rep["activations"]
 
 
 def test_ignored_extra_checkpoint_key_reported():
@@ -461,9 +469,18 @@ def test_build_real_models_embeds_the_vocabulary_with_clip(released_files, test_
     frame = models.prepare([np.full((48, 64, 3), 90, np.uint8)] * 2)
     boxes, scores, classes, valid = models.detic(frame)
     assert boxes.shape[:2] == (2, DETIC_TEST.max_detections)
-    with pytest.raises(NotImplementedError, match="A12"):
-        masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
-                                quant_int8=True)
+    # int8 is ported (A12): the same float files are quantized at load, and
+    # the int8 twins run
+    qmodels = masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
+                                      dtype="float32", quant_int8=True, verbose=False)
+    qboxes, _, _, qvalid = qmodels.detic(frame)
+    assert qboxes.shape == boxes.shape and qvalid.shape == valid.shape
+    assert torch.isfinite(qmodels.sam_encode(frame)).all()
+    smodels = masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
+                                      dtype="float32", quant_int8=True, quant_static=True,
+                                      verbose=False)
+    assert torch.isfinite(smodels.sam_encode(frame)).all()  # calibrates on this ring
+    assert not smodels.sam_encode.calibration["pending"]
     with pytest.raises(NotImplementedError, match="A13"):
         masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
                                 detic_used=False)

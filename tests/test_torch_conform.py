@@ -1,8 +1,8 @@
 """The port's conformance runbook (cm3d_tpu_torch/conform.py): the eight
 tests of tests/test_conform.py on the port's verify -> convert -> e2e ->
 eval orchestration, at fixture scale with the pipeline phases stubbed, plus
-the port's own refusals (--quant_int8 names A12, ZoeDepth / GroundingDINO
-name A13), the Detic / CLIP conversions, and main's exit codes.
+the port's own refusal (GroundingDINO names A13), --quant_int8 and ZoeDepth
+running, the Detic / CLIP conversions, and main's exit codes.
 
 Checkpoints are the JAX package's fixture-scale fakes (tests/test_sam.py,
 tests/test_torch_checkpoints.py), saved as released torch files."""
@@ -239,21 +239,21 @@ def test_non_nuscenes_missing_artifact_is_error(tmp_path, monkeypatch):
 
 
 def test_unported_phases_name_their_roadmap_items(tmp_path, monkeypatch):
-    """--quant_int8 raises naming A12 before any phase; ZoeDepth and
-    GroundingDINO checkpoints fail their verify phase naming A13 (rc 1,
-    the report still written), and the e2e argv asks for gdino, which the
-    port's e2e CLI refuses naming A13."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        conform.run_conform(_args(out=str(tmp_path / "q"), quant_int8=True))
+    """--quant_int8 and ZoeDepth are ported (A12, A13b): --quant_int8 runs
+    (the e2e argv carries it) and a missing ZoeDepth file fails its own
+    phase, naming the file. A GroundingDINO checkpoint fails its verify
+    phase naming A13 (rc 1, the report still written), and the e2e argv
+    asks for gdino, which the port's e2e CLI refuses naming A13."""
     seen = {}
     monkeypatch.setattr(conform, "_e2e_main", lambda argv: seen.setdefault("e2e", argv))
     report, rc = conform.run_conform(
         _args(zoe="zoe.pt", gdino="gdino.pth", out=str(tmp_path / "c"), dataroot="/x",
-              scenes="s", fake_weights=True, skip_eval=True))
+              scenes="s", fake_weights=True, skip_eval=True, quant_int8=True))
     assert rc == 1 and (tmp_path / "c" / "conform_report.json").is_file()
-    for name in ("zoe", "gdino"):
-        assert "A13" in report["models"][name]["error"]
-    assert "gdino" in seen["e2e"]
+    assert "A13" in report["models"]["gdino"]["error"]
+    assert "zoe.pt" in report["models"]["zoe"]["error"]
+    assert "A13" not in report["models"]["zoe"]["error"]
+    assert "gdino" in seen["e2e"] and "--quant_int8" in seen["e2e"]
     from cm3d_tpu_torch.pipelines.e2e import main as e2e_main
 
     with pytest.raises(NotImplementedError, match="A13"):

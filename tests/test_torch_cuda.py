@@ -1179,3 +1179,80 @@ def test_exported_detect_step_on_card(cuda, tmp_path):
         pts, valid)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,k,n", [((4096, 1280), 1280, 3840), ((5, 64), 64, 24),
+                                       ((2, 3, 50, 96), 96, 80)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_ops_card_bit_equal_cpu(cuda, shape, k, n, dtype):
+    """dynamic_int8_matmul / static_int8_matmul on the card give the CPU
+    path's bits: the quantize and dequantize are the same IEEE steps, the
+    int32 product is exact (cuBLASLt's int8 GEMM; 5 rows are padded to 17)."""
+    from cm3d_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(*shape[:-1], k, generator=gen).to(dtype)
+    w_q, w_s = quant.quantize_weight(torch.randn(n, k, generator=gen))
+    b = torch.randn(n, generator=gen)
+    s = x.float().abs().max() / 127 * 0.8
+    for got, want in (
+            (quant.dynamic_int8_matmul(x.to(cuda), w_q.to(cuda), w_s.to(cuda), b.to(cuda)),
+             quant.dynamic_int8_matmul(x, w_q, w_s, b)),
+            (quant.static_int8_matmul(x.to(cuda), w_q.to(cuda), w_s.to(cuda), s.to(cuda)),
+             quant.static_int8_matmul(x, w_q, w_s, s))):
+        assert got.dtype == dtype and torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_mm(torch.zeros(32, 12, dtype=torch.int8, device=cuda),
+                     torch.zeros(8, 12, dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_sam_int8_encode_card_matches_cpu(cuda, monkeypatch, static):
+    """SAM_TEST int8 (dynamic, or static calibrated on the CPU) on the card
+    (f32, TF32 off) against the CPU: within one int8 step of the largest
+    embedding value (an f32 summation-order difference may flip one int8
+    rounding)."""
+    import dataclasses
+
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.sam import (
+        SAM_TEST, Sam, calibrate_sam_act_scales, quantize_sam_state_dict)
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(SAM_TEST, quant_int8=True, quant_static=static)
+    sd = quantize_sam_state_dict(init_weights(Sam(SAM_TEST),
+                                              torch.Generator().manual_seed(0)).state_dict())
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(np.float32))
+    if static:
+        sd = calibrate_sam_act_scales(cfg, sd, x[:1])
+    model = Sam(cfg)
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        want = model.eval().encode_image(x)
+        got = model.to(cuda).encode_image(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= float(want.abs().max()) / 127
+
+
+def test_zoedepth_card_matches_cpu(cuda):
+    """ZOE_TEST on x10 synthetic weights (f32, TF32 off) on the card against
+    the CPU: depth within rtol 1e-4 at 99.9% of the pixels and 5e-3 at all
+    (chip_smoke.py's ZOE_RTOL / ZOE_RTOL_ALL: at the image border the
+    head's p lies within 1e-3 of 1 and log(1 - p) carries the rounding of
+    its last layer), predict_depth's flip average included."""
+    from cm3d_tpu_torch.models.zoedepth import (
+        ZOE_TEST, ZoeDepth, make_predict_depth, synth_zoedepth_state_dict,
+        zoedepth_state_dict_from_released)
+    from cm3d_tpu_torch.utils.device import strict_f32_scope
+
+    sd = synth_zoedepth_state_dict(ZOE_TEST, np.random.default_rng(0))
+    model = ZoeDepth(ZOE_TEST)
+    model.load_state_dict(zoedepth_state_dict_from_released(
+        {k: torch.from_numpy(v * 10) for k, v in sd.items()}, ZOE_TEST))
+    img = np.random.default_rng(1).integers(0, 255, (90, 160, 3)).astype(np.uint8)
+    want = make_predict_depth(model.eval())(img)
+    with strict_f32_scope():
+        got = make_predict_depth(model.to(cuda))(img)
+    err = np.abs(got - want) / want
+    assert np.mean(err <= 1e-4) >= 0.999 and err.max() <= 5e-3, err.max()

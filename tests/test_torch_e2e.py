@@ -39,6 +39,7 @@ from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines import e2e, masks
 from cm3d_tpu_torch.utils.fetch import device_fetch
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 VOCAB = vocab.CUSTOM_VOCABULARY_NUSCENES
 # the fixture's camera jpgs are 160x90 (nominal 1600x900 -> ratio 0.1)
@@ -290,7 +291,8 @@ def test_merge_submissions(tmp_path):
     assert json.loads((tmp_path / "m.json").read_text()) == merged
 
 
-def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch, capsys):
+def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch, capsys,
+                                                              one_torch_thread):
     real = e2e.run_e2e
 
     def small_run_e2e(*a, **kw):  # the CLI's production caps, cut to the fixture's size
@@ -308,9 +310,12 @@ def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch
     sub = json.loads(out.read_text())
     assert set(sub) == {"meta", "results"}
     assert MaskArtifactStore(world["tmp"] / "cli_masks").completed_scenes() == {world["scene"]}
-    # --host_shard is ported (A14a): tests/test_torch_multihost.py drives it
-    for extra, item in ((["--quant_int8"], "A12"), (["--detector", "gdino"], "A13"),
-                        (["--camera_mesh", "2"], "A14")):
+    # --host_shard is ported (A14a): tests/test_torch_multihost.py drives
+    # it; --quant_int8 / --quant_static (A12) run the int8 models
+    out.unlink()
+    e2e.main(argv + ["--quant_int8", "--quant_static"])
+    assert set(json.loads(out.read_text())) == {"meta", "results"}
+    for extra, item in ((["--detector", "gdino"], "A13"), (["--camera_mesh", "2"], "A14")):
         with pytest.raises(NotImplementedError, match=item):
             e2e.main(argv + extra)
     # the checkpoint flags are ported (A6): without --fake_weights all four
@@ -320,7 +325,7 @@ def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch
             e2e.main([a for a in argv if a != "--fake_weights"] + extra)
 
 
-def test_bench_e2e_protocol_at_a_tiny_geometry(monkeypatch):
+def test_bench_e2e_protocol_at_a_tiny_geometry(monkeypatch, one_torch_thread):
     """bench_e2e on the CPU with the tiny models: a warm-up run of one
     batch, then n_frames timed keyframes, all through run_fused; with
     fused_window_attn the fused blocks' plain version runs."""

@@ -41,6 +41,7 @@ from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
 from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
 from cm3d_tpu_torch.pipelines import masks
 from cm3d_tpu_torch.utils.observability import MaskCounters
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 VOCAB = vocab.CUSTOM_VOCABULARY_NUSCENES
 
@@ -52,7 +53,7 @@ def _read_frame(root, scene, f):
         return data, pickle.load(fh)
 
 
-def test_run_mask_stage_matches_jax(tmp_path):
+def test_run_mask_stage_matches_jax(tmp_path, one_torch_thread):
     rng = np.random.default_rng(0)
     clf = rng.standard_normal((JAX_DETIC_TEST.embed_dim, len(VOCAB))).astype(np.float32)
     clf /= np.linalg.norm(clf, axis=0, keepdims=True)
@@ -91,7 +92,7 @@ def test_run_mask_stage_matches_jax(tmp_path):
     assert MaskArtifactStore(tmp_path / "port").load_manifest() == {"s": 2}
 
 
-def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
+def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys, one_torch_thread):
     from nusc_fixture import VERSION, make_fake_nuscenes
 
     root = tmp_path / "nusc"
@@ -120,13 +121,13 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys):
 
 
 # item None: ported since (the checkpoint flags and --sam_size in A6, Waymo
-# in A8, KITTI in A9, --host_shard in A14a); the flag is accepted and the run
-# goes on to read the dataroot
+# in A8, KITTI in A9, int8 in A12, ZoeDepth in A13b, --host_shard in A14a);
+# the flag is accepted and the run goes on to read the dataroot
 @pytest.mark.parametrize("extra,item", [
     (["--detic_ckpt", "x.pth"], None), (["--sam_ckpt", "x.pth"], None),
     (["--clip_ckpt", "c.pt"], None), (["--bpe_path", "b.txt.gz"], None),
-    (["--sam_size", "vit_l"], None), (["--quant_int8"], "A12"), (["--quant_static"], "A12"),
-    (["--use_zoedepth"], "A13"), (["--zoe_ckpt", "z.pt"], "A13"), (["--detector", "gdino"], "A13"),
+    (["--sam_size", "vit_l"], None), (["--quant_int8"], None), (["--quant_static"], None),
+    (["--use_zoedepth"], None), (["--zoe_ckpt", "z.pt"], None), (["--detector", "gdino"], "A13"),
     (["--gdino_ckpt", "g.pth"], "A13"), (["--gdino_vocab", "v.txt"], "A13"),
     (["--gdino_bf16"], "A13"), (["--camera_mesh", "2"], "A14"), (["--host_shard"], None),
     (["--dataset", "waymo"], None), (["--dataset", "kitti"], None),
@@ -213,7 +214,7 @@ def test_run_mask_stage_accumulates_counters(tmp_path):
     assert MaskArtifactStore(tmp_path).read_frame("sc", 2).labels == ["bus", "bus"]  # id 0
 
 
-def test_bench_mask_stage_protocol_at_a_tiny_geometry(monkeypatch):
+def test_bench_mask_stage_protocol_at_a_tiny_geometry(monkeypatch, one_torch_thread):
     import cm3d_tpu_torch.benchmarks as bench
 
     monkeypatch.setattr(bench, "IMG_H", 48)

@@ -153,8 +153,10 @@ def test_unported_sam_options_raise():
     # "interpret" names the JAX package's Pallas interpreter: not a mode here
     with pytest.raises(ValueError, match="interpret"):
         Sam(dataclasses.replace(SAM_TEST, fused_window_attn="interpret"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        Sam(dataclasses.replace(SAM_TEST, quant_int8=True))
+    # int8 is ported (A12); with the fused windowed blocks it is refused, as in JAX
+    Sam(dataclasses.replace(SAM_TEST, quant_int8=True))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dataclasses.replace(SAM_TEST, quant_int8=True, fused_window_attn=True)
 
 
 # window 3 on SAM_TEST's 4x4 token grid pads it to 6x6 (the padding path of
