@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times   # timings only, see kernel_times
     python3 chip_smoke.py --host-benches   # end-to-end timings only, see host_benches
+    python3 chip_smoke.py --quant-zoe-phase   # phase 20 alone
+    python3 chip_smoke.py --gdino-phase   # phase 21 alone
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -222,7 +224,21 @@ Phases 15-17 run after phase 9, before the training phases.
    full-width models and cameras (keyframes/s, the [M, 576, 1024] f32
    payload read back, finite, its bytes a frame), ZOE_TEST card vs CPU on
    depth maps and payloads, with the cell where they differ most.
-21. One JSON line per kernel summary, then the card's name and power limit,
+21. GroundingDINO (gdino_phase; `chip_smoke.py --gdino-phase` runs it
+   alone): a full-size GDINO_SWINT released-layout file
+   (synth_gdino_state_dict, seeded) and a fabricated 30,522-line vocab.txt
+   loaded through attach_gdino on the card (seconds); B3 held to its plain
+   version at the 8 (stage, shift) shapes of a chunk's Swin-T forward (3 x
+   800x1216, f32 capture, bf16 and f32 launches, phase 4's tolerances), with
+   times and bounds; 24 + 24 B3 launches a six-camera keyframe in f32, bf16
+   and int8; int8 against f32 (the Swin-T maps within rel 0.1, as many
+   detections); ms a chunk forward (events) and a keyframe (host
+   clock, letterbox included), f32 and bf16 in turns; the host letterbox's
+   ms and upload; MSDeformAttn's and BiAttention's device ms a chunk and
+   the profiler's top kernels; one image card vs CPU in f32 with TF32 off
+   (gdino_cpu_check); bench_mask_stage with GroundingDINO and with Detic in
+   turns (SAM ViT-H bf16, io 0, 24 + 24 launches a keyframe checked).
+22. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -4247,6 +4263,293 @@ def quant_zoe_phase(torch, card: str) -> dict:
     return out
 
 
+GDINO_FLAG = "--gdino-phase"  # phase 21 alone (after the kernel build)
+GDINO_SWIN_BLOCKS = 12  # Swin-T depths (2, 2, 6, 2): one chunk's forward
+GDINO_CHUNK = 3  # make_gdino_detector's max_batch
+GDINO_BENCH_FRAMES = 2  # run_mask_stage keyframes a bench run
+# GDINO_SWINT card vs CPU, f32 with TF32 off, one 800 x 1216 image: logits
+# within GDINO_CPU_RTOL of their largest |value| and boxes within
+# GDINO_CPU_BOX_ATOL (normalized) on the query slots that selected the same
+# memory token on both (near-tied selection scores may order two tokens
+# either way, and a slot's decoder embedding is its own); at most
+# GDINO_CPU_SWAPS slots elsewhere
+GDINO_CPU_RTOL = 2e-3  # seen: 7.4e-4 (logits reach about 30 on synthetic weights)
+GDINO_CPU_BOX_ATOL = 1e-3
+GDINO_CPU_SWAPS = 45  # 5% of 900
+GDINO_CPU_LAYERS = 6  # encoder / decoder depth of the card-vs-CPU check
+
+
+def fabricate_bert_vocab(path, words) -> None:
+    """A 30,522-line bert-base-uncased-shaped vocab.txt: [PAD] at 0,
+    [unused*] fillers, [UNK] / [CLS] / [SEP] at 100-102, '.', the `words`,
+    then filler tokens."""
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "."]
+    lines += sorted(set(words) - set(lines))
+    lines += [f"tok{i}" for i in range(30522 - len(lines))]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def module_device_ms(torch, model, kinds, fn) -> dict:
+    """Device ms of every call of each module class in `kinds` during one
+    fn() (CUDA events around each call, summed by class), beside fn's own."""
+    spans, handles = [], []
+    for mod in model.modules():
+        if isinstance(mod, kinds):
+            def pre(m, args):
+                m._ev0 = torch.cuda.Event(enable_timing=True)
+                m._ev0.record()
+
+            def post(m, args, out):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                spans.append((type(m).__name__, m._ev0, ev))
+
+            handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    out = {"total": start.elapsed_time(end)}
+    for name, a, b in spans:
+        out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def gdino_cpu_check(torch, sd, image, tok, vocab) -> dict:
+    """GDINO_SWINT (GDINO_CPU_LAYERS encoder / decoder layers) on one
+    letterboxed image, f32 with TF32 off, on the card and on the CPU."""
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_SWINT, GroundingDino, preprocess_gdino, text_inputs, vocabulary_caption)
+    from cm3d_tpu_torch.models.convert import load_released_state_dict
+    from cm3d_tpu_torch.utils.device import strict_f32_scope
+
+    cfg = dataclasses.replace(GDINO_SWINT, enc_layers=GDINO_CPU_LAYERS,
+                              dec_layers=GDINO_CPU_LAYERS)
+    enc, _ = vocabulary_caption(tok, vocab, cfg.max_text_len)
+    x = preprocess_gdino(image, cfg.img_hw)[None]
+    outs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        with torch.device(dev):
+            model = GroundingDino(cfg)
+        load_released_state_dict(model, sd, "GroundingDINO", verbose=False)
+        t0 = time.perf_counter()
+        with torch.inference_mode(), strict_f32_scope():
+            logits, boxes = model.eval()(torch.as_tensor(x, device=dev),
+                                         *text_inputs(enc, 1, dev))
+            outs[dev] = (logits[0].cpu(), boxes[0].cpu())
+        secs[dev] = time.perf_counter() - t0
+        del model
+    (lc, bc), (lp, bp) = outs["cuda"], outs["cpu"]
+    # each card slot matched to the CPU slot with the nearest box
+    match = (bc[:, None] - bp[None]).abs().amax(-1).argmin(1)
+    same = match == torch.arange(len(match))
+    fin = torch.isfinite(lp[same])
+    check(torch.equal(torch.isfinite(lc[same]), fin), "GroundingDINO card vs CPU: -inf pattern")
+    scale = float(lp[same][fin].abs().max())
+    logit_err = float((lc[same][fin] - lp[same][fin]).abs().max())
+    box_err = float((bc[same] - bp[same]).abs().max())
+    swaps = int((~same).sum())
+    check(logit_err <= GDINO_CPU_RTOL * scale and box_err <= GDINO_CPU_BOX_ATOL
+          and swaps <= GDINO_CPU_SWAPS,
+          f"GroundingDINO card vs CPU: logits {logit_err:.3g} (<= {GDINO_CPU_RTOL} x "
+          f"{scale:.3g}), boxes {box_err:.3g} (<= {GDINO_CPU_BOX_ATOL}), {swaps} slots "
+          f"swapped (<= {GDINO_CPU_SWAPS})")
+    return {"layers": GDINO_CPU_LAYERS, "logit_max_abs_err": logit_err, "logit_scale": scale,
+            "box_max_abs_err": box_err, "swapped_slots": swaps, "seconds": secs}
+
+
+def gdino_phase(torch, card: str) -> dict:
+    """Phase 21: GroundingDINO (A13c) on the card. A full-size GDINO_SWINT
+    released-layout file (synth_gdino_state_dict, seeded) and a 30,522-line
+    vocab.txt are written and loaded through attach_gdino beside the
+    full-width bf16 Detic / SAM; B3 against its plain version at the 8
+    (stage, shift) shapes of a chunk's Swin-T forward (f32 capture; bf16 and
+    f32 launches); 24 + 24 B3 launches a six-camera keyframe; one image card
+    vs CPU (f32, TF32 off); ms a chunk forward and a keyframe, f32 and bf16;
+    the profiler's top kernels and MSDeformAttn's / BiAttention's device
+    share; run_mask_stage keyframes/s with GroundingDINO and with Detic in
+    turns; one int8 forward."""
+    import tempfile
+
+    from cm3d_tpu_torch.benchmarks import (
+        IMG_H, IMG_W, _realistic_load, bench_mask_stage, production_fake_modules)
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_SWINT, BiAttention, MSDeformAttn, WordPieceTokenizer,
+        gdino_state_dict_from_released, preprocess_gdino, synth_gdino_state_dict,
+        text_inputs, vocabulary_caption)
+    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns, attach_gdino
+    from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES as VOCAB
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
+    detic, clf, sam = production_fake_modules("bfloat16", device="cuda")
+    prod = _batched_model_fns(detic, clf, sam, VOCAB, device="cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sd = synth_gdino_state_dict(GDINO_SWINT, np.random.default_rng(0))
+        torch.save({"model": {f"module.{k}": torch.from_numpy(v) for k, v in sd.items()}},
+                   f"{tmp}/groundingdino_swint_ogc.pth")
+        words = {w for c in VOCAB for w in WordPieceTokenizer._basic(c)}
+        fabricate_bert_vocab(f"{tmp}/vocab.txt", words)
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g32 = attach_gdino(prod, f"{tmp}/groundingdino_swint_ogc.pth", f"{tmp}/vocab.txt",
+                           device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tok = WordPieceTokenizer.from_file(f"{tmp}/vocab.txt")
+        sd_t = gdino_state_dict_from_released({k: torch.from_numpy(v) for k, v in sd.items()},
+                                              GDINO_SWINT)
+        del sd
+        g16, gq = (attach_gdino(prod, vocab_path=f"{tmp}/vocab.txt", device="cuda",
+                                state_dict=sd_t, **kw)
+                   for kw in ({"dtype": "bfloat16"}, {"quant_int8": True}))
+    out.update(file_write_s=write_s, load_s=load_s)
+    print(f"[{card}] GroundingDINO Swin-T released-layout file (synthetic, seeded) and a "
+          f"30522-line vocab.txt: written in {write_s:.1f} s, loaded through attach_gdino in "
+          f"{load_s:.1f} s", flush=True)
+
+    # the models behind the detectors, and one chunk's inputs
+    model32 = g32.detic.model
+    model16 = g16.detic.model
+    enc, _ = vocabulary_caption(tok, VOCAB, GDINO_SWINT.max_text_len)
+    text = text_inputs(enc, GDINO_CHUNK, torch.device("cuda"))
+    t0 = time.perf_counter()
+    host = np.stack([preprocess_gdino(im, GDINO_SWINT.img_hw) for im in ring])
+    prep_s = time.perf_counter() - t0
+    chunk = torch.as_tensor(host[:GDINO_CHUNK], device="cuda")
+
+    # --- B3 at GroundingDINO's Swin-T shapes (a chunk of 3 at 800 x 1216) ---
+    with torch.inference_mode():
+        captured = capture_window_attn_inputs(
+            torch, lambda: model32(chunk, *text), n_blocks=GDINO_SWIN_BLOCKS, n_shapes=8)
+        wa = window_attn_phase(torch, captured, model_dtype=torch.float32, time_f32=True)
+    del captured
+    out["window_attn_shapes"] = wa
+
+    # --- launches a six-camera keyframe, f32 and bf16 ---
+    frame = prod.prepare(ring)
+    launches = {}
+    for name, g in (("f32", g32), ("bf16", g16), ("int8", gq)):
+        window_attn_heads.launches = 0
+        window_attn_proj.launches = 0
+        det = g.detic(frame)
+        torch.cuda.synchronize()
+        launches[name] = {"window_attn_heads": window_attn_heads.launches,
+                          "window_attn_proj": window_attn_proj.launches}
+        for k, n in launches[name].items():
+            check(n == 2 * GDINO_SWIN_BLOCKS, f"GroundingDINO {name} keyframe: "
+                  f"{2 * GDINO_SWIN_BLOCKS} {k} launches, got {n}")
+        check(tuple(det[0].shape) == (N_CAMERAS, 128, 4) and bool(torch.isfinite(det[0]).all())
+              and det[0].device.type == "cuda", f"GroundingDINO {name} boxes [6, 128, 4]")
+        out[f"detections_{name}"] = [t.float().cpu() for t in det]
+    out["launches_per_keyframe"] = launches
+
+    # --- int8 against f32: the quantized part, the Swin-T maps, in
+    # tests/test_quant.py:228-229's envelope (rel < 0.1 a map); the
+    # detections only by count: on the synthetic weights the logits reach
+    # about 30, so most scores are 1.0 in f32 and the top 128 are ties ---
+    vf, vq = out.pop("detections_f32")[3], out.pop("detections_int8")[3]
+    out.pop("detections_bf16")
+    with torch.inference_mode():
+        maps = [m.backbone[0](chunk) for m in (model32, gq.detic.model)]
+    rel = {k: float((maps[1][k] - maps[0][k]).norm() / maps[0][k].norm()) for k in maps[0]}
+    check(all(r < QUANT_DYN_REL for r in rel.values()) and int(vf.sum()) == int(vq.sum()),
+          f"GroundingDINO int8 Swin-T maps within rel {QUANT_DYN_REL} of f32 ({rel}) and as "
+          f"many detections ({int(vq.sum())} against {int(vf.sum())})")
+    out["int8"] = {"valid_f32": int(vf.sum()), "valid_int8": int(vq.sum()), "swin_rel": rel}
+    print(f"[{card}] GroundingDINO keyframe launches {json.dumps(launches)}; int8 Swin MLPs: "
+          f"{json.dumps(out['int8'])}", flush=True)
+
+    # --- times: a chunk forward (events), a keyframe (host clock), f32 / bf16 ---
+    times = {}
+    for name, model, g in (("f32", model32, g32), ("bf16", model16, g16), ("f32", model32, g32),
+                           ("bf16", model16, g16)):
+        with torch.inference_mode():
+            chunk_ms = time_ms(torch, lambda: model(chunk, *text), reps=3)
+        g.detic(frame)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            g.detic(frame)
+        torch.cuda.synchronize()
+        kf_ms = (time.perf_counter() - t0) * 1e3 / 2
+        times.setdefault(name, {"chunk_forward_ms": [], "keyframe_ms": []})
+        times[name]["chunk_forward_ms"].append(chunk_ms)
+        times[name]["keyframe_ms"].append(kf_ms)
+    out["times"] = times
+    out["host_letterbox_ms_per_keyframe"] = prep_s * 1e3
+    out["host_upload_mb_per_keyframe"] = host.nbytes / 1e6
+
+    # --- where a chunk's forward goes: modules by events, kernels by profiler ---
+    with torch.inference_mode():
+        shares = {name: module_device_ms(torch, model, (MSDeformAttn, BiAttention),
+                                         lambda: model(chunk, *text))
+                  for name, model in (("f32", model32), ("bf16", model16))}
+        prof = profiled_kernels(torch, lambda: model32(chunk, *text), reps=1)
+    top = sorted(prof.items(), key=lambda kv: -kv[1][0])[:10]
+    out["module_ms"] = shares
+    out["top_kernels_f32"] = [[key[:90], ms, n] for key, (ms, n) in top]
+    out["kernels_ms_f32"] = sum(ms for ms, _ in prof.values()) if prof else None
+
+    # --- one image card vs CPU ---
+    out["cpu_check"] = gdino_cpu_check(torch, sd_t, ring[0], tok, VOCAB)
+    del sd_t
+
+    # --- the mask stage with GroundingDINO and with Detic, in turns ---
+    bench = {"detic": [], "gdino": []}
+    bench_launches = []
+    for name in ("detic", "gdino", "gdino", "detic"):
+        raw, calls = (prod if name == "detic" else g32), [0]
+
+        def counted(frame, raw=raw, calls=calls):
+            calls[0] += 1
+            return raw.detic(frame)
+
+        models = _realistic_load(dataclasses.replace(raw, detic=counted))
+        window_attn_heads.launches = 0
+        window_attn_proj.launches = 0
+        b = bench_mask_stage("bfloat16", n_frames=GDINO_BENCH_FRAMES, models=models,
+                             io_sleep=0.0, device="cuda")
+        b["detector"] = name
+        print(json.dumps(b), flush=True)
+        bench[name].append(b["value"])
+        got = (window_attn_heads.launches, window_attn_proj.launches)
+        # 24 + 24 a keyframe for both: Detic's Swin-B runs the ring at once,
+        # GroundingDINO's Swin-T in two chunks of 3
+        check(got == (SWIN_BLOCKS_PER_FORWARD * calls[0],) * 2,
+              f"{name} mask stage: {SWIN_BLOCKS_PER_FORWARD} launches of each window-attention "
+              f"kernel a keyframe over {calls[0]} keyframes, got {got}")
+        if name == "gdino":
+            bench_launches.append({"window_attn_heads": got[0], "window_attn_proj": got[1],
+                                   "keyframes": calls[0]})
+    out["mask_stage_kf_per_s"] = bench
+    out["mask_stage_launches"] = bench_launches
+    del g32, g16, gq, model32, model16, prod, detic, sam
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    f32_chunk = min(times["f32"]["chunk_forward_ms"])
+    print(f"[{card}] GroundingDINO GDINO_SWINT: a chunk of {GDINO_CHUNK} at 800x1216 "
+          f"{json.dumps(times)}; host letterbox {prep_s * 1e3:.1f} ms a keyframe, upload "
+          f"{host.nbytes / 1e6:.1f} MB; module ms a chunk {json.dumps(shares)} (f32 chunk "
+          f"{f32_chunk:.1f} ms); card vs CPU {json.dumps(out['cpu_check'])}; mask stage "
+          f"keyframes/s (6 x {IMG_W}x{IMG_H}, SAM ViT-H bf16, io 0) {json.dumps(bench)}; "
+          f"phase {out['phase_s']:.1f} s", flush=True)
+    for key, ms, n in out["top_kernels_f32"]:
+        print(f"  GDINO f32 chunk: {ms:8.3f} ms x{n:<4d} {key}", flush=True)
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4270,13 +4573,14 @@ def main(argv) -> int:
     if argv == [DATA_PARALLEL_FLAG]:
         print(json.dumps(data_parallel_phase(torch)), flush=True)
         return 0
-    if argv == [QUANT_ZOE_FLAG]:
+    if argv in ([QUANT_ZOE_FLAG], [GDINO_FLAG]):
         from cm3d_tpu_torch.kernels import build
 
         card = card_line()
         print(card, flush=True)
         build.build_all()
-        print(json.dumps(quant_zoe_phase(torch, card)), flush=True)
+        phase = quant_zoe_phase if argv == [QUANT_ZOE_FLAG] else gdino_phase
+        print(json.dumps(phase(torch, card)), flush=True)
         return 0
     from cm3d_tpu_torch.benchmarks import (
         IMG_H,
@@ -4451,6 +4755,9 @@ def main(argv) -> int:
     quant_zoe = quant_zoe_phase(torch, card)
     quant_e2e_launches = quant_zoe["stages"]["e2e_launches"]["int8"]
 
+    # --- 21. GroundingDINO ---
+    gdino = gdino_phase(torch, card)
+
     def artifact_launches(kernel, table):
         """A kernel's launches a call of each artifact that runs it."""
         return {name: n[kernel] for name, n in table.items() if kernel in n}
@@ -4493,7 +4800,26 @@ def main(argv) -> int:
             "int8_detic_launches": quant_zoe["detic"]["launches"][f"window_attn_{name}"],
             "int8_e2e_launches": quant_e2e_launches[f"window_attn_{name}"],
             **_per_forward_extras(wa, name, "blocks_per_forward"),
+            **gdino_extras(name),
         }
+
+    def gdino_extras(name):
+        """GroundingDINO's Swin-T (phase 21): launches a six-camera keyframe
+        (two chunks of 3) in f32 / bf16 / int8 and over the mask-stage
+        bench, and one chunk forward's 12 launches at 3 x 800x1216 (f32 and
+        bf16 launches on the f32 capture): ms, plain ms, bound."""
+        recs = gdino["window_attn_shapes"]
+        extra = {f"gdino_{mode}_launches": gdino["launches_per_keyframe"][mode][
+            f"window_attn_{name}"] for mode in ("f32", "bf16", "int8")}
+        extra["gdino_mask_stage_launches"] = [b[f"window_attn_{name}"]
+                                              for b in gdino["mask_stage_launches"]]
+        extra["gdino_max_rel_err"] = max(r["max_rel_err"] for r in recs)
+        extra["gdino_f32_max_abs_err"] = max(r["f32_max_abs_err"] for r in recs)
+        for part, label in ((name, "bf16"), (f"{name}_f32", "f32")):
+            for k in ("ms", "plain_ms", "bound_ms"):
+                extra[f"gdino_chunk_{label}_{k}"] = sum(r[part][k] * r["blocks_per_forward"]
+                                                        for r in recs)
+        return extra
 
     def _per_forward_extras(recs, name, mult_key):
         """The heads launcher's split by kernel and the yardstick calls,
@@ -4668,7 +4994,7 @@ def main(argv) -> int:
                       "train_cpu_check": train_check, "deterministic": deterministic,
                       "released_weights": released, "waymo": waymo, "kitti": kitti,
                       "data_parallel": data_parallel, "deploy_serve": deploy_serve,
-                      "quant_zoe": quant_zoe}),
+                      "quant_zoe": quant_zoe, "gdino": gdino}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,9 +37,11 @@ Phases (each recorded in ``{out}/conform_report.json``):
 
 Exit code: 1 if any verify phase found tree problems or a phase raised;
 0 otherwise. ``--skip_pipeline`` / ``--skip_eval`` run the earlier
-phases only (e.g. checkpoints present but no dataroot yet). Not ported:
-a GroundingDINO checkpoint (``--gdino``) fails its verify phase, naming
-ROADMAP A13. ``--device`` (CUDA unless it says otherwise) is where verify and e2e run.
+phases only (e.g. checkpoints present but no dataroot yet). A
+GroundingDINO checkpoint (``--gdino``, with ``--gdino_vocab``) is verified,
+converted and saved as ``gdino_swint`` (and ``gdino_swint_int8``), and the
+e2e phase runs with ``--detector gdino``. ``--device`` (CUDA unless it says
+otherwise) is where verify and e2e run.
 
 Tested in tests/test_torch_conform.py with fixture-scale checkpoints and
 stubbed pipeline phases.
@@ -64,6 +66,8 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
         load_torch_state_dict,
     )
     from cm3d_tpu_torch.models.detic import DETIC_SWINB, quantize_detic_state_dict
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_SWINT, gdino_state_dict_from_released, quantize_gdino_state_dict)
     from cm3d_tpu_torch.models.sam import quantize_sam_state_dict, sam_config_for
     from cm3d_tpu_torch.models.verify_convert import (
         verify_clip,
@@ -110,9 +114,14 @@ def model_specs(sam_size: str = "vit_h", cfg_overrides: dict | None = None, devi
             quantize=None,
             save="zoedepth_n",
         ),
-        # not ported (ROADMAP A13): the first phase raises, naming the item
-        "gdino": dict(load=verify_gdino, verify=verify_gdino, convert=None, quantize=None,
-                      save="gdino_swint"),
+        "gdino": dict(
+            load=load_torch_state_dict,
+            verify=verify(verify_gdino, "gdino"),
+            convert=functools.partial(gdino_state_dict_from_released,
+                                      cfg=ov.get("gdino", GDINO_SWINT)),
+            quantize=quantize_gdino_state_dict,
+            save="gdino_swint",
+        ),
     }
 
 

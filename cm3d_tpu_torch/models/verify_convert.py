@@ -4,7 +4,9 @@
 One command that, pointed at REAL torch checkpoints (the contracts the
 reference loads: SAM `sam_vit_h_4b8939.pth`, the Detic
 LCOCOI21k_CLIP_SwinB model and CLIP's text tower,
-gen_2d_masks_detic.py:30-41,112, and ZoeD_N for its depth branch :117),
+gen_2d_masks_detic.py:30-41,112, ZoeD_N for its depth branch :117, and
+GroundingDINO's groundingdino_swint_ogc.pth for its alternative detector,
+kitti/gen_2d_masks_detic.py:115-117),
 reports BEFORE any pipeline run exactly
 where a load would go wrong:
 
@@ -21,7 +23,8 @@ where a load would go wrong:
 Usage:
   python -m cm3d_tpu_torch.models.verify_convert --sam sam_vit_h_4b8939.pth \\
       [--sam_size vit_h] [--detic Detic_...pth] [--clip clip_text.pth] \\
-      [--zoe ZoeD_M12_N.pt] [--probe] [--out rpt.json] [--device cpu]
+      [--zoe ZoeD_M12_N.pt] [--gdino groundingdino_swint_ogc.pth] [--probe] \\
+      [--out rpt.json] [--device cpu]
 
 Exit code 1 if any tree-conformance problem exists (ignored checkpoint keys
 are reported but not fatal: torch checkpoints carry optimizer/EMA extras).
@@ -35,9 +38,6 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 from torch import nn
-
-GDINO_ITEM = "ROADMAP A13 (GroundingDINO is not ported yet)"
-
 
 def key_coverage(sd: Dict[str, torch.Tensor], module: nn.Module) -> dict:
     """{consumed: number of `sd` keys the module reads, ignored: the rest}."""
@@ -186,8 +186,33 @@ def verify_zoe(sd: Dict[str, torch.Tensor], probe: bool = False, cfg=None,
     return report
 
 
-def verify_gdino(*args, **kwargs) -> dict:
-    raise NotImplementedError(f"verify_gdino: {GDINO_ITEM}")
+def verify_gdino(sd: Dict[str, torch.Tensor], probe: bool = False, cfg=None,
+                 device=None) -> dict:
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_SWINT, GroundingDino, gdino_state_dict_from_released)
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32_scope
+
+    cfg = cfg or GDINO_SWINT
+    device = resolve_device(device)
+    with torch.device(device):
+        model = GroundingDino(cfg).eval()
+    # coverage against the released keys, `module.` stripped
+    bare = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    converted = gdino_state_dict_from_released(bare, cfg)
+    report = _report(model, bare, converted)
+    if probe and not has_problems(report):
+        _load(model, converted)
+        rng = np.random.default_rng(0)
+        h, w = cfg.img_hw
+        n = cfg.max_text_len
+        x = torch.as_tensor(rng.standard_normal((1, h, w, 3)).astype(np.float32), device=device)
+        ids = torch.as_tensor(rng.integers(1, cfg.bert.vocab_size, (1, n)), device=device)
+        pos = torch.arange(n, device=device)[None]
+        mask = torch.ones((1, n, n), dtype=torch.bool, device=device)
+        with strict_f32_scope():
+            report["activations"] = activation_stats(
+                model, lambda: model(x, ids, pos, mask, mask[:, 0]))
+    return report
 
 
 def has_problems(report: dict) -> bool:
@@ -209,15 +234,13 @@ def main(argv=None) -> int:
     p.add_argument("--detic", default="")
     p.add_argument("--clip", default="")
     p.add_argument("--zoe", default="", help="ZoeD_N checkpoint")
-    p.add_argument("--gdino", default="", help="not ported yet (ROADMAP A13)")
+    p.add_argument("--gdino", default="", help="GroundingDINO groundingdino_swint_ogc.pth")
     p.add_argument("--probe", action="store_true",
                    help="also dump per-module activation stats")
     p.add_argument("--out", default="", help="write the full report JSON here")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
     args = p.parse_args(argv)
 
-    if args.gdino:
-        verify_gdino()
     full = {}
     rc = 0
     for name, path, fn in [
@@ -225,6 +248,7 @@ def main(argv=None) -> int:
         ("detic", args.detic, verify_detic),
         ("clip", args.clip, verify_clip),
         ("zoe", args.zoe, verify_zoe),
+        ("gdino", args.gdino, verify_gdino),
     ]:
         if not path:
             continue

@@ -1,7 +1,9 @@
 """Flags the masks and e2e CLIs share: the model flags (`--fake_weights`
 or the four released checkpoints; `pipelines/masks.py build_models` reads
-them), the int8 flags, `--run_nms`'s dataset default, `--host_shard`, and
-the JAX CLIs' flags whose feature the port has not ported yet.
+them), the int8 flags, the GroundingDINO flags (`--detector gdino`;
+`pipelines/masks.py attach_models` reads them), `--run_nms`'s dataset
+default, `--host_shard`, and the JAX CLIs' flags whose feature the port has
+not ported yet.
 
 The CLIs accept the unported flags, so that a JAX command line fails with a
 NotImplementedError naming its ROADMAP item instead of argparse's usage
@@ -12,17 +14,14 @@ from __future__ import annotations
 
 # flag -> the ROADMAP item that ports its feature
 UNPORTED_FLAGS = {
-    "gdino_ckpt": "A13 (GroundingDINO)",
-    "gdino_vocab": "A13 (GroundingDINO)",
-    "gdino_bf16": "A13 (GroundingDINO)",
     "camera_mesh": "A14e (model parallel)",
 }
-_SWITCHES = ("gdino_bf16",)
 
 
 def add_model_flags(p) -> None:
     """`--fake_weights`, or the released checkpoints and the CLIP BPE file
-    with `--sam_size`, as the JAX CLIs spell them."""
+    with `--sam_size`; `--detector` and the GroundingDINO files; as the JAX
+    CLIs spell them."""
     p.add_argument("--fake_weights", action="store_true",
                    help="tiny random-weight models (hermetic smoke run)")
     p.add_argument("--detic_ckpt", default="",
@@ -32,6 +31,14 @@ def add_model_flags(p) -> None:
     p.add_argument("--bpe_path", default="", help="CLIP's bpe_simple_vocab_16e6.txt.gz")
     p.add_argument("--sam_size", default="vit_h", choices=["vit_h", "vit_l", "vit_b"],
                    help="SAM encoder scale matching --sam_ckpt (vit_h is the reference's)")
+    p.add_argument("--detector", default="detic", choices=("detic", "gdino"),
+                   help="gdino: GroundingDINO Swin-T replaces Detic (the reference's "
+                   "commented-out alternative)")
+    p.add_argument("--gdino_ckpt", default="",
+                   help="groundingdino_swint_ogc.pth, or a directory saved by save_params")
+    p.add_argument("--gdino_vocab", default="", help="bert-base-uncased vocab.txt")
+    p.add_argument("--gdino_bf16", action="store_true",
+                   help="GroundingDINO in bf16 (default f32)")
 
 
 def add_quant_flags(p) -> None:
@@ -47,20 +54,13 @@ def add_quant_flags(p) -> None:
 
 
 def add_unported_flags(p) -> None:
-    """Accept the UNPORTED_FLAGS, `--detector`, `--host_shard` and every
-    `--dataset` of the JAX CLIs, as the JAX CLIs spell them."""
+    """Accept the UNPORTED_FLAGS, `--host_shard` and every `--dataset` of
+    the JAX CLIs, as the JAX CLIs spell them."""
     p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
     p.add_argument("--host_shard", action="store_true",
                    help="multi-host: keep only this process's scene stride (RANK / "
                    "WORLD_SIZE, or torch.distributed's group; parallel/multihost.py)")
-    p.add_argument("--detector", default="detic", choices=("detic", "gdino"))
-    for flag in UNPORTED_FLAGS:
-        if flag in _SWITCHES:
-            p.add_argument(f"--{flag}", action="store_true")
-        elif flag == "camera_mesh":
-            p.add_argument(f"--{flag}", type=int, default=0)
-        else:
-            p.add_argument(f"--{flag}", default="")
+    p.add_argument("--camera_mesh", type=int, default=0)
 
 
 def refuse_unported(args) -> None:
@@ -69,8 +69,6 @@ def refuse_unported(args) -> None:
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
-    if args.detector != "detic":
-        raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
 
 
 def run_nms(args) -> bool:

@@ -21,6 +21,7 @@ Usage:
       --clip_ckpt C --bpe_path B
   python -m cm3d_tpu_torch.pipelines.e2e --dataset kitti --dataroot KITTI \\
       --scenes 0,1,2 --out preds_dir --fake_weights
+  ... --detector gdino [--gdino_ckpt G --gdino_vocab V] [--gdino_bf16]
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines.cli_flags import (
     add_model_flags, add_quant_flags, add_unported_flags, refuse_unported, run_nms)
 from cm3d_tpu_torch.pipelines.masks import (
-    MaskModels, build_models, start_frame_masks, write_frame_artifacts)
+    MaskModels, attach_models, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
 from cm3d_tpu_torch.utils.fetch import TreeFetch
 from cm3d_tpu_torch.utils.observability import MaskCounters
@@ -578,8 +579,9 @@ def main(argv=None):
     # the reference's Waymo vocabulary drops cone/barrier
     # (waymo/gen_2d_masks_detic.py:66-87), as in the masks CLI
     waymo = args.dataset == "waymo"
-    models = build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
-                          else CUSTOM_VOCABULARY_NUSCENES, args.device)
+    models = attach_models(build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
+                                        else CUSTOM_VOCABULARY_NUSCENES, args.device),
+                           args, args.device)
     common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms(args)), thumbnail=args.thumbnail,
                   mask_dir=args.mask_dir or None, device=args.device)
     scenes = args.scenes.split(",")

@@ -19,12 +19,15 @@ queued after it.
 With `--quant_int8` the SAM encoder and Detic's Swin MLPs run int8 w8a8
 (`ops/quant.py`; `--quant_static` calibrates SAM's activation scales on the
 first camera ring); with `--use_zoedepth` each mask's payload is the masked
-ZoeDepth metric depth instead of its RLE (`models/zoedepth.py`).
+ZoeDepth metric depth instead of its RLE (`models/zoedepth.py`); with
+`--detector gdino` GroundingDINO's grounded boxes replace Detic's
+(`models/gdino.py`, `attach_gdino`).
 
     python -m cm3d_tpu_torch.pipelines.masks --dataroot ROOT --out_dir OUT \\
         [--dataset waymo|kitti] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
         --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--quant_int8 \\
-        [--quant_static]] [--use_zoedepth [--zoe_ckpt Z]] [--device cpu]
+        [--quant_static]] [--use_zoedepth [--zoe_ckpt Z]] [--detector gdino \\
+        [--gdino_ckpt G --gdino_vocab V] [--gdino_bf16]] [--device cpu]
 """
 
 from __future__ import annotations
@@ -575,7 +578,9 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
     reported. The vocabulary is embedded once, in f32 with TF32 off.
     sam_size picks the SAM encoder scale (vit_h = the reference's
     sam_vit_h_4b8939.pth; vit_l / vit_b are the released smaller
-    checkpoints, a documented speed/quality deviation)."""
+    checkpoints, a documented speed/quality deviation). detic_used=False
+    (`--detector gdino`, `attach_gdino` swaps the detector next) loads the
+    Detic file in whichever form it is, float or int8."""
     from cm3d_tpu_torch.models.checkpoints import load_released_checkpoint
     from cm3d_tpu_torch.models.clip_text import (
         CLIP_TEXT_B32, ClipTextEncoder, SimpleTokenizer, embed_vocabulary)
@@ -584,17 +589,30 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
         load_released_state_dict, load_torch_state_dict)
     from cm3d_tpu_torch.models.detic import DETIC_SWINB, Detic, quantize_detic_state_dict
     from cm3d_tpu_torch.models.sam import Sam, quantize_sam_state_dict, sam_config_for
-    from cm3d_tpu_torch.ops.quant import reconcile_quantization, with_act_scale_placeholders
+    from cm3d_tpu_torch.ops.quant import (
+        is_quantized_state_dict, reconcile_quantization, with_act_scale_placeholders)
     from cm3d_tpu_torch.utils.device import resolve_device, strict_f32_scope
 
     if quant_static and not quant_int8:
         raise ValueError("quant_static requires quant_int8")
-    if not detic_used:
-        raise NotImplementedError("--detector gdino is not ported yet (ROADMAP A13)")
     device = resolve_device(device)
     detic_cfg = dataclasses.replace(
-        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype,
-                                                           quant_int8=quant_int8))
+        DETIC_SWINB, dtype=dtype, swin=dataclasses.replace(DETIC_SWINB.swin, dtype=dtype))
+    detic_quant = [quant_int8]
+
+    def detic_sd(sd):
+        if not detic_used:
+            # --detector gdino: attach_gdino replaces this Detic before any
+            # frame runs, so it is not quantized, and a checkpoint of either
+            # form loads (an int8-only deployment directory stays usable),
+            # as in JAX
+            detic_quant[0] = is_quantized_state_dict(sd)
+        return reconcile_quantization(sd, quantize_detic_state_dict, detic_quant[0], "Detic")
+
+    def make_detic():
+        return Detic(dataclasses.replace(detic_cfg, swin=dataclasses.replace(
+            detic_cfg.swin, quant_int8=detic_quant[0])))
+
     sam_cfg = dataclasses.replace(sam_config_for(sam_size), dtype=dtype,
                                   rect_encode=rect_encode, quant_int8=quant_int8,
                                   quant_static=quant_static)
@@ -602,13 +620,12 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
     # passes through, a float one is quantized at load, and a quantized one
     # without --quant_int8 raises
     quant = {
-        "Detic": lambda sd: reconcile_quantization(sd, quantize_detic_state_dict, quant_int8,
-                                                   "Detic"),
+        "Detic": detic_sd,
         "SAM": lambda sd: reconcile_quantization(sd, quantize_sam_state_dict, quant_int8, "SAM"),
         "CLIP": lambda sd: sd,
     }
     loads = (
-        ("Detic", detic_ckpt, lambda: Detic(detic_cfg),
+        ("Detic", detic_ckpt, make_detic,
          lambda p: detic_state_dict_from_released(load_torch_state_dict(p), detic_cfg)),
         ("SAM", sam_ckpt, lambda: Sam(sam_cfg), load_torch_state_dict),
         ("CLIP", clip_ckpt, lambda: ClipTextEncoder(CLIP_TEXT_B32),
@@ -650,7 +667,21 @@ def build_models(p, args, vocabulary, device) -> MaskModels:
                              vocabulary=vocabulary, rect_encode=args.rect_encode,
                              encode_chunk=args.encode_chunk, sam_size=args.sam_size,
                              quant_int8=args.quant_int8, quant_static=args.quant_static,
-                             device=device)
+                             detic_used=args.detector == "detic", device=device)
+
+
+def attach_models(models: MaskModels, args, device) -> MaskModels:
+    """The alternates the CLI flags ask for, on `models`: ZoeDepth
+    (`--use_zoedepth`, masks CLI only) and GroundingDINO (`--detector
+    gdino`), each random and tiny with `--fake_weights`."""
+    if getattr(args, "use_zoedepth", False):
+        models = attach_zoedepth(models, args.zoe_ckpt, test=args.fake_weights, device=device)
+    if args.detector == "gdino":
+        models = attach_gdino(models, args.gdino_ckpt, args.gdino_vocab,
+                              test=args.fake_weights, quant_int8=args.quant_int8,
+                              dtype="bfloat16" if args.gdino_bf16 else "float32",
+                              device=device)
+    return models
 
 
 def attach_zoedepth(models: MaskModels, ckpt_path: str = "", test: bool = False,
@@ -687,6 +718,77 @@ def attach_zoedepth(models: MaskModels, ckpt_path: str = "", test: bool = False,
         strict_f32()
     return dataclasses.replace(
         models, predict_depth=make_predict_depth(model.eval().requires_grad_(False), flip_aug))
+
+
+def attach_gdino(models: MaskModels, ckpt_path: str = "", vocab_path: str = "",
+                 test: bool = False, box_threshold: float = 0.15, seed: int = 0,
+                 quant_int8: bool = False, fake_scale: str = "test", dtype: str = "float32",
+                 device=None, state_dict=None) -> MaskModels:
+    """Swap the detector for GroundingDINO (the reference's commented-out
+    alternative, kitti/gen_2d_masks_detic.py:115-117,633,697-704): boxes
+    come from grounding the class-list caption, then flow into the same SAM
+    prompt path.
+
+    test=True builds a random-weight model over a synthetic WordPiece
+    vocabulary of the class words; `fake_scale` picks its size, "test" (the
+    tiny GDINO_TEST) or "swint" (GDINO_SWINT's widths); the weights come
+    from `init_gdino_weights` (drawn on the CPU from a torch.Generator
+    seeded with `seed`, so every device gets the same model) unless
+    `state_dict` gives them. Otherwise GDINO_SWINT from `ckpt_path` (the
+    released groundingdino_swint_ogc.pth or a directory saved with
+    `save_params`) and bert-base-uncased's `vocab_path`.
+
+    quant_int8: the Swin backbone's MLPs int8 w8a8 (BERT, the enhancer and
+    the decoder stay float), as Detic's boundary; a float checkpoint is
+    quantized at load, an int8 one passes, an int8 one without the flag
+    raises. dtype "float32" (TF32 off on the card) or "bfloat16"
+    (`--gdino_bf16`); the Swin attention runs the fused kernels in both
+    (the JAX package's unfused bf16 Swin is a TPU compile workaround)."""
+    from cm3d_tpu_torch.models.checkpoints import load_released_checkpoint
+    from cm3d_tpu_torch.models.common import cast_compute_weights_
+    from cm3d_tpu_torch.models.convert import load_released_state_dict, load_torch_state_dict
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_SWINT, GDINO_TEST, BertConfig, GroundingDino, WordPieceTokenizer, gdino_config,
+        gdino_state_dict_from_released, init_gdino_weights, make_gdino_detector,
+        quantize_gdino_state_dict)
+    from cm3d_tpu_torch.ops.quant import reconcile_quantization
+    from cm3d_tpu_torch.utils.device import resolve_device, strict_f32
+
+    device = resolve_device(device)
+    vocabulary = models.vocabulary
+    if test:
+        if fake_scale not in ("test", "swint"):
+            raise ValueError(f"fake_scale must be test|swint: {fake_scale}")
+        words = sorted({w for cls in vocabulary for w in cls.lower().split()})
+        vocab = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3, ".": 4}
+        for w in words:
+            vocab[w] = len(vocab)
+        cfg = gdino_config(GDINO_TEST if fake_scale == "test" else GDINO_SWINT, dtype,
+                           quant_int8, vocab_size=max(64, len(vocab) + 8), pad_id=0,
+                           unk_id=1, cls_id=2, sep_id=3)
+        tok = WordPieceTokenizer(vocab, cfg.bert)
+        if state_dict is None:
+            float_cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin,
+                                                                          quant_int8=False))
+            state_dict = init_gdino_weights(GroundingDino(float_cfg),
+                                            torch.Generator().manual_seed(seed)).state_dict()
+    else:
+        cfg = gdino_config(GDINO_SWINT, dtype, quant_int8)
+        tok = WordPieceTokenizer.from_file(vocab_path, BertConfig())
+        if state_dict is None:
+            state_dict = load_released_checkpoint(
+                ckpt_path,
+                lambda p: gdino_state_dict_from_released(load_torch_state_dict(p), cfg))
+    state_dict = reconcile_quantization(state_dict, quantize_gdino_state_dict, quant_int8,
+                                        "GroundingDINO")
+    with torch.device(device):
+        model = GroundingDino(cfg)
+    load_released_state_dict(model, state_dict, f"GroundingDINO {ckpt_path}", verbose=False)
+    if device.type == "cuda" and dtype == "float32":
+        strict_f32()
+    model = cast_compute_weights_(model.eval().requires_grad_(False))
+    detect = make_gdino_detector(model, tok, vocabulary, box_threshold=box_threshold)
+    return dataclasses.replace(models, detic=detect)
 
 
 def _nuscenes_provider(args):
@@ -795,10 +897,7 @@ def main(argv=None):
 
         scene_names = shard_for_host(scene_names)
     vocab = CUSTOM_VOCABULARY_WAYMO if args.dataset == "waymo" else CUSTOM_VOCABULARY_NUSCENES
-    models = build_models(p, args, vocab, args.device)
-    if args.use_zoedepth:
-        models = attach_zoedepth(models, args.zoe_ckpt, test=args.fake_weights,
-                                 device=args.device)
+    models = attach_models(build_models(p, args, vocab, args.device), args, args.device)
     cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail,
                           use_zoedepth=args.use_zoedepth)
     run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,

@@ -481,9 +481,15 @@ def test_build_real_models_embeds_the_vocabulary_with_clip(released_files, test_
                                       verbose=False)
     assert torch.isfinite(smodels.sam_encode(frame)).all()  # calibrates on this ring
     assert not smodels.sam_encode.calibration["pending"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
-                                detic_used=False)
+    # --detector gdino is ported (A13c): the Detic that attach_gdino swaps
+    # out loads in the form of its file and is not quantized by --quant_int8
+    gmodels = masks.build_real_models(f["detic"], f["sam"], f["clip"], f["bpe"], device="cpu",
+                                      dtype="float32", quant_int8=True, detic_used=False,
+                                      verbose=False)
+    gboxes, _, _, gvalid = gmodels.detic(frame)
+    assert torch.equal(gboxes, boxes) and torch.equal(gvalid, valid)
+    gmodels = masks.attach_gdino(gmodels, test=True, quant_int8=True, device="cpu")
+    assert gmodels.detic(frame)[0].shape == (2, 12, 4)  # GDINO_TEST's 12 queries
 
 
 def test_masks_cli_with_the_checkpoint_flags(tmp_path, released_files, test_presets, capsys):

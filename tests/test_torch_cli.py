@@ -156,6 +156,7 @@ def test_port_imports_neither_jax_nor_cm3d_tpu():
         "import cm3d_tpu_torch.deploy, cm3d_tpu_torch.serve, cm3d_tpu_torch.conform\n"
         "import cm3d_tpu_torch.kernels.ops, cm3d_tpu_torch.ops.erosion\n"
         "import cm3d_tpu_torch.ops.quant, cm3d_tpu_torch.models.zoedepth\n"
+        "import cm3d_tpu_torch.models.gdino\n"
         "import cm3d_tpu_torch.datasets.kitti.viz, cm3d_tpu_torch.datasets.kitti.viz3d\n"
         "cm3d_tpu_torch.deploy._register_serializations()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"

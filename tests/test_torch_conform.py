@@ -1,8 +1,10 @@
 """The port's conformance runbook (cm3d_tpu_torch/conform.py): the eight
 tests of tests/test_conform.py on the port's verify -> convert -> e2e ->
 eval orchestration, at fixture scale with the pipeline phases stubbed, plus
-the port's own refusal (GroundingDINO names A13), --quant_int8 and ZoeDepth
-running, the Detic / CLIP conversions, and main's exit codes.
+the port's own refusal (--camera_mesh names A14e), --quant_int8, ZoeDepth
+and GroundingDINO running, the Detic / CLIP conversions, and main's exit
+codes. (conform's gdino family on a GroundingDINO file:
+tests/test_torch_gdino_cli.py.)
 
 Checkpoints are the JAX package's fixture-scale fakes (tests/test_sam.py,
 tests/test_torch_checkpoints.py), saved as released torch files."""
@@ -239,25 +241,31 @@ def test_non_nuscenes_missing_artifact_is_error(tmp_path, monkeypatch):
 
 
 def test_unported_phases_name_their_roadmap_items(tmp_path, monkeypatch):
-    """--quant_int8 and ZoeDepth are ported (A12, A13b): --quant_int8 runs
-    (the e2e argv carries it) and a missing ZoeDepth file fails its own
-    phase, naming the file. A GroundingDINO checkpoint fails its verify
-    phase naming A13 (rc 1, the report still written), and the e2e argv
-    asks for gdino, which the port's e2e CLI refuses naming A13."""
+    """--quant_int8, ZoeDepth and GroundingDINO are ported (A12, A13b,
+    A13c): --quant_int8 runs (the e2e argv carries it), and a missing
+    ZoeDepth or GroundingDINO file fails its own phase, naming the file and
+    no ROADMAP item (rc 1, the report still written). The e2e argv asks for
+    gdino with its vocabulary, which the port's e2e CLI accepts (the run
+    goes on to read the dataroot); --camera_mesh still names A14e."""
     seen = {}
     monkeypatch.setattr(conform, "_e2e_main", lambda argv: seen.setdefault("e2e", argv))
     report, rc = conform.run_conform(
-        _args(zoe="zoe.pt", gdino="gdino.pth", out=str(tmp_path / "c"), dataroot="/x",
-              scenes="s", fake_weights=True, skip_eval=True, quant_int8=True))
+        _args(zoe="zoe.pt", gdino="gdino.pth", gdino_vocab="vocab.txt",
+              out=str(tmp_path / "c"), dataroot="/x", scenes="s", fake_weights=True,
+              skip_eval=True, quant_int8=True))
     assert rc == 1 and (tmp_path / "c" / "conform_report.json").is_file()
-    assert "A13" in report["models"]["gdino"]["error"]
-    assert "zoe.pt" in report["models"]["zoe"]["error"]
-    assert "A13" not in report["models"]["zoe"]["error"]
-    assert "gdino" in seen["e2e"] and "--quant_int8" in seen["e2e"]
+    for name, path in (("gdino", "gdino.pth"), ("zoe", "zoe.pt")):
+        assert path in report["models"][name]["error"]
+        assert "A13" not in report["models"][name]["error"]
+    argv = seen["e2e"]
+    assert argv[argv.index("--detector") + 1] == "gdino" and "--quant_int8" in argv
+    assert argv[argv.index("--gdino_vocab") + 1] == "vocab.txt"
     from cm3d_tpu_torch.pipelines.e2e import main as e2e_main
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        e2e_main(seen["e2e"])
+    with pytest.raises(FileNotFoundError):
+        e2e_main(argv)
+    with pytest.raises(NotImplementedError, match="A14e"):
+        e2e_main(argv + ["--camera_mesh", "2"])
 
 
 def test_main_exit_codes_and_summary(tmp_path, capsys):

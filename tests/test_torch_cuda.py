@@ -1256,3 +1256,68 @@ def test_zoedepth_card_matches_cpu(cuda):
         got = make_predict_depth(model.to(cuda))(img)
     err = np.abs(got - want) / want
     assert np.mean(err <= 1e-4) >= 0.999 and err.max() <= 5e-3, err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 3])
+def test_window_attn_kernel_at_gdino_stage0(cuda, shift, dtype):
+    """GroundingDINO's Swin-T stage 0 on its 800 x 1216 canvas: a chunk of 3
+    images at 200 x 304 (padded to 203 x 308, 62,524 tokens an image), C 96,
+    3 heads of 32, f32 x."""
+    rng = np.random.default_rng(shift)
+    args = _window_attn_inputs(rng, 3, 200, 304, 96, 3, 7, torch.float32, cuda)
+    kw = dict(heads=3, window=7, shift=shift, dtype=dtype)
+    got = window_attn(*args, **kw)
+    torch.cuda.synchronize()
+    want = window_attn_plain(*args, **kw).float()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    err = float((got.float() - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+def test_gdino_card_matches_cpu(cuda):
+    """GDINO_TEST on synthetic released-layout weights (the fusion gammas
+    redrawn from N(0, 0.5), as tests/test_torch_gdino.py), f32 with TF32
+    off, on the card against the CPU: logits within 1e-4 of their largest
+    |value|, boxes within 1e-5, the -inf pattern equal; the detector through
+    attach_gdino launches each window-attention kernel once a Swin block a
+    chunk (3 blocks, chunks of 3: 2 chunks for 5 images)."""
+    from cm3d_tpu_torch.models.gdino import (
+        GDINO_TEST, GroundingDino, gdino_state_dict_from_released, synth_gdino_state_dict)
+    from cm3d_tpu_torch.pipelines.masks import MaskModels, attach_gdino
+    from cm3d_tpu_torch.utils.device import strict_f32_scope
+
+    rng = np.random.default_rng(0)
+    sd = synth_gdino_state_dict(GDINO_TEST, rng)
+    for k in sd:
+        if k.endswith((".gamma_v", ".gamma_l")):
+            sd[k] = (rng.standard_normal(sd[k].shape) * 0.5).astype(np.float32)
+    sd = gdino_state_dict_from_released({k: torch.from_numpy(v) for k, v in sd.items()},
+                                        GDINO_TEST)
+    model = GroundingDino(GDINO_TEST)
+    model.load_state_dict(sd)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 96, 3)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(1, 60, (2, 24)))
+    ids[:, 12:] = 0
+    pos = torch.arange(24).repeat(2, 1)
+    am = torch.ones((2, 24, 24), dtype=torch.bool)
+    tm = ids != 0
+    with torch.no_grad():
+        want = model.eval()(x, ids, pos, am, tm)
+        with strict_f32_scope():
+            got = model.to(cuda)(*(t.to(cuda) for t in (x, ids, pos, am, tm)))
+    fin = torch.isfinite(want[0])
+    assert torch.equal(torch.isfinite(got[0]).cpu(), fin)
+    err = float((got[0].cpu()[fin] - want[0][fin]).abs().max())
+    assert err <= 1e-4 * float(want[0][fin].abs().max()), err
+    assert float((got[1].cpu() - want[1]).abs().max()) <= 1e-5
+    models = attach_gdino(MaskModels(None, None, None, None, vocabulary=("car", "tree")),
+                          test=True, state_dict=sd, device=cuda)
+    images = [rng.integers(0, 255, (48, 64, 3)).astype(np.uint8) for _ in range(5)]
+    before = (window_attn_heads.launches, window_attn_proj.launches)
+    with torch.no_grad():
+        out = models.detic({"images": images})
+    torch.cuda.synchronize()
+    assert (window_attn_heads.launches - before[0], window_attn_proj.launches - before[1]) \
+        == (6, 6)
+    assert out[0].device.type == "cuda" and out[0].shape == (5, 12, 4)
