@@ -6,6 +6,7 @@
     python3 chip_smoke.py --host-benches   # end-to-end timings only, see host_benches
     python3 chip_smoke.py --quant-zoe-phase   # phase 20 alone
     python3 chip_smoke.py --gdino-phase   # phase 21 alone
+    python3 chip_smoke.py --model-parallel-phase   # phase 22 alone
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -238,7 +239,21 @@ Phases 15-17 run after phase 9, before the training phases.
    the profiler's top kernels; one image card vs CPU in f32 with TF32 off
    (gdino_cpu_check); bench_mask_stage with GroundingDINO and with Detic in
    turns (SAM ViT-H bf16, io 0, 24 + 24 launches a keyframe checked).
-22. One JSON line per kernel summary, then the card's name and power limit,
+22. Model parallelism at world size 1 (one card: NCCL refuses two ranks on
+   one device), in a child process (`chip_smoke.py --model-parallel-phase`):
+   the camera-parallel mask stage with camera_mesh=1 over NCCL at full width
+   (Detic Swin-B + SAM ViT-H bf16, six 1024x576 cameras): a keyframe equal
+   to the plain one, the decode's planes on 6 x 25 prompts bit-equal, 24 +
+   24 B3 launches a Detic forward through the group, bench_mask_stage
+   keyframes/s with and without the group in turns; `e2e --camera_mesh 1`
+   on tests/torch_nusc_fixture.py (the plain submission, 3 + 1 lift
+   launches a step); ViT-H bf16, its int8 twin and the fused variant
+   through shard_model_params and the sequence-sharded encode on a model
+   group of one (each against the plain encode, 28 + 28 B4 launches fused,
+   ms an encode in turns); one all-reduce's ms over the one-rank group;
+   GPipe over CLIP B/32's 12 text blocks at S = 1, M = 4 (forward and
+   gradients against the sequential apply, ms a step in turns).
+23. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -969,9 +984,9 @@ def mask_cpu_check(torch, device="cuda"):
         def make(*args, **kw):
             post = real_make(*args, **kw)
 
-            def wrapped(lg, n_boxes):
+            def wrapped(lg, n_boxes, **kw):
                 logits.append(lg.float().cpu())
-                return post(lg, n_boxes)
+                return post(lg, n_boxes, **kw)
             return wrapped
 
         maskpack.make_plane_postprocess = make
@@ -4550,6 +4565,264 @@ def gdino_phase(torch, card: str) -> dict:
     return out
 
 
+# --- 22. model parallelism at world size 1 ---------------------------------------
+
+MODEL_PARALLEL_FLAG = "--model-parallel-phase"  # the child process of phase 22
+MP_BENCH_FRAMES = 4  # bench_mask_stage frames a side, in turns
+MP_BOXES_PER_CAM = 25  # prompts a camera in the decode held bit for bit
+GPIPE_MICRO, GPIPE_BATCH = 4, 8  # GPipe: microbatches of CLIP sequences
+ENCODE_MP_TOL = 2.0 ** -8  # bf16's step, of the largest value: a reduction order
+
+
+def model_parallel_phase(torch) -> dict:
+    """Phase 22: the model-parallel paths at world size 1 over NCCL (one
+    card: NCCL refuses two ranks on one device): every command, broadcast,
+    gather and collective of each path runs, and each result is held to the
+    plain run's."""
+    import functools
+    import tempfile
+
+    from cm3d_tpu_torch.benchmarks import (
+        IMG_H, IMG_W, _realistic_load, bench_mask_stage, build_production_fake_models,
+        production_fake_modules)
+    from cm3d_tpu_torch.config import MaskStageConfig
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.ops.bitmask import num_words
+    from cm3d_tpu_torch.parallel.mesh import (
+        DataParallelGroup, Program, launch_counts, make_mesh)
+    from cm3d_tpu_torch.pipelines.masks import camera_parallel_models, generate_frame_masks
+
+    card = card_line()
+    out = {"card": card}
+    t_phase = time.perf_counter()
+    cards = [torch.device("cuda", 0)]
+
+    def counted(fn):
+        before = launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+
+    # the camera-parallel mask stage at full width (Detic Swin-B + SAM ViT-H bf16)
+    rng = np.random.default_rng(0)
+    ring = [rng.integers(0, 255, (IMG_H, IMG_W, 3)).astype(np.uint8) for _ in range(N_CAMERAS)]
+    plain = build_production_fake_models("bfloat16", device="cuda")
+    with DataParallelGroup(make_mesh(n_data=1, devices=cards), "cuda") as group:
+        cam = camera_parallel_models(group, "cm3d_tpu_torch.benchmarks:"
+                                     "build_production_fake_models", dtype="bfloat16", seed=0)
+        fm_plain, fm_cam = (generate_frame_masks(m, ring) for m in (plain, cam))
+        check(fm_cam.labels == fm_plain.labels and fm_cam.cam_nums == fm_plain.cam_nums
+              and np.array_equal(fm_cam.masks, fm_plain.masks)
+              and np.allclose(fm_cam.detection_scores, fm_plain.detection_scores, rtol=1e-5),
+              "the camera-parallel keyframe equals the plain one")
+        # the decode held bit for bit on MP_BOXES_PER_CAM prompts a camera
+        frame_p, frame_c = plain.prepare(ring), cam.prepare(ring)
+        boxes = rng.uniform(0, 500, (N_CAMERAS, 128, 4)).astype(np.float32)
+        boxes[..., 2:] += boxes[..., :2] + 30
+        n_boxes = np.full(N_CAMERAS, MP_BOXES_PER_CAM, np.int64)
+        cam_hw = [(IMG_H, IMG_W)] * N_CAMERAS
+        nw = num_words(MaskStageConfig().max_masks_total)
+        planes_p = plain.sam_decode_planes(plain.sam_encode(frame_p), boxes, n_boxes, cam_hw,
+                                           (IMG_W, IMG_H), nw, "yx")
+        planes_c = cam.sam_decode_planes(cam.sam_encode(frame_c), boxes, n_boxes, cam_hw,
+                                         (IMG_W, IMG_H), nw, "yx")
+        check(torch.equal(planes_p, planes_c) and bool(planes_p.any()),
+              f"camera-parallel planes bit-equal to the plain decode's "
+              f"({N_CAMERAS} x {MP_BOXES_PER_CAM} prompts)")
+        _, launches = counted(lambda: cam.detic(frame_c))
+        out["camera_mesh_detic_launches"] = launches
+        check(launches.get("window_attn_heads") == 24 and launches.get("window_attn_proj") == 24,
+              f"a camera-parallel Detic forward launches B3 24 + 24 times: {launches}")
+        rates = {"plain": [], "camera_mesh": []}
+        for name, models in (("plain", plain), ("camera_mesh", cam), ("camera_mesh", cam),
+                             ("plain", plain)):
+            window_attn_heads.launches = window_attn_proj.launches = 0
+            bench = bench_mask_stage("bfloat16", n_frames=MP_BENCH_FRAMES, io_sleep=0.0,
+                                     models=_realistic_load(models), device="cuda")
+            rates[name].append(bench["value"])
+            out.setdefault(f"{name}_mask_stage_b3_launches", []).append(
+                window_attn_heads.launches)
+        out["mask_stage_keyframes_per_s"] = rates
+        del cam, frame_c
+    del plain, frame_p
+    torch.cuda.empty_cache()
+    print(f"[{card}] camera-parallel mask stage at world size 1 (NCCL): planes bit-equal, "
+          f"B3 {launches} a Detic forward; keyframes/s plain {rates['plain']}, "
+          f"camera_mesh=1 {rates['camera_mesh']} (in turns, io 0, {MP_BENCH_FRAMES} frames)",
+          flush=True)
+
+    # run_e2e --camera_mesh 1 on the port's nuScenes fixture, against the plain CLI
+    from pathlib import Path
+
+    from cm3d_tpu_torch.pipelines import e2e
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_nusc_fixture import VERSION, make_fake_nuscenes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "nusc")
+        make_fake_nuscenes(Path(root), Path(tmp) / "planted", n_frames=2, n_objects=6)
+        subs, cli_launches = {}, {}
+        for tag, extra in (("plain", []), ("camera_mesh", ["--camera_mesh", "1"])):
+            path = os.path.join(tmp, f"{tag}.json")
+            _, cli_launches[tag] = counted(lambda: e2e.main(
+                ["--dataroot", root, "--version", VERSION, "--scenes", "scene-0001", "--out",
+                 path, "--fake_weights", "--device", "cuda"] + extra))
+            subs[tag] = json.load(open(path))["results"]
+    got = cli_launches["camera_mesh"]
+    steps = got.get("medoid_distance_sums_rows", 0)
+    out["e2e_cli_launches"] = cli_launches
+    check(subs["camera_mesh"] == subs["plain"] and steps > 0
+          and got.get("compact_rows") == 3 * steps and got == cli_launches["plain"],
+          f"e2e --camera_mesh 1 writes the plain CLI's submission, 3 + 1 lift launches a step: "
+          f"{cli_launches}")
+    print(f"[{card}] e2e --camera_mesh 1 on the fixture: the plain submission, launches "
+          f"{got}", flush=True)
+
+    # ViT-H bf16, its int8 twin and the fused variant through shard_model_params
+    # on a model group of one; the sequence-sharded encode over one rank
+    from cm3d_tpu_torch.models.sam import Sam, quantize_sam_state_dict
+    from cm3d_tpu_torch.parallel.sharding import (
+        make_sequence_sharded_encode, shard_model_params)
+
+    _, _, sam = production_fake_modules("bfloat16", device="cuda")
+    sam = sam.eval().requires_grad_(False)
+    with torch.device("cuda"):
+        fused = Sam(dataclasses.replace(sam.cfg, fused_window_attn=True))
+    fused.load_state_dict(sam.state_dict())
+    fused = fused.eval().requires_grad_(False)
+    with torch.device("cuda"):
+        qsam = Sam(dataclasses.replace(sam.cfg, quant_int8=True))
+    qsam.load_state_dict(quantize_sam_state_dict(sam.state_dict()))
+    qsam = qsam.eval().requires_grad_(False)
+    size = sam.cfg.img_size
+    image = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (size, size, 3)).astype(np.float32)).cuda()
+    mesh = make_mesh(n_data=1, n_model=1, devices=cards)
+    enc = {}
+    with DataParallelGroup(mesh, "cuda"), torch.inference_mode():
+        for name, module in (("bf16", sam), ("int8", qsam), ("fused", fused)):
+            sharded = shard_model_params(copy.deepcopy(module), mesh)
+            want, _ = counted(lambda: module.encode_image(image[None])[0])
+            got, launches = counted(lambda: sharded.encode_image(image[None])[0])
+            seq = make_sequence_sharded_encode(mesh, module)
+            got_seq, seq_launches = counted(lambda: seq(image))
+            scale = float(want.float().abs().max())
+            rec = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+                   "bit_equal": bool(torch.equal(got, want)),
+                   "seq_max_abs_err": float((got_seq.float() - want.float()).abs().max()),
+                   "max_abs": scale, "launches": launches, "seq_launches": seq_launches}
+            check(rec["max_abs_err"] <= ENCODE_MP_TOL * scale
+                  and rec["seq_max_abs_err"] <= ENCODE_MP_TOL * scale
+                  and bool(torch.isfinite(got).all()),
+                  f"ViT-H {name} through shard_model_params / the sequence-sharded encode "
+                  f"on one rank against the plain encode: {rec}")
+            if name == "fused":
+                for ln in (launches, seq_launches):
+                    check(ln.get("window_attn_relpos_heads") == 28
+                          and ln.get("window_attn_relpos_proj") == 28,
+                          f"a sharded fused ViT-H encode launches B4 28 + 28 times: {ln}")
+            times = {"plain": [], "sharded": []}
+            for tag, fn in (("plain", module), ("sharded", sharded), ("sharded", sharded),
+                            ("plain", module)):
+                times[tag].append(time_ms(torch, lambda: fn.encode_image(image[None]), reps=3))
+            rec["encode_ms"] = times
+            enc[name] = rec
+            del sharded, seq, want, got, got_seq
+            print(f"[{card}] ViT-H {name} sharded on a model group of one: max abs err "
+                  f"{rec['max_abs_err']:.3g} (bit-equal {rec['bit_equal']}), sequence-sharded "
+                  f"{rec['seq_max_abs_err']:.3g}, of max {scale:.3g}; launches {launches}; ms "
+                  f"an encode {times}", flush=True)
+    out["vit_h"] = enc
+    # what one all-reduce over a one-rank NCCL group costs (a row-parallel
+    # layer's, [4096, 1280] bf16), by events over back-to-back calls
+    import torch.distributed as dist
+
+    with DataParallelGroup(mesh, "cuda"):
+        buf = torch.zeros(4096, 1280, dtype=torch.bfloat16, device="cuda")
+        out["all_reduce_ms"] = time_ms(torch, lambda: dist.all_reduce(buf), reps=200)
+    print(f"[{card}] one all-reduce of [4096, 1280] bf16 over a one-rank NCCL group: "
+          f"{out['all_reduce_ms']:.4f} ms", flush=True)
+    del sam, fused, qsam
+    torch.cuda.empty_cache()
+
+    # GPipe over CLIP B/32's text tower (12 blocks) at S = 1, M = GPIPE_MICRO
+    from torch.func import functional_call
+
+    from cm3d_tpu_torch.models.clip_text import (
+        CLIP_TEXT_B32, ClipTextEncoder, ResidualAttentionBlock, init_clip_weights)
+    from cm3d_tpu_torch.parallel.gpipe import make_pipeline_fn, stack_layer_params, stage_mesh
+    from torch_parallel_programs import clip_block_stage
+
+    cfg = CLIP_TEXT_B32
+    clip = init_clip_weights(ClipTextEncoder(cfg), torch.Generator().manual_seed(0)).cuda()
+    layers = [{k: v.detach() for k, v in blk.state_dict().items()}
+              for blk in clip.transformer.resblocks]
+    stacked = {k: v[None].clone().requires_grad_(True)
+               for k, v in stack_layer_params(layers).items()}
+    x = torch.randn(GPIPE_MICRO, GPIPE_BATCH, cfg.context_length, cfg.width, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    mask = torch.full((cfg.context_length,) * 2, -torch.inf, device="cuda").triu(1)
+    with torch.device("meta"):
+        block = ResidualAttentionBlock(cfg.width, cfg.heads)
+    leaves = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in layers]
+
+    def sequential():
+        ys = []
+        for xi in x:
+            for p in leaves:
+                xi = functional_call(block, p, (xi, mask))
+            ys.append(xi)
+        return torch.stack(ys)
+
+    y_seq = sequential()
+    (y_seq ** 2).sum().backward()
+    with DataParallelGroup(stage_mesh(1, devices=cards), "cuda") as group:
+        run = make_pipeline_fn(group, functools.partial(clip_block_stage, cfg.width, cfg.heads,
+                                                        cfg.context_length))
+        y = run(stacked, x)
+        (y ** 2).sum().backward()
+        fwd_err = float((y - y_seq).abs().max()) / float(y_seq.abs().max())
+        grad_err = max(float((stacked[k].grad[0, i] - leaves[i][k].grad).abs().max())
+                       / max(float(leaves[i][k].grad.abs().max()), 1e-30)
+                       for k in stacked for i in range(cfg.layers))
+        check(fwd_err <= 1e-5 and grad_err <= 1e-4,
+              f"GPipe over CLIP B/32's 12 blocks (S = 1, M = {GPIPE_MICRO}) against the "
+              f"sequential apply: forward {fwd_err:.3g}, gradients {grad_err:.3g} relative")
+
+        def step(fn):
+            return lambda: (fn() ** 2).sum().backward()
+
+        times = {"sequential": [], "gpipe": []}
+        for tag, fn in (("sequential", sequential), ("gpipe", lambda: run(stacked, x)),
+                        ("gpipe", lambda: run(stacked, x)), ("sequential", sequential)):
+            times[tag].append(time_ms(torch, step(fn), reps=3))
+    out["gpipe"] = {"forward_max_rel_err": fwd_err, "grad_max_rel_err": grad_err,
+                    "step_ms": times, "micro": GPIPE_MICRO, "batch": GPIPE_BATCH}
+    print(f"[{card}] GPipe, CLIP B/32 text tower, S = 1, M = {GPIPE_MICRO} x {GPIPE_BATCH} "
+          f"sequences: forward {fwd_err:.3g}, gradients {grad_err:.3g} relative to the "
+          f"sequential apply; ms a forward + backward {times}", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 22 (model parallel at world size 1): {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def model_parallel_phase_in_child() -> dict:
+    """Run phase 22 in a child process (it starts and ends its own NCCL
+    groups; its inference numbers want no CUBLAS_WORKSPACE_CONFIG) and
+    return its results: the child prints its progress lines, then one JSON
+    line, which is parsed here."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), MODEL_PARALLEL_FLAG],
+                          env=env, stdout=subprocess.PIPE, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines, f"the model-parallel phase's process exited with "
+          f"{proc.returncode}: {lines[-1] if lines else 'no output'}")
+    return json.loads(lines[-1])
+
+
 def main(argv) -> int:
     import torch
 
@@ -4572,6 +4845,9 @@ def main(argv) -> int:
         return 0
     if argv == [DATA_PARALLEL_FLAG]:
         print(json.dumps(data_parallel_phase(torch)), flush=True)
+        return 0
+    if argv == [MODEL_PARALLEL_FLAG]:
+        print(json.dumps(model_parallel_phase(torch)), flush=True)
         return 0
     if argv in ([QUANT_ZOE_FLAG], [GDINO_FLAG]):
         from cm3d_tpu_torch.kernels import build
@@ -4758,11 +5034,14 @@ def main(argv) -> int:
     # --- 21. GroundingDINO ---
     gdino = gdino_phase(torch, card)
 
+    # --- 22. model parallelism at world size 1, over NCCL ---
+    model_parallel = model_parallel_phase_in_child()
+
     def artifact_launches(kernel, table):
         """A kernel's launches a call of each artifact that runs it."""
         return {name: n[kernel] for name, n in table.items() if kernel in n}
 
-    # --- 21. summary ---
+    # --- 23. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -4799,6 +5078,9 @@ def main(argv) -> int:
             # Detic with int8 MLPs: one forward, and the int8 fused e2e run
             "int8_detic_launches": quant_zoe["detic"]["launches"][f"window_attn_{name}"],
             "int8_e2e_launches": quant_e2e_launches[f"window_attn_{name}"],
+            # phase 22: a camera-parallel Detic forward at world size 1
+            "camera_mesh_launches":
+                model_parallel["camera_mesh_detic_launches"][f"window_attn_{name}"],
             **_per_forward_extras(wa, name, "blocks_per_forward"),
             **gdino_extras(name),
         }
@@ -4866,6 +5148,12 @@ def main(argv) -> int:
             # one fused encode of a KITTI frame, and the kernels at its grid
             "kitti_launches": kitti["fused_encode_launches"][f"window_attn_relpos_{name}"],
             "kitti_max_rel_err": kitti["relpos"]["max_rel_err"],
+            # phase 22: a fused encode through shard_model_params and the
+            # sequence-sharded encode on a model group of one
+            "sharded_launches":
+                model_parallel["vit_h"]["fused"]["launches"][f"window_attn_relpos_{name}"],
+            "sequence_sharded_launches":
+                model_parallel["vit_h"]["fused"]["seq_launches"][f"window_attn_relpos_{name}"],
             **{k: v * SAM_WINDOWED_BLOCKS if isinstance(v, float) else
                {kk: vv * SAM_WINDOWED_BLOCKS for kk, vv in v.items()}
                for k, v in _per_forward_extras(rp[:1], name, None).items()},
@@ -4944,6 +5232,9 @@ def main(argv) -> int:
             "artifact_launches": artifact_launches("compact_rows", lift_artifact_launches),
             "served_launches": deploy_serve["serve_lift"]["launches"]["compact_rows"],
             "int8_e2e_launches": quant_e2e_launches["compact_rows"],
+            # phase 22: e2e --camera_mesh 1 on the fixture dataroot
+            "camera_mesh_e2e_launches":
+                model_parallel["e2e_cli_launches"]["camera_mesh"]["compact_rows"],
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -4965,6 +5256,9 @@ def main(argv) -> int:
             "served_launches":
                 deploy_serve["serve_lift"]["launches"]["medoid_distance_sums_rows"],
             "int8_e2e_launches": quant_e2e_launches["medoid_distance_sums_rows"],
+            # phase 22: e2e --camera_mesh 1 on the fixture dataroot
+            "camera_mesh_e2e_launches":
+                model_parallel["e2e_cli_launches"]["camera_mesh"]["medoid_distance_sums_rows"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),

@@ -60,19 +60,21 @@ class _Attention(nn.Module):
 
     def __init__(self, width: int, heads: int):
         super().__init__()
-        self.heads = heads
+        # heads: this module's; a tensor-sharded copy holds heads / n of them
+        # (`parallel.sharding.shard_model_params`)
+        self.heads, self.head_dim = heads, width // heads
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, n, d = x.shape
-        hd = d // self.heads
+        b, n, _ = x.shape
+        hd = self.head_dim
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         q, k, v = (t.reshape(b, n, self.heads, hd).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
         attn = (q / np.sqrt(hd)) @ k.transpose(-2, -1) + mask
-        o = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(b, n, d)
+        o = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(b, n, self.heads * hd)
         return self.out_proj(o)
 
 

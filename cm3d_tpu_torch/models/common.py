@@ -100,15 +100,19 @@ def record_act_absmax(model: nn.Module):
             m.act_absmax = None
 
 
-def calibrate_act_scales_(model: nn.Module, run, margin: float = 1.0) -> None:
+def calibrate_act_scales_(model: nn.Module, run, margin: float = 1.0, reduce=None) -> None:
     """Calibrate a static int8 `model` in place: `run()` (its forwards over
     the calibration data) under `record_act_absmax`, where every QuantLinear
     runs the dynamic product and records its input absmax, then each
-    `act_scale` buffer baked from the record (`ops.quant.bake_act_scales`)."""
+    `act_scale` buffer baked from the record (`ops.quant.bake_act_scales`).
+    `reduce(record)` (the camera-parallel mask stage's max over its ranks)
+    turns the record into the one baked, in place."""
     from cm3d_tpu_torch.ops.quant import bake_act_scales
 
     with torch.inference_mode(), record_act_absmax(model) as absmax:
         run()
+    if reduce is not None:
+        reduce(absmax)
     model.load_state_dict(bake_act_scales(model.state_dict(), absmax, margin))
 
 
@@ -250,14 +254,17 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
 
 def add_decomposed_rel_pos_bnhc(attn: torch.Tensor, q: torch.Tensor,
                                 rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor,
-                                q_hw, k_hw) -> torch.Tensor:
+                                q_hw, k_hw, q_rows=None) -> torch.Tensor:
     """SAM/ViTDet decomposed relative position bias for heads-minor q.
 
     attn: [B, heads, qh*qw, kh*kw]; q: [B, qh*qw, heads, head_dim] (the raw
-    q, before the attention scale)."""
+    q, before the attention scale). `q_rows` = (row0, grid_h): the queries
+    are the rows row0 ... row0 + qh - 1 of a grid_h-row grid (one rank's
+    rows of a sequence-sharded map, `parallel/sharding.py`)."""
     qh, qw = q_hw
     kh, kw = k_hw
-    rh = get_rel_pos(qh, kh, rel_pos_h)  # [qh, kh, d]
+    row0, grid_h = q_rows or (0, qh)
+    rh = get_rel_pos(grid_h, kh, rel_pos_h)[row0:row0 + qh]  # [qh, kh, d]
     rw = get_rel_pos(qw, kw, rel_pos_w)  # [qw, kw, d]
     b, _, heads, _ = q.shape
     # an interpolated table comes back f32: the einsums promote, as JAX's do

@@ -132,24 +132,34 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, heads: int, input_hw: Tuple[int, int], dtype, quant=False):
         super().__init__()
+        # heads: this module's; a tensor-sharded copy holds heads / n of them
+        # (`parallel.sharding.shard_model_params`)
         self.heads, self.dtype = heads, dtype
-        hd = dim // heads
+        self.head_dim = hd = dim // heads
         self.qkv = linear(dim, 3 * dim, dtype=dtype, quant=quant)
         self.proj = linear(dim, dim, dtype=dtype, quant=quant)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_hw[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_hw[1] - 1, hd))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gather_kv=None, row0: int = 0) -> torch.Tensor:
+        """x: [b, h, w, dim]. A sequence-sharded global block passes its
+        rank's rows (from `row0`) and `gather_kv(k, v)`, which returns the
+        keys and values of the whole map."""
         b, h, w, dim = x.shape
-        hd = dim // self.heads
+        hd = self.head_dim
         qkv = self.qkv(x.reshape(b, h * w, dim)).reshape(b, h * w, 3, self.heads, hd)
         q, k, v = qkv.unbind(2)  # [b, n, heads, hd]
+        kh = h
+        if gather_kv is not None:
+            k, v = gather_kv(k, v)
+            kh = k.shape[1] // w
         attn = torch.einsum("bqhc,bkhc->bhqk", q * hd ** -0.5, k)
         # the bias uses the raw q, not the scaled one
         attn = add_decomposed_rel_pos_bnhc(attn, q, self.rel_pos_h.to(self.dtype),
-                                           self.rel_pos_w.to(self.dtype), (h, w), (h, w))
+                                           self.rel_pos_w.to(self.dtype), (h, w), (kh, w),
+                                           q_rows=(row0, kh))
         attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
-        x = torch.einsum("bhqk,bkhc->bqhc", attn, v).reshape(b, h, w, dim)
+        x = torch.einsum("bhqk,bkhc->bqhc", attn, v).reshape(b, h, w, self.heads * hd)
         return self.proj(x)
 
 

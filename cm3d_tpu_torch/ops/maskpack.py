@@ -43,19 +43,23 @@ def make_plane_postprocess(
       rect: logits come from a rect-encoded SAM: they cover the image
         directly at 1/4 resolution, so upsample by an exact 4x per axis
         instead of to the padded square.
+
+    The fn's `offset` is the bit of the first camera's first mask: a rank
+    of the camera-parallel mask stage packs its block of the ring with the
+    masks of the cameras before it counted, and the ranks' planes OR
+    together into the ring's.
     """
     w_plane, h_plane = mask_wh
     if layout not in ("xy", "yx"):
         raise ValueError(f"layout must be 'xy' or 'yx', got {layout!r}")
     xy = layout == "xy"
 
-    def postprocess(logits: torch.Tensor, n_boxes) -> torch.Tensor:
+    def postprocess(logits: torch.Tensor, n_boxes, offset: int = 0) -> torch.Tensor:
         c, p, hm, wm = logits.shape
         if c != len(cam_hw):
             raise ValueError(f"logits for {c} cameras, geometry for {len(cam_hw)}")
         shape = (num_words, w_plane, h_plane) if xy else (num_words, h_plane, w_plane)
         planes = torch.zeros(shape, dtype=torch.int32, device=logits.device)
-        offset = 0
         for ci in range(c):
             h_c, w_c = cam_hw[ci]
             up_hw = (4 * hm, 4 * wm) if rect else (max(h_c, w_c),) * 2

@@ -1,7 +1,9 @@
-"""The batched keyframe step, and its data-parallel and multi-host
-versions over torch.distributed."""
+"""Parallel execution: the device mesh, the batched keyframe step and its
+data-parallel and multi-host versions over torch.distributed, and pipeline
+parallelism (gpipe)."""
 
-from cm3d_tpu_torch.parallel.mesh import dp_mesh, shard_batch
+from cm3d_tpu_torch.parallel.gpipe import make_pipeline_fn, stack_layer_params, stage_mesh
+from cm3d_tpu_torch.parallel.mesh import dp_mesh, make_mesh, shard_batch
 from cm3d_tpu_torch.parallel.multihost import shard_for_host
 from cm3d_tpu_torch.parallel.pipeline import (
     dp_step,
@@ -13,6 +15,7 @@ from cm3d_tpu_torch.parallel.pipeline import (
 
 __all__ = [
     "dp_mesh",
+    "make_mesh",
     "shard_batch",
     "shard_for_host",
     "dp_step",
@@ -20,4 +23,7 @@ __all__ = [
     "make_keyframe_step_fn",
     "sharded_batch_step",
     "sharded_keyframe_step",
+    "make_pipeline_fn",
+    "stack_layer_params",
+    "stage_mesh",
 ]

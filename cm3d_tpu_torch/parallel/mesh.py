@@ -1,9 +1,10 @@
-"""The `--data_parallel N` contract over torch.distributed, mirrors
-`cm3d_tpu/parallel/mesh.py dp_mesh`.
+"""The device mesh over torch.distributed: the `--data_parallel N`
+contract (mirrors `cm3d_tpu/parallel/mesh.py dp_mesh`) and the (data,
+model) mesh of `make_mesh`.
 
-JAX runs one controller over an N-chip data mesh: one call, one output,
-the same result as the single-device run. The port keeps that contract
-with N processes:
+JAX runs one controller over an N-chip mesh: one call, one output, the
+same result as the single-device run. The port keeps that contract with N
+processes, one a rank of the mesh:
 
 - The calling process is rank 0, on cuda:0 (or the CPU). It spawns N-1
   workers with the "spawn" start method (a fork after CUDA's
@@ -11,13 +12,23 @@ with N processes:
 - All N join the default process group: NCCL on the card, gloo on the CPU.
   They meet on a FileStore in a temporary directory, not on a TCP port,
   so that concurrent groups on one machine cannot collide.
-- The controller keeps its host loop. Each step it posts a command to the
-  file store (host memory: nothing waits for the card), scatters rank r
-  the rows r*B/N ... (r+1)*B/N - 1 of every batch-major input (packed into
-  one byte buffer a rank), runs its own rows, and gathers the outputs back
-  in rank order, so the caller sees the tensors of the single-device step
-  in the same row order. No step reads anything back from the card.
-- A worker rebuilds the step from picklable arguments: its factory by
+- A mesh (`Mesh`, `make_mesh`) lays the ranks out on a grid of named axes,
+  row-major as JAX's reshape of the device list (the model ranks of one
+  data row are adjacent). Every rank opens one sub-group a line of each
+  axis (`dist.new_group`, every rank creating every group in the same
+  order; a line that spans the whole world is the default group), and a
+  step reaches the line it is on by the axis's name (`axis_group`).
+- The controller keeps its host loop. A data-parallel step (`run`): it posts
+  a command to the file store (host memory: nothing waits for the card),
+  scatters rank r the rows r*B/N ... (r+1)*B/N - 1 of every batch-major
+  input (packed into one byte buffer a rank), runs its own rows, and
+  gathers the outputs back in rank order, so the caller sees the tensors of
+  the single-device step in the same row order. No step reads anything
+  back from the card. An SPMD program (`spmd`): every rank builds it, each
+  call broadcasts its inputs to every rank, every rank runs it (making
+  its own collectives over the axis groups) and rank 0's output is the
+  call's.
+- A worker rebuilds a step from picklable arguments: its factory by
   importable name ("module:function"), called with the factory's arguments
   and `device=` the rank's device.
 - The group is destroyed when the controller leaves it, so a second group
@@ -30,7 +41,8 @@ with N processes:
   process with an error. A worker whose rank 0 has gone exits.
 
 On the CPU, what stands for a device is a core: N ranks are N processes,
-so N may be at most `os.cpu_count()`.
+so N may be at most `os.cpu_count()`. A worker takes rank 0's count of
+intra-op threads.
 """
 
 from __future__ import annotations
@@ -38,14 +50,16 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import datetime
+import functools
 import importlib
+import itertools
 import os
 import pickle
 import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, NamedTuple, Sequence
+from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -160,6 +174,128 @@ def validate_data_parallel(data_parallel: int, batch_size: int, device) -> None:
 
 def rank_device(device_type: str, rank: int) -> torch.device:
     return torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+
+
+# --- the mesh -----------------------------------------------------------------
+
+def default_devices() -> List[torch.device]:
+    """The cards, or with none a CPU core each (a core stands for a device)."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * (os.cpu_count() or 1)
+
+
+class Mesh:
+    """A grid of ranks with named axes: `shape` maps each axis name to its
+    size, in order; rank r sits at the row-major coordinates of r (JAX's
+    reshape of the device list) and runs on cuda:r (or a CPU core). A
+    description only: a `DataParallelGroup` started with it runs its ranks."""
+
+    def __init__(self, axis_names: Sequence[str], sizes: Sequence[int]):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
+        self.size = 1
+        for s in self.shape.values():
+            self.size *= s
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape})"
+
+    def rank(self, coords: dict) -> int:
+        r = 0
+        for name in self.axis_names:
+            r = r * self.shape[name] + coords[name]
+        return r
+
+    def axis_lines(self, name: str) -> List[Tuple[int, ...]]:
+        """The ranks along axis `name`, one tuple a position of the other
+        axes, in rank order."""
+        others = [n for n in self.axis_names if n != name]
+        lines = []
+        for pos in itertools.product(*(range(self.shape[n]) for n in others)):
+            fixed = dict(zip(others, pos))
+            lines.append(tuple(self.rank({**fixed, name: i}) for i in range(self.shape[name])))
+        return lines
+
+
+def make_mesh(n_data: int | None = None, n_model: int = 1, devices=None) -> Mesh:
+    """A (data, model) mesh, mirrors `cm3d_tpu/parallel/mesh.py make_mesh`:
+    all devices on the data axis by default, JAX's ValueErrors in JAX's
+    words."""
+    if devices is None:
+        devices = default_devices()
+    if n_data is None:
+        n_data = len(devices) // n_model
+    if n_data <= 0 or n_model <= 0:
+        raise ValueError(f"mesh axes must be positive, got data={n_data} model={n_model}")
+    if n_data * n_model > len(devices):
+        raise ValueError(f"mesh ({n_data} data x {n_model} model) exceeds "
+                         f"{len(devices)} available devices")
+    return Mesh(("data", "model"), (n_data, n_model))
+
+
+class AxisGroup(NamedTuple):
+    """This rank's line of one mesh axis: its process group, this rank's
+    index on the line, the line's size and its global ranks."""
+
+    group: Any
+    index: int
+    size: int
+    ranks: Tuple[int, ...]
+
+
+_AXES: dict = {}  # axis name -> AxisGroup, while this process is a rank of a mesh
+_MESH: list = []  # [the Mesh], likewise
+
+
+def axis_group(name: str) -> AxisGroup:
+    """This rank's line of mesh axis `name` (inside a step of a started
+    group)."""
+    if name not in _AXES:
+        raise ValueError(f"no running mesh has a {name!r} axis here "
+                         f"(axes: {sorted(_AXES) or 'none'})")
+    return _AXES[name]
+
+
+def running_mesh() -> Mesh:
+    """The Mesh of the group this process is a rank of."""
+    if not _MESH:
+        raise ValueError("this process is no rank of a started mesh group")
+    return _MESH[0]
+
+
+def _open_axis_groups(mesh: Mesh, rank: int) -> None:
+    """Every rank runs this in the same order, right after joining the
+    default group: one group a line of each axis."""
+    import torch.distributed as dist
+
+    _AXES.clear()
+    for name in mesh.axis_names:
+        for line in mesh.axis_lines(name):
+            group = dist.group.WORLD if len(line) == mesh.size else dist.new_group(list(line))
+            if rank in line:
+                _AXES[name] = AxisGroup(group, line.index(rank), len(line), line)
+    _MESH[:] = [mesh]
+
+
+def _close_axis_groups() -> None:
+    _AXES.clear()
+    _MESH.clear()
+
+
+def gather_to_first(tensors: Sequence[torch.Tensor], axis: str):
+    """Gather each rank's `tensors` (the same shapes and dtypes on every rank
+    of the line) to the first rank of its line of `axis`: there, a list a
+    rank in line order of lists of tensors; elsewhere None."""
+    import torch.distributed as dist
+
+    ax = axis_group(axis)
+    specs = [(tuple(t.shape), t.dtype) for t in tensors]
+    device = tensors[0].device if tensors else torch.device("cpu")
+    buf = _pack(tensors, device)
+    bufs = [torch.empty_like(buf) for _ in range(ax.size)] if ax.index == 0 else None
+    dist.gather(buf, bufs, dst=ax.ranks[0], group=ax.group)
+    return None if bufs is None else [_unpack(b, specs) for b in bufs]
 
 
 # --- trees of tensors, packed into byte buffers -----------------------------
@@ -321,19 +457,23 @@ class _Commands:
 
 
 class DataParallelGroup:
-    """Rank 0 of an N-rank data-parallel group, as a context manager (see
-    the module docstring). `run(fn, args)` is one step. A worker whose step
-    has a `sync` calls it once, right after building it; rank 0's caller
-    makes the matching collective calls right after entering (run_pretrain
-    broadcasts its train state so)."""
+    """Rank 0 of an N-rank group, as a context manager (see the module
+    docstring): `world` is N (a one-axis "data" mesh) or a `Mesh`. With a
+    `program`, every worker builds it at the start and `run(fn, args)` is
+    one data-parallel step; a worker whose step has a `sync` calls it once,
+    right after building it, and rank 0's caller makes the matching
+    collective calls right after entering (run_pretrain broadcasts its train
+    state so). `spmd(program)` builds an SPMD program on every rank."""
 
-    def __init__(self, data_parallel: int, device, program: Program):
-        self.world = data_parallel
+    def __init__(self, world, device, program: Program | None = None):
+        self.mesh = world if isinstance(world, Mesh) else Mesh(("data",), (world,))
+        self.world = self.mesh.size
         self.device = torch.device(device)
         self.program = program
         self.backend = "nccl" if self.device.type == "cuda" else "gloo"
         self._procs: list = []
         self._tmp = None
+        self._keys = itertools.count()
 
     # -- start and teardown --------------------------------------------------
 
@@ -342,7 +482,13 @@ class DataParallelGroup:
 
         import torch.distributed as dist
 
+        if dist.is_available() and dist.is_initialized():
+            raise RuntimeError("a mesh group starts its own default process group, and this "
+                               "process already holds one: two groups cannot both be the default")
         if self.device.type == "cuda":
+            if self.device.index not in (None, 0):
+                raise ValueError(f"a mesh group runs rank r on cuda:r, so rank 0 (this "
+                                 f"process) must be on cuda:0, not {self.device}")
             # one nvcc run here, not one in each worker
             from cm3d_tpu_torch.kernels.build import build_all
 
@@ -353,8 +499,8 @@ class DataParallelGroup:
         try:
             for rank in range(1, self.world):
                 proc = ctx.Process(target=_worker_main, daemon=True,
-                                   args=(rank, self.world, self._tmp, self.device.type,
-                                         self.program, os.getpid()))
+                                   args=(rank, self.mesh, self._tmp, self.device.type,
+                                         self.program, os.getpid(), torch.get_num_threads()))
                 proc.start()
                 self._procs.append(proc)
             store = dist.FileStore(os.path.join(self._tmp, "store"), self.world)
@@ -362,6 +508,7 @@ class DataParallelGroup:
             self._commands = _Commands(store)
             dist.init_process_group(self.backend, store=store, rank=0, world_size=self.world,
                                     timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+            _open_axis_groups(self.mesh, 0)
         except BaseException:
             self._teardown(failed=True)
             raise
@@ -420,6 +567,7 @@ class DataParallelGroup:
         import torch.distributed as dist
 
         try:
+            _close_axis_groups()
             if dist.is_initialized():
                 dist.destroy_process_group()
         finally:
@@ -486,6 +634,43 @@ class DataParallelGroup:
                 raise
             raise err from e
 
+    def spmd(self, program: Program, local: Callable | None = None) -> Callable:
+        """Build `program` on every rank (here too, unless `local` is rank
+        0's instance already built) and return `call(*args)`: one SPMD step,
+        `args` (a tree of tensors and picklable values) broadcast to every
+        rank, each rank calling its instance with them (rank 0 with the
+        caller's own tensors), rank 0's output returned. The instances make
+        their own collectives, over the axis groups (`axis_group`)."""
+        key = next(self._keys)
+        self._guard(lambda: self._commands.send(("build", key, program)))
+        fn = local if local is not None else _resolve(program.factory)(*program.args,
+                                                                        device=self.device)
+        return functools.partial(self._call, key, fn)
+
+    def _call(self, key: int, fn: Callable, *args):
+        import torch.distributed as dist
+
+        def step():
+            skeleton, leaves = _flatten(tuple(args))
+            specs = [(tuple(t.shape), t.dtype) for t in leaves]
+            self._check_workers()
+            self._commands.send(("call", key, skeleton, specs))
+            dist.broadcast(_pack(leaves, self.device), src=0)
+            return fn(*args)
+
+        return self._guard(step)
+
+    def _guard(self, step: Callable):
+        """`step()`, a worker's traceback raised in place of the error a
+        collective with a failed worker gives."""
+        try:
+            return step()
+        except Exception as e:
+            err = self._worker_error(e)
+            if err is e:
+                raise
+            raise err from e
+
 
 def _gather_rows(out, world: int, device: torch.device):
     import torch.distributed as dist
@@ -510,16 +695,20 @@ def dp_mesh(data_parallel: int, batch_size: int, device, program: Program) -> Da
 
 # --- the worker side ------------------------------------------------------------
 
-def _worker_main(rank: int, world: int, tmp: str, device_type: str, program: Program,
-                 parent_pid: int) -> None:
-    """A spawned rank: join the group, build the step (a factory may make
-    collective calls, e.g. an `axis_name` train step checks the group), run
-    its `sync` if it has one (rank 0's caller makes the matching calls),
-    then serve steps until rank 0 says stop. Any exception is written where rank 0 reads it,
-    and the process exits non-zero."""
+def _worker_main(rank: int, mesh: Mesh, tmp: str, device_type: str,
+                 program: Program | None, parent_pid: int, n_threads: int) -> None:
+    """A spawned rank: join the group and its axis groups, build the step
+    if the group has one (a factory may make collective calls, e.g. an
+    `axis_name` train step checks the group), run its `sync` if it has one
+    (rank 0's caller makes the matching calls), then serve rank 0's
+    commands until it says stop: data-parallel steps, and the SPMD
+    programs' builds and calls. Any exception is written where rank 0 reads
+    it, and the process exits non-zero."""
     import torch.distributed as dist
 
     try:
+        torch.set_num_threads(n_threads)
+        world = mesh.size
         device = rank_device(device_type, rank)
         if device.type == "cuda":
             torch.cuda.set_device(device)
@@ -529,14 +718,28 @@ def _worker_main(rank: int, world: int, tmp: str, device_type: str, program: Pro
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo", store=store,
                                 rank=rank, world_size=world,
                                 timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-        fn = _resolve(program.factory)(*program.args, device=device)
-        sync = getattr(fn, "sync", None)
-        if sync is not None:
-            sync()
+        _open_axis_groups(mesh, rank)
+        fn = None
+        if program is not None:
+            fn = _resolve(program.factory)(*program.args, device=device)
+            sync = getattr(fn, "sync", None)
+            if sync is not None:
+                sync()
+        programs: dict = {}
         while True:
             cmd = commands.recv(parent_pid)
             if cmd[0] == "stop":
                 break
+            if cmd[0] == "build":
+                _, key, prog = cmd
+                programs[key] = _resolve(prog.factory)(*prog.args, device=device)
+                continue
+            if cmd[0] == "call":
+                _, key, skeleton, specs = cmd
+                buf = torch.empty(_packed_bytes(specs), dtype=torch.uint8, device=device)
+                dist.broadcast(buf, src=0)
+                programs[key](*_unflatten(skeleton, _unpack(buf, specs)))
+                continue
             _, skeleton, specs, gather = cmd
             recv = torch.empty(_packed_bytes(specs), dtype=torch.uint8, device=device)
             dist.scatter(recv, None, src=0)
@@ -545,6 +748,7 @@ def _worker_main(rank: int, world: int, tmp: str, device_type: str, program: Pro
                 _, leaves = _flatten(out)
                 dist.gather(_pack(leaves, device), None, dst=0)
         dist.gather_object(launch_counts(), None, dst=0)
+        _close_axis_groups()
         dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:

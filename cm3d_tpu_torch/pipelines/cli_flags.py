@@ -2,20 +2,13 @@
 or the four released checkpoints; `pipelines/masks.py build_models` reads
 them), the int8 flags, the GroundingDINO flags (`--detector gdino`;
 `pipelines/masks.py attach_models` reads them), `--run_nms`'s dataset
-default, `--host_shard`, and the JAX CLIs' flags whose feature the port has
-not ported yet.
-
-The CLIs accept the unported flags, so that a JAX command line fails with a
-NotImplementedError naming its ROADMAP item instead of argparse's usage
-error (exit 2).
+default, `--dataset`, `--host_shard` and `--camera_mesh`, as the JAX CLIs
+spell them.
 """
 
 from __future__ import annotations
 
-# flag -> the ROADMAP item that ports its feature
-UNPORTED_FLAGS = {
-    "camera_mesh": "A14e (model parallel)",
-}
+import contextlib
 
 
 def add_model_flags(p) -> None:
@@ -53,22 +46,30 @@ def add_quant_flags(p) -> None:
                    "first keyframe ring calibrates (one dynamic encode)")
 
 
-def add_unported_flags(p) -> None:
-    """Accept the UNPORTED_FLAGS, `--host_shard` and every `--dataset` of
-    the JAX CLIs, as the JAX CLIs spell them."""
+def add_run_flags(p) -> None:
+    """`--dataset`, `--host_shard` and `--camera_mesh`."""
     p.add_argument("--dataset", default="nuscenes", choices=["nuscenes", "waymo", "kitti"])
     p.add_argument("--host_shard", action="store_true",
                    help="multi-host: keep only this process's scene stride (RANK / "
                    "WORLD_SIZE, or torch.distributed's group; parallel/multihost.py)")
-    p.add_argument("--camera_mesh", type=int, default=0)
+    p.add_argument("--camera_mesh", type=int, default=0,
+                   help="camera-parallel 2D stage: the camera ring split over N ranks, one a "
+                   "card (a core with --device cpu); N must divide the ring size")
 
 
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for the first
-    unported feature that `args` asks for."""
-    for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+def camera_mesh(args):
+    """`--camera_mesh N`: the started N-rank (data,) mesh group the mask
+    models run over (`pipelines/masks.py camera_parallel_models`), as a
+    context; without the flag a null context (None)."""
+    if not args.camera_mesh:
+        return contextlib.nullcontext()
+    import torch
+
+    from cm3d_tpu_torch.parallel.mesh import DataParallelGroup, available_devices, make_mesh
+
+    device = torch.device(args.device)
+    return DataParallelGroup(make_mesh(n_data=args.camera_mesh,
+                                       devices=[device] * available_devices(device)), device)
 
 
 def run_nms(args) -> bool:

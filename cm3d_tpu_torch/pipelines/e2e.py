@@ -22,6 +22,8 @@ Usage:
   python -m cm3d_tpu_torch.pipelines.e2e --dataset kitti --dataroot KITTI \\
       --scenes 0,1,2 --out preds_dir --fake_weights
   ... --detector gdino [--gdino_ckpt G --gdino_vocab V] [--gdino_bf16]
+  ... --camera_mesh N   (the 2D stage camera-parallel over N ranks; the
+                         lift runs on rank 0)
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_quant_flags, add_unported_flags, refuse_unported, run_nms)
+    add_model_flags, add_quant_flags, add_run_flags, camera_mesh, run_nms)
 from cm3d_tpu_torch.pipelines.masks import (
     MaskModels, attach_models, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
@@ -571,17 +573,12 @@ def main(argv=None):
     p.add_argument("--encode_chunk", type=int, default=1,
                    help="cameras per SAM-encode step (must divide the ring size)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
-    # accepted so that a JAX command line fails with a pointer, not a usage error
-    add_unported_flags(p)
+    add_run_flags(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     # the reference's Waymo vocabulary drops cone/barrier
     # (waymo/gen_2d_masks_detic.py:66-87), as in the masks CLI
     waymo = args.dataset == "waymo"
-    models = attach_models(build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
-                                        else CUSTOM_VOCABULARY_NUSCENES, args.device),
-                           args, args.device)
     common = dict(mask_cfg=MaskStageConfig(run_nms=run_nms(args)), thumbnail=args.thumbnail,
                   mask_dir=args.mask_dir or None, device=args.device)
     scenes = args.scenes.split(",")
@@ -595,13 +592,16 @@ def main(argv=None):
         index, count = process_index_and_count()
         if count > 1:
             out = f"{args.out}.host{index}"
-    if waymo:
-        run_e2e_waymo(args.dataroot, scenes, out, models, **common)
-    elif args.dataset == "kitti":
-        run_e2e_kitti(args.dataroot, [int(i) for i in scenes], out, models, **common)
-    else:
-        run_e2e(args.dataroot, args.version, scenes, out, models, **common)
-
+    with camera_mesh(args) as mesh:
+        models = attach_models(build_models(p, args, CUSTOM_VOCABULARY_WAYMO if waymo
+                                            else CUSTOM_VOCABULARY_NUSCENES, args.device, mesh),
+                               args, args.device)
+        if waymo:
+            run_e2e_waymo(args.dataroot, scenes, out, models, **common)
+        elif args.dataset == "kitti":
+            run_e2e_kitti(args.dataroot, [int(i) for i in scenes], out, models, **common)
+        else:
+            run_e2e(args.dataroot, args.version, scenes, out, models, **common)
 
 if __name__ == "__main__":
     main()

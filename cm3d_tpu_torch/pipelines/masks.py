@@ -27,7 +27,8 @@ ZoeDepth metric depth instead of its RLE (`models/zoedepth.py`); with
         [--dataset waymo|kitti] (--fake_weights | --detic_ckpt D --sam_ckpt S \\
         --clip_ckpt C --bpe_path B [--sam_size vit_h]) [--quant_int8 \\
         [--quant_static]] [--use_zoedepth [--zoe_ckpt Z]] [--detector gdino \\
-        [--gdino_ckpt G --gdino_vocab V] [--gdino_bf16]] [--device cpu]
+        [--gdino_ckpt G --gdino_vocab V] [--gdino_bf16]] [--camera_mesh N] \\
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,7 +47,7 @@ from cm3d_tpu_torch.config import MaskStageConfig
 from cm3d_tpu_torch.datasets.artifacts import FrameMasks, MaskArtifactStore
 from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
 from cm3d_tpu_torch.pipelines.cli_flags import (
-    add_model_flags, add_quant_flags, add_unported_flags, refuse_unported, run_nms)
+    add_model_flags, add_quant_flags, add_run_flags, camera_mesh, run_nms)
 from cm3d_tpu_torch.utils.fetch import HostCopy
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
@@ -459,32 +461,43 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
     # deploy data, so the FIRST ring calibrates: one encode of its cameras
     # through the dynamic product records each layer's input absmax (the max
     # over the cameras), bake_act_scales writes the buffers, and every later
-    # ring runs the static path
-    calibration = {"pending": bool(sam_model.cfg.quant_static), "seconds": None}
+    # ring runs the static path (the scales are the max over the whole
+    # ring); a camera-parallel rank sets "reduce" to take the max over the
+    # whole ring's ranks before the bake
+    calibration = {"pending": bool(sam_model.cfg.quant_static), "seconds": None,
+                   "reduce": None}
 
-    def _calibrate_first_ring(frame):
+    def _calibrate_first_ring(xs):
         from cm3d_tpu_torch.models.common import calibrate_act_scales_
 
         t0 = time.perf_counter()
-        xs = to_device(np.stack([preprocess_image(im, img_size) for im in frame["images"]]),
-                       device)
         calibrate_act_scales_(sam_model, lambda: [sam_model.encode_image(xs[i:i + 1])
-                                                  for i in range(xs.shape[0])])
-        calibration.update(pending=False, seconds=time.perf_counter() - t0)
+                                                  for i in range(xs.shape[0])],
+                              reduce=calibration["reduce"])
+        calibration.update(pending=False, seconds=time.perf_counter() - t0,
+                           act_scales={k: v.clone() for k, v in sam_model.state_dict().items()
+                                       if k.endswith(".act_scale")})
+
+    def resized(frame):
+        """The ring resized to the SAM input square on the host (PIL
+        bilinear), or the frame's "xs" where the caller made them."""
+        if "xs" in frame:
+            return frame["xs"]
+        return to_device(np.stack([preprocess_image(im, img_size) for im in frame["images"]]),
+                         device)
 
     @torch.inference_mode()
     def sam_encode(frame):
         if calibration["pending"]:
-            _calibrate_first_ring(frame)
+            _calibrate_first_ring(resized(frame))
         if frame["scale1"]:
             xs = _norm_and_mask(frame["dev"], frame["hw"], sam_stats)
             h, w = xs.shape[1], xs.shape[2]
             if not sam_model.cfg.rect_encode:
                 # SamPredictor semantics: encode the zero-padded square
                 xs = torch.nn.functional.pad(xs, (0, 0, 0, img_size - w, 0, img_size - h))
-        else:  # host resize to the SAM input square (PIL bilinear)
-            xs = to_device(np.stack([preprocess_image(im, img_size) for im in frame["images"]]),
-                           device)
+        else:
+            xs = resized(frame)
         return torch.cat([sam_model.encode_image(xs[i:i + chunk])
                           for i in range(0, xs.shape[0], chunk)])
 
@@ -493,7 +506,9 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
         return make_plane_postprocess(mask_wh, cam_hw, nw, rect=rect, layout=layout)
 
     @torch.inference_mode()
-    def sam_decode_planes(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout="xy"):
+    def sam_decode_planes(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout="xy", offset=0):
+        """`offset`: the bit of the first camera's first mask (a camera-
+        parallel rank's block of the ring)."""
         # image px -> SAM-input px resize factor per camera
         scales = np.array([img_size / max(h, w) for h, w in cam_hw], np.float32)
         sb = to_device(np.asarray(boxes, np.float32) * scales[:, None, None], device)
@@ -503,10 +518,157 @@ def _batched_model_fns(detic_model, classifier, sam_model, vocabulary, device=No
         hw_grid = sam_model.cfg.embed_hw
         rect = tuple(emb.shape[1:3]) != (hw_grid, hw_grid)
         post = _postprocess(tuple(map(tuple, cam_hw)), tuple(mask_wh), int(nw), rect, layout)
-        return post(logits, [int(n) for n in n_boxes])
+        return post(logits, [int(n) for n in n_boxes], offset=int(offset))
 
     sam_encode.calibration = calibration  # the first ring's calibration seconds
+    sam_encode.resized = resized
     return MaskModels(prepare, detic, sam_encode, sam_decode_planes, tuple(vocabulary))
+
+
+class RingEmbedding(NamedTuple):
+    """The camera-parallel SAM encode's handle: each rank keeps its block
+    of the ring's embeddings under `key`; `local` is rank 0's block."""
+
+    key: int
+    local: torch.Tensor
+
+
+class _CameraRank:
+    """One rank of the camera-parallel mask stage: a contiguous block of
+    the ring's cameras through its own copy of the models (`local`, the
+    single-device MaskModels on this rank's device)."""
+
+    KEEP = 2  # encodes whose embeddings a rank keeps for their decode
+
+    def __init__(self, local: MaskModels, device):
+        self.local, self.device = local, torch.device(device)
+        self.embs: dict = {}
+        calibration = getattr(local.sam_encode, "calibration", None)
+        if calibration is not None:
+            # quant_static: the first ring's absmax is the max over every rank's cameras
+            calibration["reduce"] = _max_over_data
+
+    def _block(self, *tensors):
+        from cm3d_tpu_torch.parallel.mesh import axis_group
+
+        ax = axis_group("data")
+        c = tensors[0].shape[0] // ax.size
+        return [None if t is None else t[ax.index * c:(ax.index + 1) * c] for t in tensors]
+
+    def __call__(self, op: str, *args):
+        return getattr(self, op)(*args)
+
+    def detic(self, canvas, hw):
+        from cm3d_tpu_torch.parallel.mesh import gather_to_first
+
+        canvas, hw = self._block(canvas, hw)
+        parts = gather_to_first(list(self.local.detic({"dev": canvas, "hw": hw})), "data")
+        return None if parts is None else tuple(torch.cat(p) for p in zip(*parts))
+
+    def encode(self, key: int, canvas, hw, scale1: bool, xs):
+        canvas, hw, xs = self._block(canvas, hw, xs)
+        frame = {"dev": canvas, "hw": hw, "scale1": scale1}
+        if xs is not None:
+            frame["xs"] = xs
+        self.embs[key] = self.local.sam_encode(frame)
+        for old in [k for k in self.embs if k <= key - self.KEEP]:
+            del self.embs[old]
+        return RingEmbedding(key, self.embs[key])
+
+    def decode(self, key: int, boxes, n_boxes, offsets, cam_hw, mask_wh, nw: int, layout: str):
+        from cm3d_tpu_torch.parallel.mesh import gather_to_first
+
+        boxes, n_boxes, offsets, cam_hw = (t.cpu() for t in self._block(boxes, n_boxes,
+                                                                          offsets, cam_hw))
+        planes = self.local.sam_decode_planes(
+            self.embs[key], boxes.numpy(), n_boxes.tolist(),
+            [tuple(r) for r in cam_hw.tolist()], mask_wh, nw, layout, offset=int(offsets[0]))
+        parts = gather_to_first([planes], "data")
+        if parts is None:
+            return None
+        out = parts[0][0].clone()
+        for (p,) in parts[1:]:
+            out |= p  # each rank's masks hold distinct bits
+        return out
+
+
+def _max_over_data(record: dict) -> None:
+    """A calibration record's absmax, each the max over the data axis."""
+    import torch.distributed as dist
+
+    from cm3d_tpu_torch.parallel.mesh import axis_group
+
+    ax = axis_group("data")
+    for v in record.values():
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=ax.group)
+
+
+def _camera_rank(builder: str, kwargs: dict, device) -> _CameraRank:
+    import torch.distributed as dist
+
+    from cm3d_tpu_torch.parallel.mesh import _resolve
+
+    if "verbose" in kwargs:  # one load report, rank 0's
+        kwargs = {**kwargs, "verbose": kwargs["verbose"] and dist.get_rank() == 0}
+    return _CameraRank(_resolve(builder)(**kwargs, device=device), device)
+
+
+def camera_parallel_models(mesh, builder: str, **kwargs) -> MaskModels:
+    """The camera-parallel 2D stage over a started mesh group (`mesh`, a
+    `parallel.mesh.DataParallelGroup` whose Mesh is (data,) or (data, 1)):
+    the JAX package's `_batched_model_fns(mesh=)`. Every rank builds the
+    same models with `builder(**kwargs, device=its device)` ("module:
+    function", a single-device MaskModels builder: the same seed for
+    random weights, the same files for released ones).
+
+    The ring's cameras split over the data axis in contiguous blocks; Detic
+    and the SAM encoder run on the rank that holds the camera, and the
+    embeddings stay there; each rank decodes its cameras with the boxes of
+    rank 0's host NMS and packs their masks at their bits of the ring; the
+    detections and the planes come back to rank 0 in camera order. A ring
+    that the axis does not divide raises naming the ring size. The encode
+    runs one camera at a time (`encode_chunk` does not apply under a
+    mesh). With quant_static the first ring's activation absmax is the max
+    over every rank's cameras, so every rank bakes the single-device
+    scales. Only the main thread may call detic / sam_encode /
+    sam_decode_planes (they drive the group); prepare is local."""
+    from cm3d_tpu_torch.parallel.mesh import Program
+
+    shape = mesh.mesh.shape
+    if "data" not in shape or any(n != 1 for a, n in shape.items() if a != "data"):
+        raise ValueError(f"the camera-parallel mask stage runs on a (data,) mesh, not {shape}")
+    n = shape["data"]
+    inst = _camera_rank(builder, kwargs, mesh.device)
+    call = mesh.spmd(Program(f"{__name__}:_camera_rank", (builder, kwargs)), local=inst)
+    local, keys = inst.local, itertools.count()
+    calibration = getattr(local.sam_encode, "calibration", {})
+
+    def prepare(images):
+        if len(images) % n:
+            raise ValueError(f"camera-parallel mask stage: ring size {len(images)} must "
+                             f"divide over the mesh data axis ({n})")
+        return local.prepare(images)
+
+    def detic(frame):
+        return call("detic", frame["dev"], frame["hw"])
+
+    def sam_encode(frame):
+        # the host resize of every camera, where a rank's encode or its
+        # calibration reads it
+        xs = (local.sam_encode.resized(frame)
+              if not frame["scale1"] or calibration.get("pending") else None)
+        return call("encode", next(keys), frame["dev"], frame["hw"], frame["scale1"], xs)
+
+    def sam_decode_planes(emb, boxes, n_boxes, cam_hw, mask_wh, nw, layout="xy"):
+        n_boxes = np.asarray(n_boxes, np.int64)
+        offsets = np.concatenate([[0], np.cumsum(n_boxes)[:-1]]).astype(np.int64)
+        return call("decode", emb.key, torch.as_tensor(np.asarray(boxes, np.float32)),
+                    torch.as_tensor(n_boxes), torch.as_tensor(offsets),
+                    torch.as_tensor(np.asarray(cam_hw, np.int64)), tuple(mask_wh), int(nw),
+                    layout)
+
+    sam_encode.calibration = calibration
+    return MaskModels(prepare, detic, sam_encode, sam_decode_planes, local.vocabulary)
 
 
 def quantized_models(detic, sam, quant_int8: bool, quant_static: bool = False):
@@ -536,13 +698,21 @@ def quantized_models(detic, sam, quant_int8: bool, quant_static: bool = False):
 def build_fake_models(seed: int = 0, vocabulary=CUSTOM_VOCABULARY_NUSCENES,
                       rect_encode: bool = False, encode_chunk: int = 1,
                       device=None, fused_window_attn: bool = False,
-                      quant_int8: bool = False, quant_static: bool = False) -> MaskModels:
+                      quant_int8: bool = False, quant_static: bool = False,
+                      mesh=None) -> MaskModels:
     """Tiny random-weight models (DETIC_TEST, SAM_TEST; weights drawn on the
     CPU from a torch.Generator seeded with `seed`, so every device gets the
     same models) behind the same batched wrappers as the full-size ones.
     `fused_window_attn` runs SAM's windowed blocks through the fused
     kernels (same weights); `quant_int8` / `quant_static` run the int8
-    twins of the same weights (`quantized_models`)."""
+    twins of the same weights (`quantized_models`). `mesh`: a started
+    group, the camera-parallel stage (`camera_parallel_models`; its ranks
+    on their own devices, `device` unused)."""
+    if mesh is not None:
+        return camera_parallel_models(
+            mesh, f"{__name__}:build_fake_models", seed=seed, vocabulary=tuple(vocabulary),
+            rect_encode=rect_encode, fused_window_attn=fused_window_attn,
+            quant_int8=quant_int8, quant_static=quant_static)
     from cm3d_tpu_torch.models.common import init_weights
     from cm3d_tpu_torch.models.detic import DETIC_TEST, Detic
     from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
@@ -565,7 +735,7 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
                       rect_encode: bool = False, encode_chunk: int = 1,
                       sam_size: str = "vit_h", quant_int8: bool = False,
                       quant_static: bool = False, detic_used: bool = True,
-                      device=None, verbose: bool = True) -> MaskModels:
+                      device=None, verbose: bool = True, mesh=None) -> MaskModels:
     """Full-size Detic Swin-B and SAM (`sam_size`) from the released
     checkpoints, the classifier from CLIP's text encoder over `vocabulary`,
     behind the same batched wrappers as `build_fake_models`.
@@ -580,7 +750,15 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
     sam_vit_h_4b8939.pth; vit_l / vit_b are the released smaller
     checkpoints, a documented speed/quality deviation). detic_used=False
     (`--detector gdino`, `attach_gdino` swaps the detector next) loads the
-    Detic file in whichever form it is, float or int8."""
+    Detic file in whichever form it is, float or int8. `mesh`: a started
+    group, the camera-parallel stage (`camera_parallel_models`: every rank
+    loads the same files on its own device)."""
+    if mesh is not None:
+        return camera_parallel_models(
+            mesh, f"{__name__}:build_real_models", detic_ckpt=detic_ckpt, sam_ckpt=sam_ckpt,
+            clip_ckpt=clip_ckpt, bpe_path=bpe_path, vocabulary=tuple(vocabulary), dtype=dtype,
+            rect_encode=rect_encode, sam_size=sam_size, quant_int8=quant_int8,
+            quant_static=quant_static, detic_used=detic_used, verbose=verbose)
     from cm3d_tpu_torch.models.checkpoints import load_released_checkpoint
     from cm3d_tpu_torch.models.clip_text import (
         CLIP_TEXT_B32, ClipTextEncoder, SimpleTokenizer, embed_vocabulary)
@@ -649,15 +827,16 @@ def build_real_models(detic_ckpt: str, sam_ckpt: str, clip_ckpt: str, bpe_path: 
                               encode_chunk=encode_chunk)
 
 
-def build_models(p, args, vocabulary, device) -> MaskModels:
+def build_models(p, args, vocabulary, device, mesh=None) -> MaskModels:
     """The MaskModels the CLI flags (`cli_flags.add_model_flags`) ask for:
     the tiny random-weight models with `--fake_weights`, else the released
     checkpoints (all four paths, or argparse's error through `p`, as in
-    JAX)."""
+    JAX); camera-parallel over `mesh` (`--camera_mesh`'s started group)."""
     if args.fake_weights:
         return build_fake_models(vocabulary=vocabulary, rect_encode=args.rect_encode,
                                  encode_chunk=args.encode_chunk, device=device,
-                                 quant_int8=args.quant_int8, quant_static=args.quant_static)
+                                 quant_int8=args.quant_int8, quant_static=args.quant_static,
+                                 mesh=mesh)
     missing = [f"--{f}" for f in ("detic_ckpt", "sam_ckpt", "clip_ckpt", "bpe_path")
                if not getattr(args, f)]
     if missing:
@@ -667,7 +846,7 @@ def build_models(p, args, vocabulary, device) -> MaskModels:
                              vocabulary=vocabulary, rect_encode=args.rect_encode,
                              encode_chunk=args.encode_chunk, sam_size=args.sam_size,
                              quant_int8=args.quant_int8, quant_static=args.quant_static,
-                             detic_used=args.detector == "detic", device=device)
+                             detic_used=args.detector == "detic", device=device, mesh=mesh)
 
 
 def attach_models(models: MaskModels, args, device) -> MaskModels:
@@ -882,10 +1061,8 @@ def main(argv=None):
     p.add_argument("--encode_chunk", type=int, default=1,
                    help="cameras per SAM-encode step (must divide the ring size)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cpu)")
-    # accepted so that a JAX command line fails with a pointer, not a usage error
-    add_unported_flags(p)
+    add_run_flags(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
 
     provider, scene_names, frames_fn = {
         "nuscenes": _nuscenes_provider,
@@ -897,11 +1074,13 @@ def main(argv=None):
 
         scene_names = shard_for_host(scene_names)
     vocab = CUSTOM_VOCABULARY_WAYMO if args.dataset == "waymo" else CUSTOM_VOCABULARY_NUSCENES
-    models = attach_models(build_models(p, args, vocab, args.device), args, args.device)
     cfg = MaskStageConfig(run_nms=run_nms(args), thumbnail=args.thumbnail,
                           use_zoedepth=args.use_zoedepth)
-    run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,
-                   resume=not args.no_resume)
+    with camera_mesh(args) as mesh:
+        models = attach_models(build_models(p, args, vocab, args.device, mesh), args,
+                               args.device)
+        run_mask_stage(models, provider, scene_names, frames_fn, args.out_dir, cfg,
+                       resume=not args.no_resume)
 
 
 if __name__ == "__main__":

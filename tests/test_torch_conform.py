@@ -1,7 +1,7 @@
 """The port's conformance runbook (cm3d_tpu_torch/conform.py): the eight
 tests of tests/test_conform.py on the port's verify -> convert -> e2e ->
 eval orchestration, at fixture scale with the pipeline phases stubbed, plus
-the port's own refusal (--camera_mesh names A14e), --quant_int8, ZoeDepth
+--camera_mesh reaching the model builders, --quant_int8, ZoeDepth
 and GroundingDINO running, the Detic / CLIP conversions, and main's exit
 codes. (conform's gdino family on a GroundingDINO file:
 tests/test_torch_gdino_cli.py.)
@@ -246,7 +246,8 @@ def test_unported_phases_name_their_roadmap_items(tmp_path, monkeypatch):
     ZoeDepth or GroundingDINO file fails its own phase, naming the file and
     no ROADMAP item (rc 1, the report still written). The e2e argv asks for
     gdino with its vocabulary, which the port's e2e CLI accepts (the run
-    goes on to read the dataroot); --camera_mesh still names A14e."""
+    goes on to read the dataroot); --camera_mesh (A14e) reaches the model
+    builders as a started two-rank (data,) mesh group."""
     seen = {}
     monkeypatch.setattr(conform, "_e2e_main", lambda argv: seen.setdefault("e2e", argv))
     report, rc = conform.run_conform(
@@ -260,12 +261,21 @@ def test_unported_phases_name_their_roadmap_items(tmp_path, monkeypatch):
     argv = seen["e2e"]
     assert argv[argv.index("--detector") + 1] == "gdino" and "--quant_int8" in argv
     assert argv[argv.index("--gdino_vocab") + 1] == "vocab.txt"
+    from cm3d_tpu_torch.pipelines import e2e
     from cm3d_tpu_torch.pipelines.e2e import main as e2e_main
 
     with pytest.raises(FileNotFoundError):
         e2e_main(argv)
-    with pytest.raises(NotImplementedError, match="A14e"):
+    real_build = e2e.build_models
+
+    def spy(p, args, vocabulary, device, mesh=None):
+        seen["mesh"] = None if mesh is None else dict(mesh.mesh.shape)
+        return real_build(p, args, vocabulary, device, mesh)
+
+    monkeypatch.setattr(e2e, "build_models", spy)
+    with pytest.raises(FileNotFoundError):
         e2e_main(argv + ["--camera_mesh", "2"])
+    assert seen["mesh"] == {"data": 2, "model": 1}
 
 
 def test_main_exit_codes_and_summary(tmp_path, capsys):

@@ -316,13 +316,16 @@ def test_cli_runs_on_the_fixture_and_names_what_is_not_ported(world, monkeypatch
     e2e.main(argv + ["--quant_int8", "--quant_static"])
     assert set(json.loads(out.read_text())) == {"meta", "results"}
     # --detector gdino is ported (A13c): the tiny GroundingDINO replaces
-    # Detic, in f32 and with --gdino_bf16; --camera_mesh still names A14e
+    # Detic, in f32 and with --gdino_bf16
     for extra in (["--detector", "gdino"], ["--detector", "gdino", "--gdino_bf16"]):
         out.unlink()
         e2e.main(argv + extra)
         assert set(json.loads(out.read_text())) == {"meta", "results"}
-    with pytest.raises(NotImplementedError, match="A14e"):
-        e2e.main(argv + ["--camera_mesh", "2"])
+    # --camera_mesh is ported (A14e): the 2D stage over two gloo ranks, the
+    # lift on rank 0, the submission of the run without the flag
+    out.unlink()
+    e2e.main(argv + ["--camera_mesh", "2"])
+    assert json.loads(out.read_text())["results"] == sub["results"]
     # the checkpoint flags are ported (A6): without --fake_weights all four
     # paths are needed, else argparse's error
     for extra in ([], ["--sam_ckpt", "x.pth", "--sam_size", "vit_b"]):

@@ -337,8 +337,8 @@ def test_cli_run_nms_default_for_kitti(cli, monkeypatch, tmp_path):
     """The reference's KITTI flow runs without 2D NMS ("wo_2d_nms"): kitti ->
     run_nms False unless --run_nms 1; nuScenes -> True. Both CLIs."""
     seen = {}
-    monkeypatch.setattr(masks, "build_models", lambda p, args, vocab, device: "models")
-    monkeypatch.setattr(e2e, "build_models", lambda p, args, vocab, device: "models")
+    monkeypatch.setattr(masks, "build_models", lambda p, args, vocab, device, mesh=None: "models")
+    monkeypatch.setattr(e2e, "build_models", lambda p, args, vocab, device, mesh=None: "models")
     if cli == "masks":
         monkeypatch.setattr(masks, "run_mask_stage",
                             lambda m, prov, scenes, fn, out, cfg, resume: seen.update(cfg=cfg))

@@ -122,7 +122,7 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys, one_torch_thread):
 
 # item None: ported since (the checkpoint flags and --sam_size in A6, Waymo
 # in A8, KITTI in A9, int8 in A12, ZoeDepth in A13b, GroundingDINO in A13c,
-# --host_shard in A14a);
+# --host_shard in A14a, --camera_mesh in A14e: every flag of the JAX CLI);
 # the flag is accepted and the run goes on to read the dataroot
 @pytest.mark.parametrize("extra,item", [
     (["--detic_ckpt", "x.pth"], None), (["--sam_ckpt", "x.pth"], None),
@@ -130,7 +130,7 @@ def test_masks_cli_on_the_fixture_dataroot(tmp_path, capsys, one_torch_thread):
     (["--sam_size", "vit_l"], None), (["--quant_int8"], None), (["--quant_static"], None),
     (["--use_zoedepth"], None), (["--zoe_ckpt", "z.pt"], None), (["--detector", "gdino"], None),
     (["--gdino_ckpt", "g.pth"], None), (["--gdino_vocab", "v.txt"], None),
-    (["--gdino_bf16"], None), (["--camera_mesh", "2"], "A14"), (["--host_shard"], None),
+    (["--gdino_bf16"], None), (["--camera_mesh", "2"], None), (["--host_shard"], None),
     (["--dataset", "waymo"], None), (["--dataset", "kitti"], None),
 ])
 def test_masks_cli_names_the_roadmap_item_of_a_jax_flag(tmp_path, extra, item):

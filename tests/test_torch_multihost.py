@@ -139,7 +139,7 @@ def test_masks_cli_host_shard(host_1_of_2, monkeypatch, tmp_path):
     seen = {}
     monkeypatch.setattr(masks, "_nuscenes_provider",
                         lambda args: (None, list(SCENES[:4]), len))
-    monkeypatch.setattr(masks, "build_models", lambda p, args, vocab, device: "models")
+    monkeypatch.setattr(masks, "build_models", lambda p, args, vocab, device, mesh=None: "models")
     monkeypatch.setattr(masks, "run_mask_stage",
                         lambda models, provider, scenes, frames_fn, out_dir, cfg, resume:
                         seen.update(scenes=scenes, out_dir=out_dir))
@@ -158,7 +158,7 @@ def test_e2e_cli_host_shard_writes_its_host_file(host_1_of_2, monkeypatch, tmp_p
         seen["scenes"], seen["out"] = args[-3], args[-2]
 
     monkeypatch.setattr(e2e, runner, fake_run)
-    monkeypatch.setattr(e2e, "build_models", lambda p, args, vocab, device: "models")
+    monkeypatch.setattr(e2e, "build_models", lambda p, args, vocab, device, mesh=None: "models")
     e2e.main(["--dataset", dataset, "--dataroot", str(tmp_path), "--scenes", "0,1,2,3,4",
               "--out", str(tmp_path / "o"), "--fake_weights", "--device", "cpu",
               "--host_shard"])
