@@ -7,6 +7,7 @@
     python3 chip_smoke.py --quant-zoe-phase   # phase 20 alone
     python3 chip_smoke.py --gdino-phase   # phase 21 alone
     python3 chip_smoke.py --model-parallel-phase   # phase 22 alone
+    python3 chip_smoke.py --bench-entry-phase   # phase 23 alone
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -25,7 +26,9 @@ Phases, each of which raises on a failed check (exit code != 0):
    a spin kernel holds the card while the host queues the calls), its
    kernels' durations (kernels_ms, torch.profiler) and their split over
    count and scatter, and the share of value sectors holding a kept source.
-3. Main path: bench_lift at batch 8 with every launch count reset just
+3. Main path: the benchmark entry's default run (`python -m
+   cm3d_tpu_torch.bench`, no stage: bench_lift at batch 8, one JSON line
+   with its note), in this process, with every launch count reset just
    before; each step must launch the compaction kernel 3 times and the
    medoid kernel once. One more step is checked for sane outputs and
    against the port's plain CPU path on 2 of its keyframes.
@@ -253,7 +256,22 @@ Phases 15-17 run after phase 9, before the training phases.
    ms an encode in turns); one all-reduce's ms over the one-rank group;
    GPipe over CLIP B/32's 12 text blocks at S = 1, M = 4 (forward and
    gradients against the sequential apply, ms a step in turns).
-23. One JSON line per kernel summary, then the card's name and power limit,
+23. The benchmark entry, in a child process (`chip_smoke.py
+   --bench-entry-phase`): `python -m cm3d_tpu_torch.bench` once for each
+   stage (lift, masks, e2e, masks with the rect encode and ViT-L, train,
+   fusion_train conv and Swin-T bf16; the default run is phase 3's), each
+   in its own process: exit 0 and exactly one stdout line, JSON, naming
+   the stage's metric with a finite positive value; `--stage lfit` and
+   `--stage lift --rect_encode` refused with the JAX entry's message and
+   no stdout; `--stage e2e --profile fast` through the entry in the
+   phase's own process (its one line: four points, boxes kept invariant),
+   every count set to 0 just before each point and read just after (3 B1
+   + 1 B2 a lift step, 24 + 24 B3 a Detic forward, no B4); the A16 geometry
+   helpers card vs CPU and `medoid_index` on a lift step's compacted rows
+   against the plain index (one B2 launch a call); SAM ViT-H / L / B bf16,
+   the rect encode's embedding against the square one's and ms an encode
+   of each in turns.
+24. One JSON line per kernel summary, then the card's name and power limit,
    then the last line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the cm3d_tpu package. Without a CUDA device,
@@ -4823,6 +4841,329 @@ def model_parallel_phase_in_child() -> dict:
     return json.loads(lines[-1])
 
 
+# --- 23. the benchmark entry (python -m cm3d_tpu_torch.bench) ----------------
+
+BENCH_ENTRY_FLAG = "--bench-entry-phase"  # the child process of phase 23
+ENTRY_RUNS = (  # (argv, the metric its line must name), each in a process of its own
+    (("--stage", "lift"), "lift_keyframes_per_sec_per_chip"),
+    (("--stage", "masks"), "mask_stage_keyframes_per_sec_per_chip"),
+    (("--stage", "e2e"), "e2e_keyframes_per_sec_per_chip"),
+    (("--stage", "masks", "--rect_encode", "--sam_size", "vit_l"),
+     "mask_stage_keyframes_per_sec_per_chip"),
+    (("--stage", "train"), "train_step_ms_batch8"),
+    (("--stage", "fusion_train"), "fusion_train_step_ms_batch8"),
+    (("--stage", "fusion_train", "--swin_camera", "--camera_bf16"), "fusion_train_step_ms_batch8"),
+)
+ENTRY_REFUSALS = (  # (argv, the JAX entry's message)
+    (("--stage", "lfit"), "unknown --stage 'lfit'"),
+    (("--stage", "lift", "--rect_encode"),
+     "--rect_encode/--quant_int8/--sam_size only apply to --stage masks|e2e"),
+)
+FAST_PROFILE_ARGV = ("--stage", "e2e", "--profile", "fast")
+ENTRY_TIMEOUT_S = 300  # one entry run
+A16_RTOL = 1e-6  # A16 card vs CPU, x the tensor's largest |value|
+MEDOID_INDEX_ROWS = 64  # rows of a lift step held through medoid_index
+
+
+def entry_line(argv) -> dict:
+    """`cm3d_tpu_torch.bench.main(argv)` in this process, so that the launch
+    counts read around it are the run's own: its standard output must be
+    exactly one JSON line, which is returned."""
+    import contextlib
+    import io
+
+    from cm3d_tpu_torch import bench
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(list(argv))
+    lines = buf.getvalue().splitlines()
+    cmd = " ".join(("python -m cm3d_tpu_torch.bench",) + tuple(argv))
+    check(len(lines) == 1, f"{cmd}: one stdout line, got {lines}")
+    print(lines[0], flush=True)
+    return json.loads(lines[0])
+
+
+def entry_run(argv) -> dict:
+    """`python -m cm3d_tpu_torch.bench *argv` from the checkout's root, in a
+    process of its own: exit code, stdout lines, stderr, seconds."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cm3d_tpu_torch.bench", *argv],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=ENTRY_TIMEOUT_S)
+    return {"rc": proc.returncode, "lines": proc.stdout.splitlines(), "stderr": proc.stderr,
+            "s": time.perf_counter() - t0}
+
+
+def entry_runs_phase(card: str) -> dict:
+    """Every stage through the entry, each in its own process: exit 0 and
+    exactly one stdout line, JSON, naming the stage's metric with a finite
+    positive value; then two refusals: non-zero, the JAX entry's message,
+    no stdout."""
+    out = {"runs": [], "refusals": []}
+    for argv, metric in ENTRY_RUNS:
+        run = entry_run(argv)
+        cmd = " ".join(("python -m cm3d_tpu_torch.bench",) + argv)
+        for ln in run["lines"]:
+            print(ln, flush=True)
+        tail = "\n".join(run["stderr"].splitlines()[-20:])
+        check(run["rc"] == 0, f"{cmd} exited with {run['rc']}:\n{tail}")
+        check(len(run["lines"]) == 1, f"{cmd}: one stdout line, got {len(run['lines'])}")
+        line = json.loads(run["lines"][0])
+        check(line["metric"] == metric and np.isfinite(line["value"]) and line["value"] > 0,
+              f"{cmd}: {metric} with a finite positive value, got {line}")
+        print(f"[{card}] {cmd}: exit 0, one line, {run['s']:.1f} s", flush=True)
+        out["runs"].append({"argv": list(argv), "line": line, "s": run["s"]})
+    for argv, message in ENTRY_REFUSALS:
+        run = entry_run(argv)
+        cmd = " ".join(("python -m cm3d_tpu_torch.bench",) + argv)
+        said = run["stderr"].strip().splitlines()
+        check(run["rc"] != 0 and not run["lines"] and said and said[-1] == message,
+              f"{cmd}: refused with {message!r} and no stdout, got exit {run['rc']}, "
+              f"stdout {run['lines']}, stderr {said[-1:]}")
+        print(f"[{card}] {cmd}: refused (exit {run['rc']}): {said[-1]}", flush=True)
+        out["refusals"].append({"argv": list(argv), "rc": run["rc"], "message": said[-1]})
+    return out
+
+
+def fast_profile_launch_phase(torch, card: str) -> dict:
+    """`--stage e2e --profile fast` through the entry in this process, at
+    the entry's own shapes (12 timed keyframes a point in batches of 4):
+    every launch count set to 0 just before each point and read just after
+    (3 B1 + 1 B2 a lift step, 24 + 24 B3 a Detic forward, no B4), and the
+    entry's one line held to four points with the same boxes kept."""
+    import cm3d_tpu_torch.benchmarks as benchmarks
+    from cm3d_tpu_torch.kernels.compact import compact_rows
+    from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
+    from cm3d_tpu_torch.kernels.window_attn_relpos import (
+        window_attn_relpos_heads,
+        window_attn_relpos_proj,
+    )
+
+    wrappers = (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj,
+                window_attn_relpos_heads, window_attn_relpos_proj)
+    real, points = benchmarks.bench_e2e, []
+
+    def counted(**kw):
+        for wr in wrappers:
+            wr.launches = 0
+        r = real(**kw)
+        launches = {wr.__name__: wr.launches for wr in wrappers}
+        frames = kw["batch_size"] + kw["n_frames"]  # the warm-up run, then the timed one
+        steps = 1 + -(-kw["n_frames"] // kw["batch_size"])
+        want = {"compact_rows": 3 * steps, "medoid_distance_sums_rows": steps,
+                "window_attn_heads": SWIN_BLOCKS_PER_FORWARD * frames,
+                "window_attn_proj": SWIN_BLOCKS_PER_FORWARD * frames,
+                "window_attn_relpos_heads": 0, "window_attn_relpos_proj": 0}
+        mode = {k: kw.get(k, False) for k in ("sam_size", "rect_encode", "quant_int8")}
+        check(launches == want, f"fast profile point {mode}: launches {launches}, expected "
+              f"{want} over {frames} keyframes and {steps} lift steps")
+        points.append({**mode, "launches": launches, "keyframes": frames, "lift_steps": steps,
+                       "batch_size": kw["batch_size"],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return r
+
+    t0 = time.perf_counter()
+    benchmarks.bench_e2e = counted
+    try:
+        prof = entry_line(FAST_PROFILE_ARGV)
+    finally:
+        benchmarks.bench_e2e = real
+    s = time.perf_counter() - t0
+    check(prof["metric"] == "e2e_fast_profile_keyframes_per_sec_per_chip"
+          and np.isfinite(prof["value"]) and prof["value"] > 0,
+          f"the fast profile's line: its metric with a finite positive value: {prof}")
+    check(len(prof["points"]) == 4 == len(points) and prof["boxes_invariant_across_modes"] is True,
+          f"the fast profile: four points, counted, with the same boxes kept: {prof}")
+    for p, q in zip(prof["points"], points):
+        print(f"  {p['profile']}: peak device memory {q['peak_gib']:.2f} GiB", flush=True)
+    print(f"[{card}] {' '.join(('python -m cm3d_tpu_torch.bench',) + FAST_PROFILE_ARGV)} in this "
+          f"process: one line, {s:.1f} s; launches a point (counted in that run) "
+          f"{[p['launches'] for p in points]}", flush=True)
+    return {"profile": prof, "points": points, "s": s}
+
+
+def _a16_cases(torch, rng):
+    """The A16 functions on seeded inputs at 1e3 m (name -> (fn, args))."""
+    from cm3d_tpu_torch import geometry as g
+
+    def quats(*shape):
+        q = rng.normal(size=shape + (4,))
+        return torch.tensor(q / np.linalg.norm(q, axis=-1, keepdims=True), dtype=torch.float32)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32)
+
+    batch = (8, 16)
+    rot = g.quat_to_rotmat(quats(*batch))
+    trans = f32(rng.uniform(-1e3, 1e3, batch + (3,)))
+    tm = g.transform_matrix(trans, quats(*batch))
+    pts = f32(rng.uniform(-1e3, 1e3, batch + (256, 5)))
+    yaw = f32(rng.uniform(-np.pi, np.pi, batch))
+    pivots = f32(np.stack([np.eye(3), np.diag([1.0, -1, -1]), np.diag([-1.0, 1, -1]),
+                           np.diag([-1.0, -1, 1]), [[0, 0, 1], [1, 0, 0], [0, 1, 0]],
+                           [[0, 1, 0], [1, 0, 0], [0, 0, -1]]]))
+    return {
+        "rotmat_to_quat": (g.rotmat_to_quat, (torch.cat([rot.reshape(-1, 3, 3), pivots]),)),
+        "yaw_to_quat": (g.yaw_to_quat, (yaw,)),
+        "quat_to_yaw": (g.quat_to_yaw, (quats(*batch),)),
+        "yaw_rotmat": (g.yaw_rotmat, (yaw,)),
+        "quat_multiply": (g.quat_multiply, (quats(*batch), quats(*batch))),
+        "quat_inverse": (g.quat_inverse, (quats(*batch),)),
+        "transform_matrix": (g.transform_matrix, (trans, quats(*batch))),
+        "transform_matrix_inverse": (lambda t, q: g.transform_matrix(t, q, inverse=True),
+                                     (trans, quats(*batch))),
+        "invert_se3": (g.invert_se3, (tm,)),
+        "compose": (g.compose, (tm, g.invert_se3(tm), tm)),
+        "apply_se3": (g.apply_se3, (tm, pts[..., :3])),
+        "remove_close_mask": (g.remove_close_mask, (pts * 1e-3, 0.5)),
+        "rotate_points": (g.rotate_points, (pts, rot)),
+        "translate_points": (g.translate_points, (pts, trans)),
+        "transform_points": (g.transform_points, (pts, tm)),
+    }
+
+
+def a16_phase(torch, card: str) -> dict:
+    """The A16 geometry helpers on the card against the same functions on
+    the CPU (within A16_RTOL of each tensor's largest value; booleans
+    equal), then medoid_index on compacted rows of a lift step of
+    bench_lift's keyframes against the plain version's index (equal
+    wherever the two smallest sums differ by more than 1e-5 relative), one
+    B2 launch a call."""
+    from cm3d_tpu_torch.config import LiftStageConfig
+    from cm3d_tpu_torch.datasets.synthetic import SyntheticConfig, make_keyframe
+    from cm3d_tpu_torch.datasets.types import stack_keyframes, to_device
+    from cm3d_tpu_torch.kernels.medoid import (
+        medoid_distance_sums_rows,
+        medoid_distance_sums_rows_plain,
+    )
+    from cm3d_tpu_torch.ops.medoid import medoid_index
+    from cm3d_tpu_torch.parallel import make_keyframe_step_fn
+
+    errs = {}
+    for name, (fn, args) in _a16_cases(torch, np.random.default_rng(23)).items():
+        want = fn(*args)
+        got = fn(*[a.cuda() if torch.is_tensor(a) else a for a in args]).cpu()
+        check(got.shape == want.shape and got.dtype == want.dtype, f"A16 {name}: shape, dtype")
+        if want.dtype == torch.bool:
+            check(torch.equal(got, want), f"A16 {name}: card equal to the CPU")
+            errs[name] = 0.0
+            continue
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+        check(errs[name] <= A16_RTOL, f"A16 {name}: card vs CPU {errs[name]:.3g} of the "
+              f"largest value, above {A16_RTOL}")
+
+    # medoid_index on compacted rows of a step of bench_lift's first 2 keyframes
+    cfg, rng = LiftStageConfig(), np.random.default_rng(0)
+    host = stack_keyframes([make_keyframe(SyntheticConfig(), cfg, rng) for _ in range(2)])
+    step = make_keyframe_step_fn(cfg, device="cuda")
+    _, (rows, valid) = capture_kernel_inputs(torch, step, to_device(host.frames, "cuda"))
+    counts = valid.sum(1)
+    order = torch.argsort(counts, descending=True)[:MEDOID_INDEX_ROWS]
+    order = order[counts[order] > 1]
+    medoid_distance_sums_rows.launches = 0
+    got = [int(medoid_index(rows[r].T.contiguous(), valid[r])) for r in order.tolist()]
+    launches = medoid_distance_sums_rows.launches
+    plain = torch.where(valid[order], medoid_distance_sums_rows_plain(rows[order], valid[order]),
+                        torch.tensor(float("inf"), device="cuda"))
+    two = torch.topk(plain, 2, dim=1, largest=False).values
+    near_tie = ((two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 0].abs()).tolist()
+    want = torch.argmin(plain, 1).tolist()
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    check(all(near_tie[i] for i in differ), f"medoid_index equal to the plain index wherever "
+          f"the two smallest sums differ by > 1e-5 relative: rows {differ}")
+    check(launches == len(got), f"one B2 launch a medoid_index call: {launches} for {len(got)}")
+    out = {"max_rel_err": errs, "medoid_index_rows": len(got),
+           "medoid_index_points": [int(counts[order[0]]), int(counts[order[-1]])],
+           "medoid_index_differ_at_near_ties": len(differ), "medoid_index_launches": launches}
+    print(f"[{card}] A16 card vs CPU, x the largest value: {json.dumps(errs)}; medoid_index on "
+          f"{len(got)} compacted rows of a lift step ({out['medoid_index_points']} points at "
+          f"most / least): {len(differ)} differ, all at near ties; {launches} B2 launches",
+          flush=True)
+    return out
+
+
+def sam_encode_phase(torch, card: str) -> dict:
+    """SAM ViT-H / L / B bf16 (random weights, seed 1 as the benches' SAM)
+    on a blobby 1024x576 image: the rect encode's image-region embedding
+    against the square encode's (relative error, the envelope of the fast
+    profile's rect points) and ms an encode square / rect in turns."""
+    from cm3d_tpu_torch.benchmarks import IMG_H, IMG_W
+    from cm3d_tpu_torch.models.common import init_weights
+    from cm3d_tpu_torch.models.sam import Sam, sam_config_for
+
+    rng = np.random.default_rng(0)
+    img = rng.normal(0, 0.3, (IMG_H, IMG_W, 3)).astype(np.float32)
+    yy, xx = np.arange(IMG_H)[:, None], np.arange(IMG_W)[None, :]
+    for _ in range(30):  # blobs: pure noise has no spatial structure at all
+        cy, cx = rng.integers(0, IMG_H), rng.integers(0, IMG_W)
+        ry, rx = rng.integers(20, 90), rng.integers(20, 120)
+        img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] += rng.normal(0, 1.5, 3)
+    rect = torch.tensor(img[None], device="cuda")
+    out = {}
+    for size in ("vit_h", "vit_l", "vit_b"):
+        with torch.device("cuda"):
+            gen = torch.Generator(device="cuda")
+            sam = init_weights(Sam(dataclasses.replace(sam_config_for(size), dtype="bfloat16")),
+                               gen.manual_seed(1))
+        # SamPredictor's square: the image zero-padded at the bottom
+        square = torch.nn.functional.pad(rect, (0, 0, 0, 0, 0, sam.cfg.img_size - IMG_H))
+        with torch.inference_mode():
+            e_sq = sam.encode_image(square).float()
+            e_rc = sam.encode_image(rect).float()
+            gh = IMG_H // sam.cfg.patch_size
+            check(tuple(e_rc.shape[1:3]) == (gh, IMG_W // sam.cfg.patch_size),
+                  f"{size}: the rect embedding covers the image region")
+            ref = e_sq[:, :gh]
+            rel = float(torch.linalg.vector_norm(e_rc - ref) / torch.linalg.vector_norm(ref))
+            times = {"square": [], "rect": []}
+            for kind in ("square", "rect", "rect", "square"):
+                x = square if kind == "square" else rect
+                times[kind].append(time_ms(torch, lambda: sam.encode_image(x), reps=5))
+        out[size] = {"rect_emb_rel_err": rel, "encode_ms": times}
+        del sam, square, e_sq, e_rc, ref
+        torch.cuda.empty_cache()
+    print(f"[{card}] SAM bf16 encode of one 1024x576 image, ms square / rect in turns, and the "
+          f"rect image-region embedding's rel err against the square's: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def bench_entry_phase(torch) -> dict:
+    """Phase 23: the benchmark entry, each stage in its own process; the
+    fast profile through the entry in this one, its launches counted; the
+    A16 functions on the card; SAM's rect encode against the square one."""
+    from cm3d_tpu_torch.kernels import build
+
+    card = card_line()
+    print(card, flush=True)
+    t_phase = time.perf_counter()
+    build.build_all()  # the entry's processes find the libraries built
+    out = {"card": card, "entry": entry_runs_phase(card)}
+    out["fast_profile"] = fast_profile_launch_phase(torch, card)
+    out["a16"] = a16_phase(torch, card)
+    out["sam_encode"] = sam_encode_phase(torch, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{card}] phase 23 (the benchmark entry): {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def bench_entry_phase_in_child() -> dict:
+    """Run phase 23 in a child process (its inference numbers want no
+    CUBLAS_WORKSPACE_CONFIG) and return its results: the child prints its
+    progress lines, then one JSON line, which is parsed here."""
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), BENCH_ENTRY_FLAG],
+                          env=env, stdout=subprocess.PIPE, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0 and lines, f"the benchmark entry phase's process exited with "
+          f"{proc.returncode}: {lines[-1] if lines else 'no output'}")
+    return json.loads(lines[-1])
+
+
 def main(argv) -> int:
     import torch
 
@@ -4849,6 +5190,9 @@ def main(argv) -> int:
     if argv == [MODEL_PARALLEL_FLAG]:
         print(json.dumps(model_parallel_phase(torch)), flush=True)
         return 0
+    if argv == [BENCH_ENTRY_FLAG]:
+        print(json.dumps(bench_entry_phase(torch)), flush=True)
+        return 0
     if argv in ([QUANT_ZOE_FLAG], [GDINO_FLAG]):
         from cm3d_tpu_torch.kernels import build
 
@@ -4862,7 +5206,6 @@ def main(argv) -> int:
         IMG_H,
         IMG_W,
         _realistic_load,
-        bench_lift,
         build_production_fake_models,
     )
     from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
@@ -4916,11 +5259,12 @@ def main(argv) -> int:
     # --- 3. the main path, counted ---
     compact_rows.launches = 0
     medoid_distance_sums_rows.launches = 0
-    n_iters = 10
-    bench = bench_lift(batch_size=8, n_iters=n_iters, device=dev)
+    n_iters = 10  # the entry's default run: bench_lift(batch_size=8, n_iters=10) on CUDA
+    bench = entry_line([])
+    check(bench["metric"] == "lift_keyframes_per_sec_per_chip" and "note" in bench,
+          f"the entry's default run prints the lift line with its note: {bench}")
     launches = {"compact_rows": compact_rows.launches,
                 "medoid_distance_sums_rows": medoid_distance_sums_rows.launches}
-    print(json.dumps(bench), flush=True)
     print(f"main-path launches over {n_iters + 1} steps: {launches}", flush=True)
     check(launches["compact_rows"] == 3 * (n_iters + 1),
           f"3 compaction launches per step, got {launches['compact_rows']}")
@@ -5037,11 +5381,22 @@ def main(argv) -> int:
     # --- 22. model parallelism at world size 1, over NCCL ---
     model_parallel = model_parallel_phase_in_child()
 
+    # --- 23. the benchmark entry ---
+    bench_entry = bench_entry_phase_in_child()
+    fast_launches = {p["sam_size"] + ("_rect" if p["rect_encode"] else "")
+                     + ("_int8" if p["quant_int8"] else ""): p["launches"]
+                     for p in bench_entry["fast_profile"]["points"]}
+
+    def fast_profile_launches(kernel):
+        """Phase 23: a kernel's launches at each point of the in-process fast
+        profile."""
+        return {point: n[kernel] for point, n in fast_launches.items()}
+
     def artifact_launches(kernel, table):
         """A kernel's launches a call of each artifact that runs it."""
         return {name: n[kernel] for name, n in table.items() if kernel in n}
 
-    # --- 23. summary ---
+    # --- 24. summary ---
     def per_forward(name, key):
         """Sum over the 24 blocks of one Detic forward (6 cameras)."""
         return sum(r[name][key] * r["blocks_per_forward"] for r in wa)
@@ -5081,6 +5436,8 @@ def main(argv) -> int:
             # phase 22: a camera-parallel Detic forward at world size 1
             "camera_mesh_launches":
                 model_parallel["camera_mesh_detic_launches"][f"window_attn_{name}"],
+            # phase 23: each point of the fast profile, 24 + 24 a keyframe
+            "fast_profile_launches": fast_profile_launches(f"window_attn_{name}"),
             **_per_forward_extras(wa, name, "blocks_per_forward"),
             **gdino_extras(name),
         }
@@ -5235,6 +5592,8 @@ def main(argv) -> int:
             # phase 22: e2e --camera_mesh 1 on the fixture dataroot
             "camera_mesh_e2e_launches":
                 model_parallel["e2e_cli_launches"]["camera_mesh"]["compact_rows"],
+            # phase 23: each point of the fast profile, 3 a lift step
+            "fast_profile_launches": fast_profile_launches("compact_rows"),
         },
         {
             "name": "medoid_distance_sums_rows",
@@ -5259,6 +5618,10 @@ def main(argv) -> int:
             # phase 22: e2e --camera_mesh 1 on the fixture dataroot
             "camera_mesh_e2e_launches":
                 model_parallel["e2e_cli_launches"]["camera_mesh"]["medoid_distance_sums_rows"],
+            # phase 23: each point of the fast profile (1 a lift step), and
+            # medoid_index on the compacted rows of a lift step (1 a call)
+            "fast_profile_launches": fast_profile_launches("medoid_distance_sums_rows"),
+            "medoid_index_launches": bench_entry["a16"]["medoid_index_launches"],
         },
         window_attn_entry("heads"),
         window_attn_entry("proj"),
@@ -5288,7 +5651,7 @@ def main(argv) -> int:
                       "train_cpu_check": train_check, "deterministic": deterministic,
                       "released_weights": released, "waymo": waymo, "kitti": kitti,
                       "data_parallel": data_parallel, "deploy_serve": deploy_serve,
-                      "quant_zoe": quant_zoe, "gdino": gdino}),
+                      "quant_zoe": quant_zoe, "gdino": gdino, "bench_entry": bench_entry}),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -231,6 +231,17 @@ class LiftStageConfig:
     max_points_per_camera: int = 32768  # per-camera frustum compaction depth
     max_points_in_masks: int = 8192  # per-camera any-mask union compaction depth
     max_lane_points: int = 32768  # padded per-scene lane points
+    # Inert: nothing reads it, here or in the JAX package (the circle NMS
+    # always runs). Kept only so that the two config trees hold the same
+    # fields; no code may branch on it.
+    run_circle_nms: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    mask_stage: MaskStageConfig = MaskStageConfig()
+    lift_stage: LiftStageConfig = LiftStageConfig()
+    classes: tuple[str, ...] = NUSCENES_CLASSES
 
 
 # Per-dataset presets (data only; as `cm3d_tpu/config.py`).

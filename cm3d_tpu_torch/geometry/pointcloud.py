@@ -1,4 +1,10 @@
-"""Camera projection of point clouds (PyTorch, fixed-shape, batched).
+"""Functional point-cloud ops and camera projection (PyTorch, fixed-shape,
+batched). Mirrors `cm3d_tpu/geometry/pointcloud.py`.
+
+Replaces the reference's mutable `LidarPointCloud` class
+(src/nuscenes/utils/pcd.py:20-257): where the reference filters points by
+slicing, a boolean validity mask keeps every shape static. Point layout:
+`[..., N, D]` with x, y, z in columns 0..2.
 
 The K=3/4 products are written out elementwise rather than as matmuls: the
 points are global-frame coordinates (~1e3 m) and a TF32 tensor-core pass
@@ -10,19 +16,48 @@ from __future__ import annotations
 
 import torch
 
-from cm3d_tpu_torch.geometry.se3 import quat_to_rotmat
+from cm3d_tpu_torch.geometry.se3 import _matvec, _transform, quat_to_rotmat
 
 
-def _matvec(m: torch.Tensor, cols: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Rows of m [..., I, J] applied to J coordinate tensors [..., N]:
-    out_i = sum_j m[..., i, j] * cols[j], summed in j order."""
-    out = []
-    for i in range(m.shape[-2]):
-        acc = m[..., i, 0, None] * cols[0]
-        for j in range(1, len(cols)):
-            acc = acc + m[..., i, j, None] * cols[j]
-        out.append(acc)
-    return out
+def remove_close_mask(points: torch.Tensor, radius: float) -> torch.Tensor:
+    """Validity mask for points outside `radius` (L-inf on x, y).
+
+    Reference semantics (src/nuscenes/utils/pcd.py:148-157): a point is
+    removed when |x| < radius AND |y| < radius. Returns True for points kept.
+    """
+    x_close = torch.abs(points[..., 0]) < radius
+    y_close = torch.abs(points[..., 1]) < radius
+    return ~(x_close & y_close)
+
+
+def _with_xyz(points: torch.Tensor, cols: list[torch.Tensor]) -> torch.Tensor:
+    """points [..., N, D] with its xyz columns replaced by `cols`."""
+    return torch.cat([torch.stack(cols, dim=-1), points[..., 3:]], dim=-1)
+
+
+def rotate_points(points: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Rotate xyz columns of [..., N, D] by [..., 3, 3]; other columns pass
+    through.
+
+    Reference: PointCloud.rotate (src/nuscenes/utils/pcd.py:167-172).
+    """
+    return _with_xyz(points, _matvec(rot, [points[..., 0], points[..., 1], points[..., 2]]))
+
+
+def translate_points(points: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Translate xyz columns of [..., N, D] by [..., 3].
+
+    Reference: PointCloud.translate (src/nuscenes/utils/pcd.py:159-165).
+    """
+    return torch.cat([points[..., :3] + t[..., None, :], points[..., 3:]], dim=-1)
+
+
+def transform_points(points: torch.Tensor, tm: torch.Tensor) -> torch.Tensor:
+    """Apply [..., 4, 4] homogeneous transform to xyz of [..., N, D].
+
+    Reference: PointCloud.transform (src/nuscenes/utils/pcd.py:174-179).
+    """
+    return _with_xyz(points, _transform(tm, points))
 
 
 def view_points(points: torch.Tensor, view: torch.Tensor, normalize: bool = True):

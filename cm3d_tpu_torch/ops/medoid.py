@@ -22,6 +22,20 @@ def _argmin_valid(sums: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.argmin(sums, dim=-1).to(torch.int32)
 
 
+def medoid_index(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Index of the medoid of a single point set.
+
+    Args:
+      points: [K, 3] coordinates (padding rows arbitrary on the CPU; on the
+        card the kernel additionally requires valid rows COMPACTED to the
+        front — every producer in this package emits compacted rows).
+      valid: [K] bool; invalid rows are excluded from sums and argmin.
+
+    Returns scalar int32 index of the medoid (first-minimum tie-break).
+    """
+    return masked_medoid(points[None], valid[None])[0]
+
+
 def masked_medoid(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Batched medoid. points [M, K, 3], valid [M, K] -> [M] int32.
 

@@ -351,7 +351,9 @@ def test_benches_build_int8_models_at_a_tiny_geometry(monkeypatch, one_torch_thr
 
     built = []
 
-    def tiny_modules(dtype, device, seed, fused_window_attn, vocabulary):
+    def tiny_modules(dtype, device, seed, fused_window_attn, vocabulary, sam_size="vit_h",
+                     rect_encode=False):
+        assert (sam_size, rect_encode) == ("vit_h", False)  # the benches' defaults
         gen = torch.Generator()
         clf = np.random.default_rng(seed).standard_normal(
             (DETIC_TEST.embed_dim, len(vocabulary))).astype(np.float32)
