@@ -19,6 +19,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from cm3d_tpu_torch.utils.observability import span
+
 # Placeholder drivable raster for frontends/configs with drivable_filter off:
 # a single non-drivable cell (build_boxes skips the lookup).
 _NO_DRIVABLE_GRID = np.zeros((1, 1), bool)
@@ -114,13 +116,17 @@ def to_device(frames: Keyframe, device) -> Keyframe:
 
     def move(x):
         if isinstance(x, torch.Tensor):
+            if pinned and x.device.type == "cpu":
+                with span("cm3d.h2d.wait"):  # a blocking copy: the host waits for it
+                    return x.to(device)
             return x.to(device)
         t = _host_tensor(x)
         if pinned:
             t = t.pin_memory()
         return t.to(device, non_blocking=pinned)
 
-    return map_fields(move, frames)
+    with span("cm3d.h2d"):
+        return map_fields(move, frames)
 
 
 def keyframe_from_numpy(frames, device) -> Keyframe:

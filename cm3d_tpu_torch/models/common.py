@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cm3d_tpu_torch.utils.observability import span
+
 
 def _compute_dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
     return torch.float32 if dtype is None else dtype
@@ -71,15 +73,16 @@ class QuantLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from cm3d_tpu_torch.ops.quant import dynamic_int8_matmul, static_int8_matmul
 
-        if self.act_absmax is not None:
-            self.act_absmax = torch.maximum(self.act_absmax, x.float().abs().amax())
+        with span("cm3d.quant.linear"):
+            if self.act_absmax is not None:
+                self.act_absmax = torch.maximum(self.act_absmax, x.float().abs().amax())
+                return dynamic_int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
+                                           out_dtype=self.compute_dtype)
+            if self.static:
+                return static_int8_matmul(x, self.weight_q, self.weight_scale, self.act_scale,
+                                          self.bias, out_dtype=self.compute_dtype)
             return dynamic_int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
                                        out_dtype=self.compute_dtype)
-        if self.static:
-            return static_int8_matmul(x, self.weight_q, self.weight_scale, self.act_scale,
-                                      self.bias, out_dtype=self.compute_dtype)
-        return dynamic_int8_matmul(x, self.weight_q, self.weight_scale, self.bias,
-                                   out_dtype=self.compute_dtype)
 
 
 @contextlib.contextmanager
@@ -249,7 +252,9 @@ def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor
     q_coords = torch.arange(q_size, dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
     k_coords = torch.arange(k_size, dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
     rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    return rel_pos[rel.to(torch.int64).to(rel_pos.device)]
+    with span("cm3d.h2d.wait"):  # from pageable memory: the host waits for the copy
+        idx = rel.to(torch.int64).to(rel_pos.device)
+    return rel_pos[idx]
 
 
 def add_decomposed_rel_pos_bnhc(attn: torch.Tensor, q: torch.Tensor,

@@ -28,6 +28,7 @@ from cm3d_tpu_torch.models.common import Conv, Dense, GroupNorm
 from cm3d_tpu_torch.models.swin import SWIN_B, SWIN_TEST, SwinConfig, SwinTransformer
 from cm3d_tpu_torch.ops.nms import nms_2d_classwise
 from cm3d_tpu_torch.ops.roi_align import multilevel_roi_align
+from cm3d_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,35 +304,38 @@ class Detic(nn.Module):
         extent boxes are clipped to (detectron2 clips to the recorded
         image size). Returns padded detections per image."""
         cfg = self.cfg
-        levels = self.backbone(images)
+        with span("cm3d.detic.backbone"):
+            levels = self.backbone(images)
         strides = {lvl: s for lvl, s in zip(sorted(levels), cfg.strides)}
-        hms, regs = self.proposal_generator.centernet_head(levels)
-        boxes, prop_scores = decode_proposals(hms, regs, strides, cfg)
-        if true_hw is None:
-            hw = torch.tensor(images.shape[1:3], dtype=torch.float32, device=images.device)
-            true_hw = hw.expand(images.shape[0], 2)
-        h_img = true_hw[:, 0].float()[:, None]
-        w_img = true_hw[:, 1].float()[:, None]
-        lo = torch.zeros((), device=boxes.device)
-        stage_scores = []
-        for i in range(cfg.num_cascade_stages):
-            pooled = multilevel_roi_align(levels, boxes, strides, cfg.pooler_size,
-                                          min(strides), max(strides))
-            scores, deltas = self.roi_heads.stage(i, pooled, classifier)
-            stage_scores.append(scores)
-            boxes = apply_deltas(boxes, deltas, cfg.cascade_deltas[i])
-            boxes = torch.stack([
-                torch.minimum(torch.maximum(boxes[..., 0], lo), w_img),
-                torch.minimum(torch.maximum(boxes[..., 1], lo), h_img),
-                torch.minimum(torch.maximum(boxes[..., 2], lo), w_img),
-                torch.minimum(torch.maximum(boxes[..., 3], lo), h_img),
-            ], dim=-1)
-        scores = torch.stack(stage_scores).mean(0)  # [B, R, K]
-        if cfg.mult_proposal_score:
-            # geometric mean (Detic/CenterNet2 DeticCascadeROIHeads):
-            # ((s * ps) ** 0.5), not s * sqrt(ps)
-            scores = torch.sqrt(scores * torch.clamp(prop_scores, min=0.0)[..., None])
-        return select_detections(boxes, scores, cfg)
+        with span("cm3d.detic.proposals"):
+            hms, regs = self.proposal_generator.centernet_head(levels)
+            boxes, prop_scores = decode_proposals(hms, regs, strides, cfg)
+        with span("cm3d.detic.cascade"):
+            if true_hw is None:
+                hw = torch.tensor(images.shape[1:3], dtype=torch.float32, device=images.device)
+                true_hw = hw.expand(images.shape[0], 2)
+            h_img = true_hw[:, 0].float()[:, None]
+            w_img = true_hw[:, 1].float()[:, None]
+            lo = torch.zeros((), device=boxes.device)
+            stage_scores = []
+            for i in range(cfg.num_cascade_stages):
+                pooled = multilevel_roi_align(levels, boxes, strides, cfg.pooler_size,
+                                              min(strides), max(strides))
+                scores, deltas = self.roi_heads.stage(i, pooled, classifier)
+                stage_scores.append(scores)
+                boxes = apply_deltas(boxes, deltas, cfg.cascade_deltas[i])
+                boxes = torch.stack([
+                    torch.minimum(torch.maximum(boxes[..., 0], lo), w_img),
+                    torch.minimum(torch.maximum(boxes[..., 1], lo), h_img),
+                    torch.minimum(torch.maximum(boxes[..., 2], lo), w_img),
+                    torch.minimum(torch.maximum(boxes[..., 3], lo), h_img),
+                ], dim=-1)
+            scores = torch.stack(stage_scores).mean(0)  # [B, R, K]
+            if cfg.mult_proposal_score:
+                # geometric mean (Detic/CenterNet2 DeticCascadeROIHeads):
+                # ((s * ps) ** 0.5), not s * sqrt(ps)
+                scores = torch.sqrt(scores * torch.clamp(prop_scores, min=0.0)[..., None])
+            return select_detections(boxes, scores, cfg)
 
 
 def quantize_detic_state_dict(sd: dict) -> dict:

@@ -16,6 +16,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from cm3d_tpu_torch.utils.observability import span
+
 
 def make_plane_postprocess(
     mask_wh: Tuple[int, int],
@@ -76,9 +78,13 @@ def make_plane_postprocess(
                                     dtype=torch.int32)
                 vals = m << (bits & 31)[:, None, None]
                 words = bits >> 5
-                for wd in range(int(words[0]), int(words[-1]) + 1):
+                with span("cm3d.maskpack.wait"):  # reads device values
+                    w0, w1 = int(words[0]), int(words[-1])
+                for wd in range(w0, w1 + 1):
                     # distinct bits: their int64 sum is their OR
-                    word = vals[words == wd].sum(0).to(torch.int32)
+                    with span("cm3d.maskpack.wait"):  # a boolean index syncs
+                        sel = vals[words == wd]
+                    word = sel.sum(0).to(torch.int32)
                     planes[wd, :word.shape[0], :word.shape[1]] |= word
             offset += int(n_boxes[ci])
         return planes.permute(1, 2, 0).contiguous()

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from cm3d_tpu_torch.utils.observability import span
+
 
 def _greedy_keep_fixpoint(overlap: torch.Tensor, valid_sorted: torch.Tensor) -> torch.Tensor:
     """Exact greedy-NMS keep flags from a precomputed overlap matrix.
@@ -48,7 +50,9 @@ def _greedy_keep_fixpoint(overlap: torch.Tensor, valid_sorted: torch.Tensor) -> 
     keep = valid_sorted
     while True:
         new = sweep(keep)
-        if torch.equal(new, keep):
+        with span("cm3d.nms.wait"):
+            converged = torch.equal(new, keep)
+        if converged:
             return keep
         keep = new
 

@@ -27,6 +27,7 @@ from cm3d_tpu_torch.ops.lift import (
 )
 from cm3d_tpu_torch.parallel.mesh import DataParallelGroup, Program, dp_mesh
 from cm3d_tpu_torch.utils.device import resolve_device
+from cm3d_tpu_torch.utils.observability import span
 
 
 def keyframe_step(
@@ -111,9 +112,10 @@ def make_keyframe_step_fn(cfg: LiftStageConfig = LiftStageConfig(), device=None)
             raise ValueError(
                 f"keyframe batch is on {frames.points.device}, the step on {device}"
             )
-        return keyframe_step(
-            frames, priors, is_vehicle, radii, lift_params, drivable, box_params
-        )
+        with span("cm3d.lift.step"):
+            return keyframe_step(
+                frames, priors, is_vehicle, radii, lift_params, drivable, box_params
+            )
 
     # how a data-parallel worker rebuilds this step (dp_step)
     step.program = Program(f"{__name__}:make_keyframe_step_fn", (cfg,))

@@ -47,7 +47,7 @@ from cm3d_tpu_torch.pipelines.masks import (
     MaskModels, attach_models, build_models, start_frame_masks, write_frame_artifacts)
 from cm3d_tpu_torch.utils.device import resolve_device
 from cm3d_tpu_torch.utils.fetch import TreeFetch
-from cm3d_tpu_torch.utils.observability import MaskCounters
+from cm3d_tpu_torch.utils.observability import MaskCounters, span
 
 
 def _scale_ratio_for_thumbnail(lift_cfg: LiftStageConfig, thumbnail: int) -> LiftStageConfig:
@@ -137,18 +137,20 @@ def run_fused(
             if not pending:
                 return
             entries, pending = pending, []
-            kfs = [kf for kf, _ in entries]
-            kfs += [kfs[-1]] * (batch_size - len(entries))  # pad the tail batch
-            # planes stack on the device; the host leaves go up in one
-            # pinned, non-blocking pass
-            batch = to_device(stack_keyframes(kfs).frames, device)
-            _, boxes = step(batch)
-            fetch = TreeFetch(boxes)  # one copy back, queued behind the step
-            n_frames += len(entries)
-            # at most one delivery outstanding: ordering + bounded memory
-            if deliver_fut is not None:
-                deliver_fut.result()
-            deliver_fut = finish_pool.submit(_deliver, entries, fetch)
+            with span("cm3d.e2e.flush"):
+                kfs = [kf for kf, _ in entries]
+                kfs += [kfs[-1]] * (batch_size - len(entries))  # pad the tail batch
+                # planes stack on the device; the host leaves go up in one
+                # pinned, non-blocking pass
+                batch = to_device(stack_keyframes(kfs).frames, device)
+                _, boxes = step(batch)
+                fetch = TreeFetch(boxes)  # one copy back, queued behind the step
+                n_frames += len(entries)
+                # at most one delivery outstanding: ordering + bounded memory
+                if deliver_fut is not None:
+                    with span("cm3d.e2e.deliver.wait"):
+                        deliver_fut.result()
+                deliver_fut = finish_pool.submit(_deliver, entries, fetch)
 
         futs = deque()
         exhausted = False
@@ -159,29 +161,32 @@ def run_fused(
 
         _prefetch()
         while futs:
-            res = futs.popleft().result()
+            with span("cm3d.e2e.io.wait"):
+                res = futs.popleft().result()
             if res is None:
                 exhausted = True
                 continue
             _prefetch()
             prepared, assemble = res
-            # 2D stage: planes stay on the device, in the lift's layout
-            handle = start_frame_masks(
-                models, None, mask_cfg, mask_wh=mask_wh,
-                plane_layout="xy", prepared=prepared, copy_planes=False,
-            )
-            # same truncation accounting as run_mask_stage — the fused
-            # path must not silently drop what the two-stage path counts
-            counters.update(handle["counts"])
-            out = assemble(handle)
-            if out is None:
-                continue
-            pending.append(out)
-            if len(pending) >= batch_size:
-                flush()
+            with span("cm3d.e2e.keyframe"):
+                # 2D stage: planes stay on the device, in the lift's layout
+                handle = start_frame_masks(
+                    models, None, mask_cfg, mask_wh=mask_wh,
+                    plane_layout="xy", prepared=prepared, copy_planes=False,
+                )
+                # same truncation accounting as run_mask_stage — the fused
+                # path must not silently drop what the two-stage path counts
+                counters.update(handle["counts"])
+                with span("cm3d.e2e.assemble"):
+                    out = assemble(handle)
+                if out is not None:
+                    pending.append(out)
+                    if len(pending) >= batch_size:
+                        flush()
         flush()
         if deliver_fut is not None:
-            deliver_fut.result()
+            with span("cm3d.e2e.deliver.wait"):
+                deliver_fut.result()
     return n_frames
 
 

@@ -9,7 +9,8 @@ nuScenes submission. Differences by design:
 - Resume: samples already in the output keep their boxes; corrupt frames
   skip-and-log instead of crashing.
 - Stage timers keep the reference's taxonomy (io / device / write / total,
-  reference :368-378) and report keyframes/sec.
+  reference :368-378), as the totals of the lift's spans, and report
+  keyframes/sec.
 - Scale-out as in JAX: `--data_parallel N` splits each keyframe batch over
   N cards (parallel/mesh.py), `--host_shard` keeps this process's stride
   of the scenes (parallel/multihost.py).
@@ -34,6 +35,8 @@ from cm3d_tpu_torch.datasets.artifacts import MaskArtifactStore
 from cm3d_tpu_torch.datasets.types import map_fields, stack_keyframes, to_device
 from cm3d_tpu_torch.parallel import dp_step, make_keyframe_step_fn, shard_for_host
 
+_END = object()  # the end of the frame source
+
 
 def run_lift(
     dataroot: str,
@@ -57,10 +60,10 @@ def run_lift(
     from cm3d_tpu_torch.datasets.nuscenes import NuScenesFrontend, SubmissionWriter
     from cm3d_tpu_torch.utils.fetch import device_fetch
     from cm3d_tpu_torch.utils.device import resolve_device
-    from cm3d_tpu_torch.utils.observability import LiftCounters, StageTimer, trace
+    from cm3d_tpu_torch.utils.observability import LiftCounters, lift_timers, span, trace
 
     device = resolve_device(device)
-    timer = StageTimer()
+    totals: dict = {}  # span name -> seconds: the io / device / write timers
     counters = LiftCounters()
     t_total = time.perf_counter()
 
@@ -85,26 +88,24 @@ def run_lift(
         nonlocal pending
         if not pending:
             return
-        t0 = time.perf_counter()
         n_real = len(pending)
-        # pad the tail batch to the static batch size
-        frames = [kf for kf, _ in pending]
-        frames += [frames[-1]] * (batch_size - n_real)
-        batch = stack_keyframes(frames)
-        lift, boxes = step(to_device(batch.frames, device))
-        boxes_np, lift_np = device_fetch((boxes, lift))  # one device->host copy
-        counters.update_from_outputs(
-            batch.frames.mask_valid[:n_real],
-            map_fields(lambda x: x[:n_real], lift_np),
-            boxes_np.keep[:n_real],
-        )
-        timer.add("device", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for i, (_, meta) in enumerate(pending[:n_real]):
-            writer.add_device_outputs(
-                meta.sample_token, map_fields(lambda x: x[i], boxes_np)
+        with span("cm3d.lift.flush", totals=totals):
+            # pad the tail batch to the static batch size
+            frames = [kf for kf, _ in pending]
+            frames += [frames[-1]] * (batch_size - n_real)
+            batch = stack_keyframes(frames)
+            lift, boxes = step(to_device(batch.frames, device))
+            boxes_np, lift_np = device_fetch((boxes, lift))  # one device->host copy
+            counters.update_from_outputs(
+                batch.frames.mask_valid[:n_real],
+                map_fields(lambda x: x[:n_real], lift_np),
+                boxes_np.keep[:n_real],
             )
-        timer.add("write", time.perf_counter() - t0)
+        with span("cm3d.lift.write", totals=totals):
+            for i, (_, meta) in enumerate(pending[:n_real]):
+                writer.add_device_outputs(
+                    meta.sample_token, map_fields(lambda x: x[i], boxes_np)
+                )
         pending = []
 
     # Host keyframe building overlaps device execution: a worker pool
@@ -124,39 +125,38 @@ def run_lift(
             if sample["token"] not in done_tokens
         ]
 
-    t0 = time.perf_counter()
     work = []
     for scene_name in scenes:
         work.extend(scene_frames(scene_name))
     with (dp_step(make_keyframe_step_fn(lift_cfg, device=device), batch_size,
                   data_parallel) as step,
           trace("lift", profile_dir), ThreadPoolExecutor(max_workers=num_workers) as pool):
-        for built in pool.map(lambda a: frontend.build_keyframe(*a), work, chunksize=1):
+        built_frames = pool.map(lambda a: frontend.build_keyframe(*a), work, chunksize=1)
+        while True:
+            with span("cm3d.lift.io.wait", totals=totals):
+                built = next(built_frames, _END)
+            if built is _END:
+                break
             if built is None:
                 continue
-            timer.add("io", time.perf_counter() - t0)
             pending.append(built)
             n_frames += 1
             if len(pending) >= batch_size:
                 flush(step)
-            t0 = time.perf_counter()
-        timer.add("io", time.perf_counter() - t0)
         flush(step)
 
-    t0 = time.perf_counter()
-    submission = writer.write(out_path)
-    timer.add("write", time.perf_counter() - t0)
-    timer.add("total", time.perf_counter() - t_total)
+    with span("cm3d.lift.write", totals=totals):
+        submission = writer.write(out_path)
+    timers = lift_timers(totals, time.perf_counter() - t_total)
 
     if verbose:
         n_boxes = sum(len(v) for v in submission["results"].values())
         print(f"wrote {len(submission['results'])} samples, {n_boxes} boxes.")
-        total = timer.stages.get("total", 0.0)
-        for op, v in timer.stages.items():
+        for op, v in timers.items():
             print(f"{op} :\t\t {v:.3f}")
-        if total > 0:
-            print(f"keyframes/sec: {n_frames / total:.2f}")
-        print(timer.report())
+        if timers["total"] > 0:
+            print(f"keyframes/sec: {n_frames / timers['total']:.2f}")
+        print(json.dumps({"timers_sec": {k: round(v, 4) for k, v in timers.items()}}))
         print(counters.report())
     return submission
 

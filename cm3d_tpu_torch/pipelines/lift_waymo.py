@@ -44,11 +44,12 @@ def run_lift_waymo(
     from cm3d_tpu_torch.datasets.waymo.proto import encode_objects
     from cm3d_tpu_torch.utils.device import resolve_device
     from cm3d_tpu_torch.utils.fetch import device_fetch
+    from cm3d_tpu_torch.utils.observability import lift_timers, span
 
     if lift_cfg is None:
         lift_cfg = WAYMO_LIFT
     device = resolve_device(device)
-    timer = {"io": 0.0, "device": 0.0, "write": 0.0, "total": 0.0}
+    totals: dict = {}  # span name -> seconds: the io / device / write timers
     t_total = time.perf_counter()
 
     frontend = WaymoFrontend(frames_root, MaskArtifactStore(mask_dir), lift_cfg,
@@ -61,45 +62,43 @@ def run_lift_waymo(
         nonlocal pending
         if not pending:
             return
-        t0 = time.perf_counter()
         n_real = len(pending)
-        frames = [kf for kf, _ in pending]
-        frames += [frames[-1]] * (batch_size - n_real)
-        batch = stack_keyframes(frames)
-        _, boxes = step(to_device(batch.frames, device))
-        boxes_np = device_fetch(boxes)  # one batched transfer
-        timer["device"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for i, (_, meta) in enumerate(pending[:n_real]):
-            all_objects.extend(boxes_to_waymo_objects(
-                meta, boxes_np.centers[i], boxes_np.sizes[i], boxes_np.yaws[i],
-                boxes_np.scores[i], boxes_np.labels[i], boxes_np.keep[i]))
-        timer["write"] += time.perf_counter() - t0
+        with span("cm3d.lift.flush", totals=totals):
+            frames = [kf for kf, _ in pending]
+            frames += [frames[-1]] * (batch_size - n_real)
+            batch = stack_keyframes(frames)
+            _, boxes = step(to_device(batch.frames, device))
+            boxes_np = device_fetch(boxes)  # one batched transfer
+        with span("cm3d.lift.write", totals=totals):
+            for i, (_, meta) in enumerate(pending[:n_real]):
+                all_objects.extend(boxes_to_waymo_objects(
+                    meta, boxes_np.centers[i], boxes_np.sizes[i], boxes_np.yaws[i],
+                    boxes_np.scores[i], boxes_np.labels[i], boxes_np.keep[i]))
         pending = []
 
     with dp_step(make_keyframe_step_fn(lift_cfg, device=device), batch_size,
                  data_parallel) as step:
         for scene in scenes:
-            t0 = time.perf_counter()
-            for kf, meta in frontend.iter_scene(scene):
-                timer["io"] += time.perf_counter() - t0
-                pending.append((kf, meta))
+            scene_frames = frontend.iter_scene(scene)
+            while True:
+                with span("cm3d.lift.io.wait", totals=totals):
+                    item = next(scene_frames, None)
+                if item is None:
+                    break
+                pending.append(item)
                 n_frames += 1
                 if len(pending) >= batch_size:
                     flush(step)
-                t0 = time.perf_counter()
-            timer["io"] += time.perf_counter() - t0
         flush(step)
 
-    t0 = time.perf_counter()
-    with open(out_path, "wb") as f:
-        f.write(encode_objects(all_objects))
-    timer["write"] += time.perf_counter() - t0
-    timer["total"] = time.perf_counter() - t_total
+    with span("cm3d.lift.write", totals=totals):
+        with open(out_path, "wb") as f:
+            f.write(encode_objects(all_objects))
+    timers = lift_timers(totals, time.perf_counter() - t_total)
 
     if verbose:
         print(f"wrote {len(all_objects)} objects from {n_frames} frames.")
-        for op, v in timer.items():
+        for op, v in timers.items():
             print(f"{op} :\t\t {v:.3f}")
     return len(all_objects)
 

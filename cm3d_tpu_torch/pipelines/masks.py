@@ -49,6 +49,7 @@ from cm3d_tpu_torch.ops.bitmask import num_words, unpack_masks_np
 from cm3d_tpu_torch.pipelines.cli_flags import (
     add_model_flags, add_quant_flags, add_run_flags, camera_mesh, run_nms)
 from cm3d_tpu_torch.utils.fetch import HostCopy
+from cm3d_tpu_torch.utils.observability import COUNTERS, span
 from cm3d_tpu_torch.vocab import CUSTOM_VOCABULARY_NUSCENES, map_class
 
 
@@ -143,8 +144,10 @@ def start_frame_masks(
     plane_wh = mask_wh or (max(w for _, w in cam_hw), max(h for h, _ in cam_hw))
     # Detic first, its results' copy started before the encode is queued:
     # the host waits for the boxes only, and runs NMS under the encode
-    det = HostCopy(list(models.detic(frame_inputs)))
-    emb = models.sam_encode(frame_inputs)
+    with span("cm3d.masks.detic"):
+        det = HostCopy(list(models.detic(frame_inputs)))
+    with span("cm3d.masks.sam_encode"):
+        emb = models.sam_encode(frame_inputs)
     depths = None
     if cfg.use_zoedepth and models.predict_depth is not None:
         # reference zoe branch (:412-414): one depth map per camera image,
@@ -152,7 +155,8 @@ def start_frame_masks(
         # and the finisher waits for it (masked_depth_images)
         depth_fn = getattr(models.predict_depth, "dispatch", models.predict_depth)
         depths = HostCopy([torch.as_tensor(depth_fn(im)) for im in images])
-    boxes_b, scores_b, cids_b, valid_b = det.get()
+    with span("cm3d.masks.detic.wait"):
+        boxes_b, scores_b, cids_b, valid_b = det.get()
     n_cams = len(cam_hw)
 
     p = cfg.max_detections
@@ -169,40 +173,41 @@ def start_frame_masks(
         "dropped_max_detections": 0, "dropped_masks_total": 0,
         "masks_written": 0,
     }
-    for cam_idx in range(n_cams):
-        v = valid_b[cam_idx]
-        boxes = boxes_b[cam_idx][v]
-        scores = scores_b[cam_idx][v]
-        class_ids = cids_b[cam_idx][v]
-        counts["detections"] += len(boxes)
-        if len(boxes) == 0:
-            continue
-        labels = [map_class(models.vocabulary[c].lower()) for c in class_ids]
-        if cfg.run_nms:
-            kept = classwise_nms_np(boxes, scores, labels, cfg.nms_iou)
-            counts["nms_suppressed"] += len(boxes) - len(kept)
-            boxes = boxes[kept]
-            scores = scores[kept]
-            labels = [labels[i] for i in kept]
-        # detections past either static cap are dropped, and counted
-        k_cam = min(len(boxes), p)
-        counts["dropped_max_detections"] += len(boxes) - k_cam
-        k = min(k_cam, max(cap - total, 0))
-        counts["dropped_masks_total"] += k_cam - k
-        if k <= 0:
-            continue
-        if k < len(boxes):
-            # a cap binds: drop the LOWEST scores, survivors keep their order
-            top = np.sort(np.argsort(-scores, kind="stable")[:k])
-            boxes = boxes[top]
-            scores = scores[top]
-            labels = [labels[i] for i in top]
-        prompts[cam_idx, :k] = boxes[:k]
-        n_boxes[cam_idx] = k
-        all_labels.extend(labels[:k])
-        all_scores.extend(float(s) for s in scores[:k])
-        all_cams.extend([cam_idx] * k)
-        total += k
+    with span("cm3d.masks.prompts"):
+        for cam_idx in range(n_cams):
+            v = valid_b[cam_idx]
+            boxes = boxes_b[cam_idx][v]
+            scores = scores_b[cam_idx][v]
+            class_ids = cids_b[cam_idx][v]
+            counts["detections"] += len(boxes)
+            if len(boxes) == 0:
+                continue
+            labels = [map_class(models.vocabulary[c].lower()) for c in class_ids]
+            if cfg.run_nms:
+                kept = classwise_nms_np(boxes, scores, labels, cfg.nms_iou)
+                counts["nms_suppressed"] += len(boxes) - len(kept)
+                boxes = boxes[kept]
+                scores = scores[kept]
+                labels = [labels[i] for i in kept]
+            # detections past either static cap are dropped, and counted
+            k_cam = min(len(boxes), p)
+            counts["dropped_max_detections"] += len(boxes) - k_cam
+            k = min(k_cam, max(cap - total, 0))
+            counts["dropped_masks_total"] += k_cam - k
+            if k <= 0:
+                continue
+            if k < len(boxes):
+                # a cap binds: drop the LOWEST scores, survivors keep their order
+                top = np.sort(np.argsort(-scores, kind="stable")[:k])
+                boxes = boxes[top]
+                scores = scores[top]
+                labels = [labels[i] for i in top]
+            prompts[cam_idx, :k] = boxes[:k]
+            n_boxes[cam_idx] = k
+            all_labels.extend(labels[:k])
+            all_scores.extend(float(s) for s in scores[:k])
+            all_cams.extend([cam_idx] * k)
+            total += k
     counts["masks_written"] = total
 
     planes = None
@@ -210,8 +215,12 @@ def start_frame_masks(
         # smallest prompt bucket that fits the busiest camera
         pmax = int(n_boxes.max())
         bucket = next((b for b in sorted(cfg.prompt_buckets) if b >= pmax), p)
-        planes = models.sam_decode_planes(
-            emb, prompts[:, :bucket], n_boxes, cam_hw, plane_wh, nw, plane_layout)
+        with span("cm3d.masks.sam_decode"):
+            planes = models.sam_decode_planes(
+                emb, prompts[:, :bucket], n_boxes, cam_hw, plane_wh, nw, plane_layout)
+        # every camera decodes every slot of the bucket
+        COUNTERS["masks.prompts"] += total
+        COUNTERS["masks.prompt_slots"] += n_cams * bucket
     return {
         "planes": planes, "total": total, "plane_wh": plane_wh,
         "planes_host": HostCopy([planes]) if total and copy_planes else None,

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from cm3d_tpu_torch.datasets.types import map_fields
+from cm3d_tpu_torch.utils.observability import span
 
 
 class HostCopy:
@@ -30,9 +31,10 @@ class HostCopy:
             self.host = [t.detach() for t in tensors]
 
     def get(self) -> List[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
-        return [h.numpy() for h in self.host]
+        with span("cm3d.d2h.wait"):
+            if self.event is not None:
+                self.event.synchronize()
+            return [h.numpy() for h in self.host]
 
 
 class TreeFetch:
@@ -45,8 +47,9 @@ class TreeFetch:
         self.tree = tree
         leaves = []
         map_fields(leaves.append, tree)
-        self.copy = HostCopy(
-            [torch.cat([x.contiguous().reshape(-1).view(torch.uint8) for x in leaves])])
+        with span("cm3d.d2h.start"):
+            self.copy = HostCopy(
+                [torch.cat([x.contiguous().reshape(-1).view(torch.uint8) for x in leaves])])
 
     def get(self):
         host = self.copy.get()[0]

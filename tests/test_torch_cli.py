@@ -106,6 +106,40 @@ def test_cli_resume_is_idempotent(fake_root, monkeypatch, capsys):
     assert json.load(open(tmp / "cli_resumed.json")) == full
 
 
+def test_cli_timers_are_the_lift_spans_totals(fake_root, monkeypatch, capsys):
+    """The CLI's timers keep the reference's keys (io / device / write /
+    total), taken from the lift's spans; with --profile its chrome trace
+    holds those spans, once a batch (3 keyframes in batches of 2), and the
+    keyframe counters match the CLI's."""
+    from nusc_fixture import VERSION
+
+    import cm3d_tpu_torch.pipelines.lift as lift_mod
+    from cm3d_tpu_torch.utils.observability import COUNTERS
+
+    root, masks, info, tmp = fake_root
+    monkeypatch.setattr(lift_mod, "LiftStageConfig",
+                        lambda: LiftStageConfig(**SMALL_LIFT))
+    before = COUNTERS["lift.frames"]
+    main(["--dataroot", str(root), "--version", VERSION, "--mask_dir", str(masks),
+          "--scenes", info["scene_name"], "--batch_size", "2", "--device", "cpu",
+          "--out", str(tmp / "profiled.json"), "--profile", str(tmp / "prof")])
+    lines = capsys.readouterr().out.splitlines()
+    timers = json.loads(next(x for x in lines if x.startswith('{"timers_sec"')))["timers_sec"]
+    assert list(timers) == ["io", "device", "write", "total"]
+    assert 0 < timers["device"] < timers["total"] and timers["io"] > 0
+    assert [x.split(" :")[0] for x in lines if " :\t\t " in x] == list(timers)
+    assert any(x.startswith("keyframes/sec: ") for x in lines)
+    counters = json.loads(next(x for x in lines if x.startswith('{"counters"')))["counters"]
+    assert COUNTERS["lift.frames"] - before == counters["frames"] == 3  # not the tail's pad
+    events = json.loads((tmp / "prof" / "lift.json").read_text())["traceEvents"]
+    names = [e["name"] for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("cm3d.")]
+    assert names.count("cm3d.lift.flush") == names.count("cm3d.lift.step") == 2
+    assert names.count("cm3d.lift.write") == 2  # the submission's, after the trace, not
+    assert names.count("cm3d.lift.io.wait") == 4  # three keyframes, then the end
+    assert not (tmp / "prof" / "lift.spans.json").exists()
+
+
 def test_cli_parses_the_jax_lift_command_line(monkeypatch, tmp_path):
     """C1: a command line of the JAX lift CLI (every flag of
     cm3d_tpu/pipelines/lift.py:175-199) reaches run_lift with its values;
