@@ -8,6 +8,7 @@
     python3 chip_smoke.py --gdino-phase   # phase 21 alone
     python3 chip_smoke.py --model-parallel-phase   # phase 22 alone
     python3 chip_smoke.py --bench-entry-phase   # phase 23 alone
+    python3 chip_smoke.py --sam-global-attn-phase   # phase 7's global-block part alone
 
 Phases, each of which raises on a failed check (exit code != 0):
 
@@ -70,7 +71,12 @@ Phases, each of which raises on a failed check (exit code != 0):
    yardsticks as in phase 4, and one
    scaled_dot_product_attention call on the same q / k / v with the
    decomposed rel-pos bias materialised as its float mask (a yardstick for
-   the attention kernel). Then one 6-camera ViT-H encode with
+   the attention kernel). The global blocks' flash kernel at ViT-H's square
+   and ViT-B's rect grid (one camera, random bf16 q / k / v and tables; also
+   alone: `chip_smoke.py --sam-global-attn-phase`): its error against
+   float64 no larger than the plain chain's, its time beside its bound, the
+   chain's and one SDPA call's with the bias as a float mask (a yardstick).
+   Then one 6-camera ViT-H encode with
    the fused blocks and without, same weights: ms per camera and the
    difference of the embeddings.
 8. Fused path: bench_e2e (images -> Detic -> SAM -> planes on the card ->
@@ -299,6 +305,7 @@ WA_BF16_TOL = 2.0 ** -5  # window attention, bf16 kernel vs f32 plain, x max|pla
 WA_F32_TOL = 1e-4  # window attention, f32 kernel vs f32 plain, x max|plain|
 SWIN_BLOCKS_PER_FORWARD = 24  # Swin-B depths (2, 2, 18, 2)
 SAM_WINDOWED_BLOCKS = 28  # ViT-H: 32 blocks, 4 of them global
+SAM_GLOBAL_BLOCKS = 4
 # fused vs unfused ViT-H embeddings in bf16, x max|unfused|: each of the 28
 # fused branches rounds at other places than the unfused block (about 2^-8
 # relative a value), and the differences add up through the 32 blocks
@@ -1225,6 +1232,81 @@ def relpos_phase(torch, captured):
     return out
 
 
+SAM_GLOBAL_ATTN_FLAG = "--sam-global-attn-phase"  # phase 7's global-block part alone
+# the global blocks' shapes: (name, query rows, grid columns, heads, head dim,
+# rows of the h table as the checkpoint stores it)
+SAM_GLOBAL_SHAPES = (("vit_h_square", 64, 64, 16, 80, 127), ("vit_b_rect", 36, 64, 12, 64, 127))
+
+
+def sam_global_attn_phase(torch, seed: int = 0):
+    """The global blocks' flash kernel (kernels/sam_global_attn.py) at ViT-H's
+    square and ViT-B's rect grid, one camera, bf16: its error against a
+    float64 computation no larger than the plain chain's, one launch a call;
+    CUDA-event times of the kernel, the plain chain and, as a yardstick the
+    port never calls, one scaled_dot_product_attention call with the
+    decomposed bias materialised as its float mask, beside the bound
+    (operations at the bf16 peak or q, k, v, o bytes, the larger)."""
+    from cm3d_tpu_torch.kernels.sam_global_attn import sam_global_attn
+    from cm3d_tpu_torch.ops.relpos_attn import relpos_attention, resize_rel_pos
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for name, gh, gw, heads, hd, rows_h in SAM_GLOBAL_SHAPES:
+        n, c = gh * gw, heads * hd
+        qkv = (1.5 * torch.randn(1, n, 3, heads, hd, generator=g)).to(dev, bf16)
+        q, k, v = qkv.unbind(2)
+        rel_h = (0.5 * torch.randn(rows_h, hd, generator=g)).to(dev, bf16)
+        rel_w = (0.5 * torch.randn(2 * gw - 1, hd, generator=g)).to(dev, bf16)
+        kw = dict(q_hw=(gh, gw), k_hw=(gh, gw))
+        th, tw = resize_rel_pos(rel_h, 2 * gh - 1), resize_rel_pos(rel_w, 2 * gw - 1)
+        with torch.no_grad():
+            before = sam_global_attn.launches
+            got = sam_global_attn(q, k, v, rel_h, rel_w, **kw)
+            torch.cuda.synchronize()
+            check(sam_global_attn.launches == before + 1, "one sam_global_attn launch a call")
+            chain = relpos_attention(q, k, v, th, tw, **kw)
+            # float64: scores, the bias from the same tables, softmax, p v
+            qd, kd, vd = q.double(), k.double(), v.double()
+            s = torch.einsum("bqhc,bkhc->bhqk", qd, kd) * hd ** -0.5
+            i = torch.arange(n, device=dev)
+            ih = ((i // gw)[:, None] - (i // gw)[None] + gh - 1).expand(1, heads, n, n)
+            iw = ((i % gw)[:, None] - (i % gw)[None] + gw - 1).expand(1, heads, n, n)
+            bias = (torch.gather(torch.einsum("bqhc,uc->bhqu", qd, th.double()), -1, ih)
+                    + torch.gather(torch.einsum("bqhc,uc->bhqu", qd, tw.double()), -1, iw))
+            want = torch.einsum("bhqk,bkhc->bqhc", torch.softmax(s + bias, -1), vd).reshape(
+                1, n, c)
+            del s
+            top = float(want.abs().max())
+            err = float((got.double() - want).abs().max()) / top
+            err_chain = float((chain.double() - want).abs().max()) / top
+            check(err <= err_chain, f"{name}: the kernel's error {err:.3g} is no larger than "
+                                    f"the plain chain's {err_chain:.3g}")
+            mask = bias.to(bf16)
+            del bias, want, chain, qd, kd, vd
+            # on the resized tables, as the chain: the resize is the wrapper's, outside the op
+            ms = time_ms(torch, lambda: sam_global_attn(q, k, v, th, tw, **kw))
+            plain = time_ms(torch, lambda: relpos_attention(q, k, v, th, tw, **kw), reps=5)
+            qh_, kh_, vh_ = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+            sdpa = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh_, kh_, vh_, attn_mask=mask, scale=hd ** -0.5), reps=5)
+            del mask, qh_, kh_, vh_
+        ops = 4 * n * n * c + 2 * n * c * (gh + gw)
+        ops_ms = ops / PEAK_BF16_OPS_PER_S * 1e3
+        bytes_ms = 4 * n * c * 2 / PEAK_BYTES_PER_S * 1e3
+        bound = max(ops_ms, bytes_ms)
+        rec = {"shape": name, "grid": [gh, gw], "heads": heads, "head_dim": hd, "ms": ms,
+               "plain_ms": plain, "sdpa_yardstick_ms": sdpa, "bound_ms": bound,
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms, "roofline_pct": 100 * bound / ms,
+               "rel_err": err, "chain_rel_err": err_chain}
+        out.append(rec)
+        print(f"SAM global attention {name} {gh}x{gw} h{heads} hd{hd}: kernel {ms:.4f} ms "
+              f"(bound {bound:.4f}, {rec['roofline_pct']:.1f}%), plain chain {plain:.4f} ms, "
+              f"SDPA + float mask {sdpa:.4f} ms; rel err {err:.3g} (chain {err_chain:.3g})",
+              flush=True)
+    return out
+
+
 def encode_ab_phase(torch, unfused, fused, frame):
     """One 6-camera ViT-H encode, unfused and fused (the same weights), in
     turns: ms per camera and the difference of the embeddings."""
@@ -1262,6 +1344,7 @@ def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 
     from cm3d_tpu_torch.benchmarks import bench_e2e
     from cm3d_tpu_torch.kernels.compact import compact_rows
     from cm3d_tpu_torch.kernels.medoid import medoid_distance_sums_rows
+    from cm3d_tpu_torch.kernels.sam_global_attn import sam_global_attn
     from cm3d_tpu_torch.kernels.window_attn import window_attn_heads, window_attn_proj
     from cm3d_tpu_torch.kernels.window_attn_relpos import (
         window_attn_relpos_heads,
@@ -1269,7 +1352,7 @@ def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 
     )
 
     wrappers = (compact_rows, medoid_distance_sums_rows, window_attn_heads, window_attn_proj,
-                window_attn_relpos_heads, window_attn_relpos_proj)
+                window_attn_relpos_heads, window_attn_relpos_proj, sam_global_attn)
     forwards = [0]
     built = models is None
     if not built:
@@ -1300,7 +1383,9 @@ def e2e_phase(torch, models, fused: bool, n_frames: int = 12, batch_size: int = 
     want = {"compact_rows": 3 * steps, "medoid_distance_sums_rows": steps,
             "window_attn_heads": SWIN_BLOCKS_PER_FORWARD * frames,
             "window_attn_proj": SWIN_BLOCKS_PER_FORWARD * frames,
-            "window_attn_relpos_heads": relpos, "window_attn_relpos_proj": relpos}
+            "window_attn_relpos_heads": relpos, "window_attn_relpos_proj": relpos,
+            # ViT-H's global blocks, one camera a call, fused or not
+            "sam_global_attn": SAM_GLOBAL_BLOCKS * N_CAMERAS * frames}
     for name, count in launches.items():
         check(count == want[name], f"bench_e2e ({'fused' if fused else 'unfused'}) {name}: "
               f"expected {want[name]} launches over {frames} keyframes and {steps} lift steps, "
@@ -5193,6 +5278,10 @@ def main(argv) -> int:
     if argv == [BENCH_ENTRY_FLAG]:
         print(json.dumps(bench_entry_phase(torch)), flush=True)
         return 0
+    if argv == [SAM_GLOBAL_ATTN_FLAG]:
+        print(card_line(), flush=True)
+        print(json.dumps(sam_global_attn_phase(torch)), flush=True)
+        return 0
     if argv in ([QUANT_ZOE_FLAG], [GDINO_FLAG]):
         from cm3d_tpu_torch.kernels import build
 
@@ -5333,6 +5422,7 @@ def main(argv) -> int:
           f"{time.perf_counter() - t0:.2f} s to build", flush=True)
     frame = prod.prepare(ring)
     rp = relpos_phase(torch, capture_relpos_inputs(torch, prod_fused, frame))
+    sga = sam_global_attn_phase(torch)
     encode_ab = encode_ab_phase(torch, prod, prod_fused, frame)
 
     # --- 8. the fused images -> boxes path, counted: fused blocks, then unfused ---
@@ -5627,6 +5717,24 @@ def main(argv) -> int:
         window_attn_entry("proj"),
         relpos_entry("heads", "cm3d_tpu_torch/csrc/window_attn_relpos.cu"),
         relpos_entry("proj", "cm3d_tpu_torch/csrc/window_attn.cu"),
+        {
+            "name": "sam_global_attn",
+            "route": "cuda",
+            "source": "cm3d_tpu_torch/csrc/sam_global_attn.cu",
+            # the JAX package leaves the global blocks to XLA
+            "replaces": None,
+            "launches": e2e_fused["launches"]["sam_global_attn"],
+            "max_rel_err": max(r["rel_err"] for r in sga),
+            "chain_max_rel_err": max(r["chain_rel_err"] for r in sga),
+            **{k: sga[0][k] * SAM_GLOBAL_BLOCKS for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "operations" if sga[0]["ops_ms"] >= sga[0]["bytes_ms"] else "bytes",
+            "library_ms": None,
+            "sdpa_yardstick_ms": sga[0]["sdpa_yardstick_ms"] * SAM_GLOBAL_BLOCKS,
+            "per": "one ViT-H encode of one camera: 4 launches at 64 x 64, 16 heads, hd 80, bf16",
+            "unfused_launches": e2e_unfused["launches"]["sam_global_attn"],
+            "int8_e2e_launches": quant_e2e_launches["sam_global_attn"],
+            "shapes": sga,
+        },
         segment_entry("segment_sum_max", "segment_sum_max",
                       "cm3d_tpu/kernels/segment_pallas.py:141",
                       train["bench_train"]["launches"]["segment_sum_max"]),
@@ -5644,7 +5752,7 @@ def main(argv) -> int:
     print(json.dumps({"medoid_kn3_entry": {"ms": med["kn3_ms"], "plain_ms": med["kn3_plain_ms"]},
                       "gemm_sass": sass,
                       "window_attn_shapes": wa, "mask_stage": benches,
-                      "mask_cpu_check": cpu_check, "relpos_shapes": rp,
+                      "mask_cpu_check": cpu_check, "relpos_shapes": rp, "sam_global_attn": sga,
                       "vit_h_encode_ab": encode_ab, "e2e_fused": e2e_fused,
                       "e2e_unfused": e2e_unfused, "e2e_cpu_check": e2e_check,
                       "segment_shapes": seg, "swin_t_shapes": swin_t, "train": train,

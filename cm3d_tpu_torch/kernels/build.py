@@ -25,7 +25,7 @@ _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-
 # extra nvcc flags per source; medoid must not contract a*b+c into FMAs, so
 # each pairwise distance rounds exactly like the plain PyTorch version
 EXTRA_FLAGS = {"compact": [], "medoid": ["-fmad=false"], "window_attn": [],
-               "window_attn_relpos": [], "segment": []}
+               "window_attn_relpos": [], "segment": [], "sam_global_attn": []}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

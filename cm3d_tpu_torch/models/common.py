@@ -232,55 +232,6 @@ def window_unpartition(windows: torch.Tensor, window: int, pad_hw, hw) -> torch.
     return x[:, :h, :w]
 
 
-def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
-    """Select (and if needed interpolate) relative position embeddings.
-
-    rel_pos: [2*max_size - 1, head_dim] -> [q_size, k_size, head_dim]. The
-    resize is F.interpolate(mode="linear") with align_corners=False: source
-    positions (i + 0.5) * src/dst - 0.5, clamped to the table."""
-    max_rel_dist = 2 * max(q_size, k_size) - 1
-    if rel_pos.shape[0] != max_rel_dist:
-        orig = rel_pos.shape[0]
-        dev = rel_pos.device
-        pos = (torch.arange(max_rel_dist, device=dev, dtype=torch.float32) + 0.5) \
-            * (orig / max_rel_dist) - 0.5
-        pos = pos.clamp(0, orig - 1)
-        lo = torch.floor(pos).to(torch.int64)
-        hi = (lo + 1).clamp(max=orig - 1)
-        frac = (pos - lo)[:, None]
-        rel_pos = rel_pos[lo] * (1 - frac) + rel_pos[hi] * frac
-    q_coords = torch.arange(q_size, dtype=torch.float32)[:, None] * max(k_size / q_size, 1.0)
-    k_coords = torch.arange(k_size, dtype=torch.float32)[None, :] * max(q_size / k_size, 1.0)
-    rel = (q_coords - k_coords) + (k_size - 1) * max(q_size / k_size, 1.0)
-    with span("cm3d.h2d.wait"):  # from pageable memory: the host waits for the copy
-        idx = rel.to(torch.int64).to(rel_pos.device)
-    return rel_pos[idx]
-
-
-def add_decomposed_rel_pos_bnhc(attn: torch.Tensor, q: torch.Tensor,
-                                rel_pos_h: torch.Tensor, rel_pos_w: torch.Tensor,
-                                q_hw, k_hw, q_rows=None) -> torch.Tensor:
-    """SAM/ViTDet decomposed relative position bias for heads-minor q.
-
-    attn: [B, heads, qh*qw, kh*kw]; q: [B, qh*qw, heads, head_dim] (the raw
-    q, before the attention scale). `q_rows` = (row0, grid_h): the queries
-    are the rows row0 ... row0 + qh - 1 of a grid_h-row grid (one rank's
-    rows of a sequence-sharded map, `parallel/sharding.py`)."""
-    qh, qw = q_hw
-    kh, kw = k_hw
-    row0, grid_h = q_rows or (0, qh)
-    rh = get_rel_pos(grid_h, kh, rel_pos_h)[row0:row0 + qh]  # [qh, kh, d]
-    rw = get_rel_pos(qw, kw, rel_pos_w)  # [qw, kw, d]
-    b, _, heads, _ = q.shape
-    # an interpolated table comes back f32: the einsums promote, as JAX's do
-    dt = torch.promote_types(q.dtype, rh.dtype)
-    r_q = q.reshape(b, qh, qw, heads, -1).to(dt)
-    rel_h = torch.einsum("bhwnc,hkc->bnhwk", r_q, rh.to(dt)).reshape(b, heads, qh * qw, kh, 1)
-    rel_w = torch.einsum("bhwnc,wkc->bnhwk", r_q, rw.to(dt)).reshape(b, heads, qh * qw, 1, kw)
-    attn = attn.reshape(b, heads, qh * qw, kh, kw) + rel_h + rel_w
-    return attn.reshape(b, heads, qh * qw, kh * kw)
-
-
 @torch.no_grad()
 def cast_compute_weights_(model: nn.Module) -> nn.Module:
     """Store each Dense / Conv / ConvTranspose weight and bias in the

@@ -6,11 +6,13 @@ decoder — the box-prompted mask model of the reference's 2D stage
 ViT-H/16 encoder at 1024x1024 with 14x14 window attention and decomposed
 relative positions (4 global blocks), 256-d prompt/mask space, a 2-layer
 two-way transformer decoder. Parameter names are the released
-`sam_vit_h_4b8939.pth` state dict's. Global and windowed attention are
-plain PyTorch (matmuls + an f32 softmax), as the JAX package leaves them to
-XLA. With `SamConfig(fused_window_attn=True)` (opt-in, as in the JAX
-package) the windowed blocks' norm1 + qkv + rel-pos attention + proj run
-the hand-written kernels of `kernels/window_attn_relpos.py` instead; the
+`sam_vit_h_4b8939.pth` state dict's. Windowed attention is plain PyTorch
+(matmuls + an f32 softmax), as the JAX package leaves it to XLA; the global
+blocks' attention is the flash kernel of `kernels/sam_global_attn.py` (the
+same plain chain on the CPU). With `SamConfig(fused_window_attn=True)`
+(opt-in, as in the JAX package) the windowed blocks' norm1 + qkv + rel-pos
+attention + proj run the hand-written kernels of
+`kernels/window_attn_relpos.py` instead; the
 parameters and state-dict keys are the same in both modes. With
 `SamConfig(quant_int8=True)` the encoder blocks' qkv / proj / MLP layers are
 int8 w8a8 (`models.common.QuantLinear`, `ops/quant.py`; a load transform,
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cm3d_tpu_torch.kernels.sam_global_attn import sam_global_attn
 from cm3d_tpu_torch.kernels.window_attn_relpos import window_attn_relpos
 from cm3d_tpu_torch.models.common import (
     Conv,
@@ -38,11 +41,11 @@ from cm3d_tpu_torch.models.common import (
     LayerNorm,
     LayerNorm2d,
     MLPBlock,
-    add_decomposed_rel_pos_bnhc,
     linear,
     window_partition,
     window_unpartition,
 )
+from cm3d_tpu_torch.ops.relpos_attn import relpos_attention, resize_rel_pos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,16 +133,38 @@ def _check_ported(cfg: SamConfig) -> None:
 class Attention(nn.Module):
     """Encoder attention with decomposed relative positions."""
 
-    def __init__(self, dim: int, heads: int, input_hw: Tuple[int, int], dtype, quant=False):
+    def __init__(self, dim: int, heads: int, input_hw: Tuple[int, int], dtype, quant=False,
+                 global_attn: bool = False):
         super().__init__()
         # heads: this module's; a tensor-sharded copy holds heads / n of them
         # (`parallel.sharding.shard_model_params`)
         self.heads, self.dtype = heads, dtype
+        # a global block's attention is the flash kernel of
+        # kernels/sam_global_attn.py; a windowed block's is its plain chain
+        self.global_attn = global_attn
+        self._rel_tables = None  # (key, rel_h, rel_w) of rel_tables
         self.head_dim = hd = dim // heads
         self.qkv = linear(dim, 3 * dim, dtype=dtype, quant=quant)
         self.proj = linear(dim, dim, dtype=dtype, quant=quant)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_hw[0] - 1, hd))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_hw[1] - 1, hd))
+
+    def rel_tables(self, kh: int, kw: int):
+        """The rel-pos tables in the compute dtype, resized on their device to
+        a kh x kw key map (f32 where resized). Kept between calls while the
+        parameters are the same tensors at the same version, outside
+        autograd: a ViT-B rect encode would otherwise interpolate its h
+        table again in every call."""
+        ph, pw = self.rel_pos_h, self.rel_pos_w
+        if (torch.is_grad_enabled() and (ph.requires_grad or pw.requires_grad)) \
+                or ph.is_inference() or pw.is_inference():
+            return (resize_rel_pos(ph.to(self.dtype), 2 * kh - 1),
+                    resize_rel_pos(pw.to(self.dtype), 2 * kw - 1))
+        key = (kh, kw, ph.data_ptr(), pw.data_ptr(), ph._version, pw._version)
+        if self._rel_tables is None or self._rel_tables[0] != key:
+            self._rel_tables = (key, resize_rel_pos(ph.to(self.dtype), 2 * kh - 1),
+                                resize_rel_pos(pw.to(self.dtype), 2 * kw - 1))
+        return self._rel_tables[1:]
 
     def forward(self, x: torch.Tensor, gather_kv=None, row0: int = 0) -> torch.Tensor:
         """x: [b, h, w, dim]. A sequence-sharded global block passes its
@@ -153,14 +178,9 @@ class Attention(nn.Module):
         if gather_kv is not None:
             k, v = gather_kv(k, v)
             kh = k.shape[1] // w
-        attn = torch.einsum("bqhc,bkhc->bhqk", q * hd ** -0.5, k)
-        # the bias uses the raw q, not the scaled one
-        attn = add_decomposed_rel_pos_bnhc(attn, q, self.rel_pos_h.to(self.dtype),
-                                           self.rel_pos_w.to(self.dtype), (h, w), (kh, w),
-                                           q_rows=(row0, kh))
-        attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
-        x = torch.einsum("bhqk,bkhc->bqhc", attn, v).reshape(b, h, w, self.heads * hd)
-        return self.proj(x)
+        attend = sam_global_attn if self.global_attn else relpos_attention
+        x = attend(q, k, v, *self.rel_tables(kh, w), q_hw=(h, w), k_hw=(kh, w), row0=row0)
+        return self.proj(x.reshape(b, h, w, self.heads * hd))
 
 
 class Block(nn.Module):
@@ -171,7 +191,7 @@ class Block(nn.Module):
         self.fused = bool(fused and window)  # windowed blocks only
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, heads, (window, window) if window else grid_hw, dtype,
-                              quant=quant)
+                              quant=quant, global_attn=not window)
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, 4 * dim, dim, dtype=dtype, quant=quant)
 

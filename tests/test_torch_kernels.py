@@ -361,9 +361,10 @@ def test_opcheck_every_registered_op(case):
 
 
 def test_every_launcher_is_an_op():
-    """The namespace holds exactly the launchers of the five kernel modules
+    """The namespace holds exactly the launchers of the six kernel modules
     (every one with an opcheck case), and each wrapper's CPU call goes
     through its op and launches nothing."""
+    import cm3d_tpu_torch.kernels.sam_global_attn  # noqa: F401
     import cm3d_tpu_torch.kernels.window_attn_relpos  # noqa: F401
     from cm3d_tpu_torch.kernels import ops
 

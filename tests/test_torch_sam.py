@@ -25,10 +25,10 @@ from cm3d_tpu.models.sam import Sam as JaxSam
 from cm3d_tpu.ops.bitmask import unpack_masks_np
 from cm3d_tpu.ops.maskpack import make_plane_postprocess as jax_plane_postprocess
 
-from cm3d_tpu_torch.models.common import get_rel_pos
 from cm3d_tpu_torch.models.convert import sam_state_dict_from_flax
 from cm3d_tpu_torch.models.sam import SAM_TEST, Sam
 from cm3d_tpu_torch.ops.maskpack import make_plane_postprocess
+from cm3d_tpu_torch.ops.relpos_attn import get_rel_pos
 
 
 def _t(a):

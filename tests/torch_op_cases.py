@@ -15,7 +15,8 @@ CASES = [
     ("segment_sum", None),
     ("segment_sum_bwd", None),
     *[(op, dt) for op in ("window_attn_heads", "window_attn_qkv", "window_attn_proj",
-                          "window_attn_relpos_heads", "window_attn_relpos_proj")
+                          "window_attn_relpos_heads", "window_attn_relpos_proj",
+                          "sam_global_attn")
       for dt in ("float32", "bfloat16")],
 ]
 
@@ -28,6 +29,7 @@ def op_and_args(op: str, dtype, device):
     """(the op's overload, its arguments on `device`), seeded."""
     import cm3d_tpu_torch.kernels.compact  # noqa: F401  (registers the ops)
     import cm3d_tpu_torch.kernels.medoid  # noqa: F401
+    import cm3d_tpu_torch.kernels.sam_global_attn  # noqa: F401
     import cm3d_tpu_torch.kernels.segment  # noqa: F401
     import cm3d_tpu_torch.kernels.window_attn  # noqa: F401
     import cm3d_tpu_torch.kernels.window_attn_relpos  # noqa: F401
@@ -44,6 +46,11 @@ def op_and_args(op: str, dtype, device):
         valid = torch.zeros(2, 40, dtype=torch.bool)
         valid[:, :30] = True
         args = (r(2, 3, 40), valid.to(device))
+    elif op == "sam_global_attn":
+        # a 4 x 4 grid, 2 heads of 64: q, k, v as views of one qkv; tables of 2 * 4 - 1 rows
+        dt = getattr(torch, dtype)
+        q, k, v = r(1, 16, 3, 2, 64, dt=dt).unbind(2)
+        args = (q, k, v, r(7, 64, dt=dt), r(7, 64, dt=dt), [4, 4], [4, 4], 0)
     elif op.startswith("segment"):
         cell = torch.sort(torch.randint(0, 12, (2, 30), generator=gen, dtype=torch.int32),
                           dim=1).values.to(device)
