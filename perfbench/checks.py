@@ -6,20 +6,7 @@ tensors and delivered boxes) only to judge them. Every number compared has
 its limit in limits/<cell>.json, set from the readings that PERF.md gives.
 
 e2e cells, for each sampled keyframe:
-- detic_fpn_rel: FPN levels p3-p7, largest relative L2 gap of a level.
-- detic_dense_rel: the proposal head's heat maps and box regressions, the
-  same.
-- detic_cascade_rel: the three cascade stages' class scores and box deltas
-  before detection selection: for each camera, stage and kind (scores,
-  deltas), the relative L2 gap over all its proposals; the worst of them,
-  so a fault in one camera's pooling shows. The proposals' top-k and NMS
-  tie on random weights (proposal_tie_share: the share of a camera's
-  proposals that the reference's own maps would not select, read beside
-  the numbers and compared with nothing), so the reference takes the
-  program's heat maps and regressions through its own copy of that
-  selection and runs the cascade from those proposals: a fault in the
-  program's selection shows here, and the maps themselves are compared by
-  detic_dense_rel.
+- the detector's numbers (its module's `compare`: detectors/<name>.py).
 - sam_embed_rel: SAM's image embeddings, relative L2 gap.
 - prompt_mismatch: prompt boxes and counts the host NMS and caps handed to
   the decode against the reference's own, values that differ (exact).
@@ -51,21 +38,33 @@ def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
-def build_reference(cfg: dict, state: dict, device):
-    """The reference Detic and SAM in float32, holding the run's weights."""
+def skeleton(det, cfg: dict) -> dict:
+    """{prefix: plain reference module} on `meta`: the detector's (its
+    module `det`'s), then SAM's, the order in which weights.make_state
+    draws them."""
     with torch.device("meta"):
-        detic, sam = ref_models.Detic(cfg["detic"]), ref_models.Sam(cfg["sam"])
-    detic, sam = detic.to_empty(device=device), sam.to_empty(device=device)
-    detic.load_state_dict({k: v.float() for k, v in state["detic"].items()})
-    sam.load_state_dict({k: v.float() for k, v in state["sam"].items()})
-    return detic.eval(), sam.eval()
+        return {**det.skeleton(cfg), "sam": ref_models.Sam(cfg["sam"])}
 
 
-def set_precision(detic, sam, cfg: dict, control: bool):
+def build_reference(det, cfg: dict, state: dict, device):
+    """({prefix: module} of the reference detector, SAM) in float32,
+    holding the run's weights."""
+    ref = {}
+    for prefix, module in skeleton(det, cfg).items():
+        module = module.to_empty(device=device)
+        module.load_state_dict({k: v.float() for k, v in state[prefix].items()})
+        ref[prefix] = module.eval()
+    sam = ref.pop("sam")
+    return ref, sam
+
+
+def set_precision(det, ref, sam, cfg: dict, control: bool):
     """The reference at the configuration's precisions (float32 for its
     bfloat16 layers, w8a8 for its int8 ones), or the control one step
     below each (float8, w4a4)."""
-    ref_models.set_precision_(detic, sam, 4 if control else 8, cfg["modes"]["quant_int8"],
+    det.set_precision(ref, cfg, control)
+    quant = ref_models.sam_int8_layers(sam) if cfg["modes"]["quant_int8"] else set()
+    ref_models.set_precision_(sam, ref_models.SAM_F32_LAYERS, quant, 4 if control else 8,
                               control)
 
 
@@ -202,64 +201,28 @@ def box_mismatch(prog: dict, ref: ref_lift.RefBoxes, valid: torch.Tensor) -> tup
     return int(bad.sum()), int(valid.sum())
 
 
-def model_side(detic, sam, classifier, images, cfg, proposals_from=None):
-    """What the reference models give for one keyframe's images: FPN
-    levels, dense maps, cascade stages (from the proposals of
-    `proposals_from`'s dense maps, or its own), embedding."""
-    dev = classifier.device
-    x = normalised(images, dev)
-    h, w = x.shape[1:3]
+def model_side(det, ref, sam, text, images, cfg, prog=None):
+    """What the reference models give for one keyframe's images: the
+    detector's outputs (its module's `reference_side`, from `prog`'s where
+    it takes the program's), and SAM's embedding."""
+    x = normalised(images, next(sam.parameters()).device)
+    out = det.reference_side(ref, text, images, x, cfg, prog)
     with torch.no_grad():
-        # Detic's input zero-padded to multiples of 32 after normalisation
-        levels, hms, regs = detic.dense(F.pad(x, (0, 0, 0, -w % 32, 0, -h % 32)))
-        src = proposals_from or (hms, regs)
-        strides = dict(zip(sorted(levels), cfg["detic"]["strides"]))
-
-        def select(maps):
-            return ref_models.decode_proposals({k: v.float() for k, v in maps[0].items()},
-                                               {k: v.float() for k, v in maps[1].items()},
-                                               strides, cfg["detic"])[0]
-
-        props = select(src)
-        own = select((hms, regs)) if proposals_from is not None else props
-        hw = torch.tensor([images.shape[1:3]] * images.shape[0], device=dev)
-        stages = detic.cascade(levels, props, classifier, hw)
         s = cfg["sam"]
         xs = x
         if not s["rect_encode"]:
             xs = F.pad(x, (0, 0, 0, s["img_size"] - x.shape[2], 0, s["img_size"] - x.shape[1]))
-        emb = torch.cat([sam.image_encoder(xs[i:i + 1]) for i in range(xs.shape[0])])
-    return {"levels": levels, "dense": (hms, regs), "stages": stages, "embedding": emb,
-            "proposal_tie_share": tie_share(props, own)}
-
-
-def tie_share(props: torch.Tensor, own: torch.Tensor) -> float:
-    """The share of `own`'s proposals [B, R, 4] that `props` lacks (no box
-    within 0.5 px in every coordinate, in the same camera)."""
-    gap = (own[:, :, None, :] - props[:, None, :, :]).abs().amax(-1)
-    return float((gap.amin(-1) > 0.5).float().mean())
-
-
-def program_side(cap: dict) -> dict:
-    """The captured outputs of the timed path, in model_side's layout."""
-    n = len([k for k in cap if k.startswith("scores")])
-    return {"levels": cap["levels"][0], "dense": cap["dense"][0],
-            "stages": [(cap[f"scores{i}"][0], cap[f"deltas{i}"][0]) for i in range(n)],
-            "embedding": cap["embedding"]}
-
-
-def compare_models(prog: dict, ref: dict) -> dict:
-    out = {"detic_fpn_rel": max(rel(prog["levels"][k], ref["levels"][k]) for k in ref["levels"])}
-    out["detic_dense_rel"] = max(
-        max(rel(prog["dense"][i][k], ref["dense"][i][k]) for k in ref["dense"][i])
-        for i in range(2))
-    cams = ref["stages"][0][0].shape[0]
-    out["detic_cascade_rel"] = max(
-        rel(p.reshape(cams, -1)[c], r.reshape(cams, -1)[c])
-        for (ps, pd), (rs, rd) in zip(prog["stages"], ref["stages"])
-        for p, r in ((ps, rs), (pd, rd)) for c in range(cams))
-    out["sam_embed_rel"] = rel(prog["embedding"], ref["embedding"])
+        out["embedding"] = torch.cat([sam.image_encoder(xs[i:i + 1]) for i in range(xs.shape[0])])
     return out
+
+
+def program_side(det, cap: dict) -> dict:
+    """The captured outputs of the timed path, in model_side's layout."""
+    return {**det.program_side(cap), "embedding": cap["embedding"]}
+
+
+def compare_models(det, prog: dict, ref: dict) -> dict:
+    return {**det.compare(prog, ref), "sam_embed_rel": rel(prog["embedding"], ref["embedding"])}
 
 
 def worst(rows: list) -> dict:

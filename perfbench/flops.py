@@ -12,7 +12,7 @@ compaction (:428-438, row 1) and the medoid (:311, :495-520, row 2).
 
 from __future__ import annotations
 
-from perfbench.reference.tables import VOCABULARY
+from perfbench import detectors
 
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -44,47 +44,6 @@ def swin_stages(sw: dict, h: int, w: int):
         out.append((i, gh, gw, sw["embed_dim"] * 2 ** i))
         gh, gw = -(-gh // 2), -(-gw // 2)
     return out
-
-
-def detic_work(cfg: dict, images: int, h: int, w: int, quant: bool) -> dict:
-    """Operations of a Detic forward over `images` h x w images."""
-    d, sw = cfg["detic"], cfg["detic"]["swin"]
-    work: dict = {}
-    stages = swin_stages(sw, h, w)
-    _, gh0, gw0, c0 = stages[0]
-    _add(work, "bf16", 2 * images * gh0 * gw0 * 3 * sw["patch_size"] ** 2 * c0)
-    grids = {}
-    for i, gh, gw, c in stages:
-        t = images * gh * gw
-        win, _ = block_window(gh, gw, sw["window_size"], 0)
-        hidden = int(c * sw["mlp_ratio"])
-        for _ in range(sw["depths"][i]):
-            _add(work, "bf16", t * (2 * 3 * c * c + 4 * win * win * c + 2 * c * c))
-            _add(work, "int8" if quant else "bf16", t * 2 * 2 * c * hidden)
-        if i < len(stages) - 1:  # patch merging
-            _add(work, "bf16", 2 * images * (-(-gh // 2)) * (-(-gw // 2)) * 4 * c * 2 * c)
-        grids[i] = (gh, gw, c)
-    f = d["fpn_dim"]
-    levels = []
-    for si in sorted(sw["out_indices"]):
-        gh, gw, c = grids[si]
-        _add(work, "bf16", 2 * images * gh * gw * (c * f + 9 * f * f))
-        levels.append((gh, gw))
-    for _ in range(len(d["strides"]) - len(sw["out_indices"])):
-        gh, gw = levels[-1]
-        gh, gw = -(-gh // 2), -(-gw // 2)
-        _add(work, "bf16", 2 * images * gh * gw * 9 * f * f)
-        levels.append((gh, gw))
-    pos = images * sum(gh * gw for gh, gw in levels)
-    _add(work, "bf16", 2 * pos * 9 * f * f * 2 * d["num_head_convs"])
-    _add(work, "f32", 2 * pos * 9 * f * 5)  # heat map and box regression
-    r, fc, e = images * d["post_nms_topk"], d["fc_dim"], d["embed_dim"]
-    p2 = d["pooler_size"] ** 2
-    for _ in range(d["num_cascade_stages"]):
-        _add(work, "f32", 2 * r * p2 * 4 * 4 * f)  # ROIAlign: 4 samples a bin, 4 taps
-        _add(work, "bf16", 2 * r * (p2 * f * fc + fc * fc))
-        _add(work, "f32", 2 * r * (fc * e + e * len(VOCABULARY) + fc * fc + fc * 4))
-    return work
 
 
 def sam_grid(cfg: dict, h: int, w: int):
@@ -141,12 +100,12 @@ def sam_decoder_work(cfg: dict, gh: int, gw: int) -> dict:
 
 
 def keyframe_work(cfg: dict, traffic: dict):
-    """(operations of a keyframe's Detic and SAM encode, operations of one
-    box's decode) at the traffic's image size."""
+    """(operations of a keyframe's detector and SAM encode, operations of
+    one box's decode) at the traffic's image size."""
     h, w = traffic["image_hw"]
     cams = traffic["cameras"]
     quant = cfg["modes"]["quant_int8"]
-    fixed = detic_work(cfg, cams, h, w, quant)
+    fixed = detectors.of(cfg).work(cfg, traffic, quant)
     gh, gw = sam_grid(cfg, h, w)
     for k, v in sam_encoder_work(cfg, cams, gh, gw, quant).items():
         _add(fixed, k, v)
@@ -154,14 +113,13 @@ def keyframe_work(cfg: dict, traffic: dict):
 
 
 def window_attn_bound_s(cfg: dict, traffic: dict) -> float:
-    """Least seconds of a Detic forward's window-attention branches (the
-    heads launch and the projection, bf16, x read in f32), counted on the
-    real tokens."""
-    sw = cfg["detic"]["swin"]
-    h, w = traffic["image_hw"]
+    """Least seconds of a keyframe's window-attention branches in the
+    detector's Swin (the heads launch and the projection, bf16, x read in
+    f32), counted on the real tokens."""
+    sw, images, h, w = detectors.of(cfg).window_attn_input(cfg, traffic)
     total = 0.0
     for i, gh, gw, c in swin_stages(sw, h, w):
-        tokens = traffic["cameras"] * gh * gw
+        tokens = images * gh * gw
         for j in range(sw["depths"][i]):
             win, _ = block_window(gh, gw, sw["window_size"], 0 if j % 2 == 0 else 1)
             n = win * win

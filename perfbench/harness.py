@@ -3,11 +3,12 @@
     python3 -m perfbench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Everything a cell needs is found by name: the cell in BENCHMARK.json, its
-configuration file, its traffic file (traffic/<mix>.json, whose `loop` picks
-the e2e or the lift loop), its limits (limits/<cell>.json) and each
-per-layer metric's reader (metrics/<name>.py). The last line of standard
-output is the result; the numbers compared for `correct`, each beside its
-limit, close standard error.
+configuration file, the configuration's detector (detectors/<name>.py, by
+its `detector` key; absent: detic), its traffic file (traffic/<mix>.json,
+whose `loop` picks the e2e or the lift loop), its limits (limits/<cell>.json)
+and each per-layer metric's reader (metrics/<name>.py). The last line of
+standard output is the result; the numbers compared for `correct`, each
+beside its limit, close standard error.
 """
 
 from __future__ import annotations
@@ -150,15 +151,13 @@ def run_cell(files: dict, args, t0: float, device, bench: dict) -> tuple:
                           capture_offsets=offsets, trace_frames=trace_len)
     hooks = []
     if e2e_loop:
-        from perfbench import weights
-        from perfbench.reference import models as ref_models
+        from perfbench import checks, detectors, weights
 
-        with torch.device("meta"):
-            skel = {"detic": ref_models.Detic(cfg["detic"]), "sam": ref_models.Sam(cfg["sam"])}
-        state = weights.make_state(skel, seed, device)
-        classifier = weights.classifier(cfg["detic"]["embed_dim"], len(frontend.VOCABULARY),
-                                        seed, device)
-        models, detic_mod, sam_mod = program.build_models(cfg, state, classifier, device, quant)
+        det = detectors.of(cfg)
+        state = weights.make_state(checks.skeleton(det, cfg), seed, device)
+        text = det.text_inputs(cfg, seed, device)
+        models, det_mod, sam_mod = det.port_models(
+            cfg, state, lambda: program.port_sam(cfg, state, device), text, device, quant)
         del state  # made again for the reference, once the window has closed
         stamp("weights and models")
         n_words = -(-cfg["lift"]["max_masks"] // 32)
@@ -171,10 +170,10 @@ def run_cell(files: dict, args, t0: float, device, bench: dict) -> tuple:
                                                   cfg["mask_stage"]["max_detections"], rng))
                 for i, c in enumerate(traffic["warmup_detections"] * (
                     traffic["warmup_frames"] // len(traffic["warmup_detections"])))]
-        mask_cfg = program.port_configs(cfg)[3]
-        swapped = program.swap_content(models, detic_mod, probe, planes, device)
+        mask_cfg = program.mask_config(cfg)
+        swapped = program.swap_content(models, det.captures(det_mod), probe, planes, device)
         if args.trace and quant:
-            hooks = program.int8_ranges(detic_mod) + program.int8_ranges(sam_mod)
+            hooks = program.int8_ranges(det_mod) + program.int8_ranges(sam_mod)
         stamp("images, detections, planes")
         program.run_e2e(swapped, step, mask_cfg, warm, pool, bsz, None, device)
         program.sync(device)
@@ -211,7 +210,7 @@ def run_cell(files: dict, args, t0: float, device, bench: dict) -> tuple:
                   f"{seg['trace'].busy_s():.4f} s", file=sys.stderr)
     # the program's state goes before the reference is built
     if e2e_loop:
-        del models, swapped, detic_mod, sam_mod
+        del models, swapped, det_mod, sam_mod
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -220,8 +219,8 @@ def run_cell(files: dict, args, t0: float, device, bench: dict) -> tuple:
 
     t_ref = time.perf_counter()
     if e2e_loop:
-        state = weights.make_state(skel, seed, device)
-        numbers = check_e2e(cfg, state, classifier, probe, frames, planes, pool, device,
+        state = weights.make_state(checks.skeleton(det, cfg), seed, device)
+        numbers = check_e2e(det, cfg, state, text, probe, frames, planes, pool, device,
                             control == "reference")
         del state
     else:
@@ -275,14 +274,15 @@ def card_note(device) -> str:
     return out.stdout.strip() or out.stderr.strip()
 
 
-def check_e2e(cfg, state, classifier, probe, frames, planes, pool, device, control):
-    """Every sampled keyframe through the reference; the numbers compared."""
+def check_e2e(det, cfg, state, text, probe, frames, planes, pool, device, control):
+    """Every sampled keyframe through the reference (the detector's, of
+    its module `det`, and SAM's); the numbers compared."""
     import torch
 
     from perfbench import checks
     from perfbench.frontend import unpack_planes
 
-    detic, sam = checks.build_reference(cfg, state, device)
+    ref_det, sam = checks.build_reference(det, cfg, state, device)
     rows = []
     for _, cap in sorted(probe.captures.items()):
         i = cap["idx"]
@@ -290,14 +290,13 @@ def check_e2e(cfg, state, classifier, probe, frames, planes, pool, device, contr
         if control:
             # the control: the reference one precision step below, in the
             # program's place
-            checks.set_precision(detic, sam, cfg, True)
-            prog = checks.model_side(detic, sam, classifier, images, cfg)
+            checks.set_precision(det, ref_det, sam, cfg, True)
+            prog = checks.model_side(det, ref_det, sam, text, images, cfg)
         else:
-            prog = checks.program_side(cap)
-        checks.set_precision(detic, sam, cfg, False)
-        ref = checks.model_side(detic, sam, classifier, images, cfg, prog["dense"])
-        row = checks.compare_models(prog, ref)
-        row["proposal_tie_share"] = ref["proposal_tie_share"]
+            prog = checks.program_side(det, cap)
+        checks.set_precision(det, ref_det, sam, cfg, False)
+        ref = checks.model_side(det, ref_det, sam, text, images, cfg, prog)
+        row = checks.compare_models(det, prog, ref)
         boxes, n_boxes, labels, scores, cams = checks.prompts(frames[i].dets, cfg["mask_stage"])
         row["prompt_mismatch"] = float(
             (cap["n_boxes"] != n_boxes).sum()
@@ -307,10 +306,10 @@ def check_e2e(cfg, state, classifier, probe, frames, planes, pool, device, contr
             ref_masks = checks.decode_masks(sam, ref["embedding"], boxes, n_boxes, (h, w),
                                             cfg["sam"]["img_size"])
             if control:
-                checks.set_precision(detic, sam, cfg, True)
+                checks.set_precision(det, ref_det, sam, cfg, True)
                 prog_masks = checks.decode_masks(sam, prog["embedding"], boxes, n_boxes, (h, w),
                                                  cfg["sam"]["img_size"])
-                checks.set_precision(detic, sam, cfg, False)
+                checks.set_precision(det, ref_det, sam, cfg, False)
             else:
                 prog_masks = unpack_planes(cap["planes"], ref_masks.shape[0])
         flips = (prog_masks ^ ref_masks).flatten(1).sum(1)

@@ -1,6 +1,6 @@
 """int8_linear_device_ms_per_kf: device time of what was launched under
 the ranges that forward pre / post hooks open around every QuantLinear of
-the port's Detic and SAM, a keyframe."""
+the port's detector and SAM, a keyframe."""
 
 
 def read(ctx):

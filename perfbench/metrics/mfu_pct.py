@@ -1,5 +1,5 @@
 """mfu_pct: the least time the configuration's model work needs at the
-card's published peaks (flops.py: Detic and the SAM encode a keyframe, the
+card's published peaks (flops.py: the detector and the SAM encode a keyframe, the
 SAM decode a box), for the keyframes delivered in the window after its first
 batch and the boxes decoded for them, over the window's seconds. The window
 of a traced run is untraced: its traced parts come after it."""

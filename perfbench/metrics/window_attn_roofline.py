@@ -1,6 +1,6 @@
-"""window_attn_roofline: the bound of Detic's window-attention
-branches (flops.window_attn_bound_s: the heads launch by operations, the
-projection by bytes) for the keyframes traced, over the device time of what
+"""window_attn_roofline: the bound of the window-attention branches of
+the detector's Swin (flops.window_attn_bound_s: the heads launch by
+operations, the projection by bytes) for the keyframes traced, over the device time of what
 the cm3d_torch window-attention ops launched."""
 
 from perfbench import flops

@@ -17,54 +17,46 @@ from typing import Optional
 import numpy as np
 import torch
 
-from perfbench.reference.tables import VOCABULARY
+
+def tuples(v):
+    """A configuration file's lists as tuples, as the port's configs hold them."""
+    return tuple(tuples(x) for x in v) if isinstance(v, list) else v
 
 
-def _tup(v):
-    return tuple(_tup(x) for x in v) if isinstance(v, list) else v
-
-
-def port_configs(cfg: dict):
-    """(DeticConfig, SamConfig, LiftStageConfig, MaskStageConfig) of the
-    port, from a configuration file's sizes."""
-    from cm3d_tpu_torch.config import LiftStageConfig, MaskStageConfig
-    from cm3d_tpu_torch.models.detic import DeticConfig
+def sam_config(cfg: dict):
     from cm3d_tpu_torch.models.sam import SamConfig
-    from cm3d_tpu_torch.models.swin import SwinConfig
 
-    dt = cfg["precision"]
-    det = {k: _tup(v) for k, v in cfg["detic"].items() if k != "swin"}
-    swin = SwinConfig(**{k: _tup(v) for k, v in cfg["detic"]["swin"].items()}, dtype=dt)
-    detic = DeticConfig(**det, swin=swin, dtype=dt)
-    sam = SamConfig(**{k: _tup(v) for k, v in cfg["sam"].items()}, dtype=dt)
-    lift = LiftStageConfig(**cfg["lift"])
-    mask = MaskStageConfig(**{k: _tup(v) for k, v in cfg["mask_stage"].items()}, dtype=dt)
-    return detic, sam, lift, mask
+    return SamConfig(**{k: tuples(v) for k, v in cfg["sam"].items()}, dtype=cfg["precision"])
 
 
-def build_models(cfg: dict, state: dict, classifier: torch.Tensor, device, quant_int8: bool):
-    """(MaskModels, Detic module, Sam module) of the port, holding the
-    benchmark's weights; the int8 twins derived by the port itself
-    (`quantized_models`) where the configuration serves int8."""
-    from cm3d_tpu_torch.models.detic import Detic
+def lift_config(cfg: dict):
+    from cm3d_tpu_torch.config import LiftStageConfig
+
+    return LiftStageConfig(**cfg["lift"])
+
+
+def mask_config(cfg: dict):
+    from cm3d_tpu_torch.config import MaskStageConfig
+
+    return MaskStageConfig(**{k: tuples(v) for k, v in cfg["mask_stage"].items()},
+                           dtype=cfg["precision"])
+
+
+def port_sam(cfg: dict, state: dict, device):
+    """The port's float SAM, holding the state's weights."""
     from cm3d_tpu_torch.models.sam import Sam
-    from cm3d_tpu_torch.pipelines.masks import _batched_model_fns, quantized_models
 
-    dcfg, scfg, _, _ = port_configs(cfg)
     with torch.device("meta"):
-        detic, sam = Detic(dcfg), Sam(scfg)
-    detic, sam = detic.to_empty(device=device), sam.to_empty(device=device)
-    detic.load_state_dict(state["detic"])
+        sam = Sam(sam_config(cfg))
+    sam = sam.to_empty(device=device)
     sam.load_state_dict(state["sam"])
-    detic, sam = quantized_models(detic, sam, quant_int8)
-    models = _batched_model_fns(detic, classifier.cpu().numpy(), sam, VOCABULARY, device=device)
-    return models, detic, sam
+    return sam
 
 
 def make_step(cfg: dict, device):
     from cm3d_tpu_torch.parallel import make_keyframe_step_fn
 
-    return make_keyframe_step_fn(port_configs(cfg)[2], device=device)
+    return make_keyframe_step_fn(lift_config(cfg), device=device)
 
 
 def port_keyframe(kf: dict, **override):
@@ -179,17 +171,17 @@ class Probe:
         return last - first, sum(self.boxes.get(d, 0) for d in range(first, last))
 
 
-def swap_content(models, detic_mod, probe: Probe, planes: dict, device):
+def swap_content(models, captured: list, probe: Probe, planes: dict, device):
     """MaskModels whose detections and decoded planes are the frame's
-    swapped-in ones (benchmarks.py `_realistic_load`, copied): Detic, the
-    SAM encode and the SAM decode run in full on the stream, and the
-    swapped tensors are queued behind them. Captures the dense outputs of
-    the frames the probe samples, and opens and closes the traced parts."""
+    swapped-in ones (benchmarks.py `_realistic_load`, copied): the detector,
+    the SAM encode and the SAM decode run in full on the stream, and the
+    swapped tensors are queued behind them. Captures the outputs of the
+    `captured` (key, submodule) pairs of the detector for the frames the
+    probe samples, and opens and closes the traced parts."""
     from cm3d_tpu_torch.datasets.types import to_device
 
     raw_detic, raw_enc, raw_dec = models.detic, models.sam_encode, models.sam_decode_planes
     state = {"frame": None, "capture": None}
-    heads = detic_mod.roi_heads.box_predictor
 
     def _hooks(cap):
         def keep(key):
@@ -197,11 +189,7 @@ def swap_content(models, detic_mod, probe: Probe, planes: dict, device):
                 cap.setdefault(key, []).append(_clone(out))
             return hook
 
-        mods = [("levels", detic_mod.backbone),
-                ("dense", detic_mod.proposal_generator.centernet_head)]
-        mods += [(f"scores{i}", p.cls_score) for i, p in enumerate(heads)]
-        mods += [(f"deltas{i}", p.bbox_pred) for i, p in enumerate(heads)]
-        return [m.register_forward_hook(keep(k)) for k, m in mods]
+        return [m.register_forward_hook(keep(k)) for k, m in captured]
 
     def detic(frame):
         images = frame["images"]

@@ -836,27 +836,32 @@ class Sam(nn.Module):
 
 
 # layers the port computes in float32 whatever the configuration's dtype
-F32_LAYERS = ("proposal_generator.centernet_head.agn_hm", "proposal_generator.centernet_head."
-              "bbox_pred", "roi_heads.box_predictor.", "mask_decoder.iou_prediction_head.")
+DETIC_F32_LAYERS = ("proposal_generator.centernet_head.agn_hm",
+                    "proposal_generator.centernet_head.bbox_pred", "roi_heads.box_predictor.")
+SAM_F32_LAYERS = ("mask_decoder.iou_prediction_head.",)
 
 
-def set_precision_(detic: Detic, sam: Sam, int_bits: int, int_layers: bool, low: bool):
-    """Each layer's precision: the configuration's int8 layers (Swin's MLPs,
-    SAM's encoder qkv / proj / MLP, when `int_layers`) at `int_bits` (0:
-    float); with `low`, every other layer the port computes in bfloat16 in
-    float8 (the control)."""
-    quant = set()
-    if int_layers:
-        for layer in detic.backbone.bottom_up.layers:
-            for blk in layer.blocks:
-                quant |= {blk.mlp.fc1, blk.mlp.fc2}
-        for blk in sam.image_encoder.blocks:
-            quant |= {blk.attn.qkv, blk.attn.proj, blk.mlp.lin1, blk.mlp.lin2}
-    for root in (detic, sam):
-        for name, m in root.named_modules():
-            if not isinstance(m, (Linear, Conv, Up2x2)):
-                continue
-            f32 = any(name.startswith(p) for p in F32_LAYERS)
-            if isinstance(m, Linear):
-                m.bits = int_bits if m in quant else 0
-            m.fp8 = low and not f32 and m not in quant
+def detic_int8_layers(detic: Detic) -> set:
+    """The layers of the configurations that serve int8: Swin's MLPs."""
+    return {fc for layer in detic.backbone.bottom_up.layers for blk in layer.blocks
+            for fc in (blk.mlp.fc1, blk.mlp.fc2)}
+
+
+def sam_int8_layers(sam: Sam) -> set:
+    """The layers of the configurations that serve int8: SAM's encoder qkv,
+    proj and MLP."""
+    return {lin for blk in sam.image_encoder.blocks
+            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.lin1, blk.mlp.lin2)}
+
+
+def set_precision_(root: nn.Module, f32_layers: tuple, quant: set, int_bits: int, low: bool):
+    """Each layer's precision: the layers in `quant` at `int_bits` (0:
+    float); with `low`, every other layer the port computes in bfloat16
+    (all but those under `f32_layers`) in float8 (the control)."""
+    for name, m in root.named_modules():
+        if not isinstance(m, (Linear, Conv, Up2x2)):
+            continue
+        f32 = any(name.startswith(p) for p in f32_layers)
+        if isinstance(m, Linear):
+            m.bits = int_bits if m in quant else 0
+        m.fp8 = low and not f32 and m not in quant

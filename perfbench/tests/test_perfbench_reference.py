@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from perfbench import checks, flops, frontend, program, weights
+from perfbench.detectors import detic
 from perfbench.reference import models as ref_models
 from perfbench.tests import tiny
 
@@ -17,9 +18,9 @@ DEV = torch.device("cpu")
 
 def _models(cfg, seed=5):
     with torch.device("meta"):
-        skel = {"detic": ref_models.Detic(cfg["detic"]), "sam": ref_models.Sam(cfg["sam"])}
+        skel = {**detic.skeleton(cfg), "sam": ref_models.Sam(cfg["sam"])}
     state = weights.make_state(skel, seed, DEV, dtype=torch.float32)
-    return state, weights.classifier(cfg["detic"]["embed_dim"], 19, seed, DEV)
+    return state, detic.text_inputs(cfg, seed, DEV)
 
 
 def test_same_seed_same_inputs_other_seed_other_inputs():
@@ -61,35 +62,29 @@ def test_reference_models_match_the_ports_float32_modules(conf):
 
     cfg = dict(tiny.load(conf), precision="float32")
     state, clf = _models(cfg)
-    dcfg, scfg, _, _ = program.port_configs(cfg)
+    dcfg, scfg = detic.port_config(cfg), program.sam_config(cfg)
     import dataclasses
     dcfg = dataclasses.replace(dcfg, swin=dataclasses.replace(dcfg.swin, fused_attn=False))
     pdet, psam = Detic(dcfg).eval(), Sam(scfg).eval()
     pdet.load_state_dict(state["detic"])
     psam.load_state_dict(state["sam"])
-    rdet, rsam = checks.build_reference(cfg, state, DEV)
+    rdet, rsam = checks.build_reference(detic, cfg, state, DEV)
     images = np.random.default_rng(0).integers(0, 255, (2, 64, 64, 3)).astype(np.uint8)
     x = checks.normalised(images, DEV)
     cap = {}
-    hooks = [pdet.backbone.register_forward_hook(lambda m, i, o: cap.setdefault("levels", o)),
-             pdet.proposal_generator.centernet_head.register_forward_hook(
-                 lambda m, i, o: cap.setdefault("dense", o))]
-    for i, p in enumerate(pdet.roi_heads.box_predictor):
-        hooks.append(p.cls_score.register_forward_hook(
-            lambda m, i_, o, i=i: cap.setdefault(f"scores{i}", o)))
-        hooks.append(p.bbox_pred.register_forward_hook(
-            lambda m, i_, o, i=i: cap.setdefault(f"deltas{i}", o)))
+    hooks = [m.register_forward_hook(lambda m_, i_, o, k=k: cap.setdefault(k, []).append(o))
+             for k, m in detic.captures(pdet)]
     with torch.no_grad():
         pdet(x, clf)
-        emb = psam.encode_image(x if cfg["sam"]["rect_encode"] else x)
-    prog = {"levels": cap["levels"], "dense": cap["dense"], "embedding": emb,
-            "stages": [(cap[f"scores{i}"], cap[f"deltas{i}"]) for i in range(3)]}
-    ref = checks.model_side(rdet, rsam, clf, images, cfg, prog["dense"])
-    got = checks.compare_models(prog, ref)
+        cap["embedding"] = psam.encode_image(x if cfg["sam"]["rect_encode"] else x)
+    prog = checks.program_side(detic, cap)
+    ref = checks.model_side(detic, rdet, rsam, clf, images, cfg, prog)
+    got = checks.compare_models(detic, prog, ref)
+    got.pop("proposal_tie_share")  # read beside the numbers, compared with nothing
     assert max(got.values()) < 1e-4, got
     with torch.no_grad():
         boxes = torch.tensor([[4.0, 5.0, 30.0, 40.0], [10.0, 2.0, 60.0, 20.0]])
-        lp, _ = psam.decode_boxes(emb[0], boxes)
+        lp, _ = psam.decode_boxes(cap["embedding"][0], boxes)
         lr = rsam.decode_boxes(ref["embedding"][0], boxes)
     assert checks.rel(lp, lr) < 1e-4
 

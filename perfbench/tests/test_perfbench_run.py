@@ -125,7 +125,8 @@ def test_a_run_loads_no_jax_and_the_reference_nothing_of_the_program():
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     code = ("import sys, json; import perfbench.checks, perfbench.reference.models, "
-            "perfbench.reference.lift, perfbench.flops, perfbench.frontend, perfbench.weights; "
+            "perfbench.reference.lift, perfbench.flops, perfbench.frontend, perfbench.weights, "
+            "perfbench.detectors.detic; "
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'cm3d_tpu_torch', 'cm3d_tpu', 'jax', 'jaxlib'})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -31,9 +31,14 @@ def files(cell: str, limits: dict | None = None) -> dict:
             "limits": limits if limits is not None else load("limits")[cell]}
 
 
+EVERY_CELL = ("device_idle_pct", "peak_mem_gib")  # per-layer metrics the tiny cells report
+
+
 def bench() -> dict:
     spec = harness.spec()
     spec["end_to_end"] = [dict(m, workloads=list(CELLS)) for m in spec["end_to_end"]]
+    spec["per_layer"] = [dict(m, workloads=list(CELLS)) if m["name"] in EVERY_CELL else m
+                         for m in spec["per_layer"]]
     return spec
 
 
